@@ -5,18 +5,23 @@
 
 Builds the port's Hopper kernels from `ray_tpu_torch/csrc/` (nvcc,
 sm_90a), holds each against its plain PyTorch version on the card, then
-drives the port's main path at the full width of GPT-2 small (124M,
-random weights from a fixed seed): scoring (`gpt2_forward` logits and
+drives the port's paths at the full width of GPT-2 small (124M, random
+weights from fixed seeds): scoring (`gpt2_forward` logits and
 `gpt2_loss`, bf16, tokens [4, 512]) and continuous-batching serving
 (`ContinuousBatchingEngine`, 6 concurrent greedy requests, once in fp32
-and once in bf16). Every phase
-prints one JSON line; a phase that fails ends the run with a non-zero
-exit code and no result line. The line before last lists each kernel
-with its launches on the main path, its error against the plain
-version, its time, the plain version's and the library's time and the
-card's bound; the last line is {"ok": true, "device": {...}}.
+and once in bf16); then training, the main path of the second slice:
+one step's gradients against the same weights in fp32 on the CPU
+(`train_check`), and `TrainStep` + `adamw` at tokens [8, 1024], a
+warm-up step and 10 timed steps (`train`). Every phase prints one JSON
+line; a phase that fails ends the run with a non-zero exit code and no
+result line. The line before last lists each kernel with its launches
+on the training path, its error against the plain version, its time,
+the plain version's and the library's time and the card's bound; the
+last line is {"ok": true, "device": {...}}.
 
-Times are CUDA-event medians on the card named on the second line of
+Times are CUDA-event medians (kernels: a CUDA graph of launches
+replayed between events; SDPA's backward, which a graph cannot capture:
+its kernels' CUPTI durations) on the card named on the first line of
 output (name and power limit from nvidia-smi); bounds use the H100 SXM
 data-sheet peaks (989 TFLOP/s dense bf16, 3.35 TB/s HBM3).
 """
@@ -45,6 +50,18 @@ CE_TOL = 2e-3            # fp32 loss / lse of bf16 products, d = 768
 # these bounds leave ~3x and ~25x of room
 LOGITS_TOL = 0.1
 LOSS_TOL = 5e-3
+# bf16 attention gradients against the plain fp32 backward, atol and rtol,
+# as tests/test_ops.py:87-89 for bf16 gradients
+GRAD_TOL = 5e-2
+# CE backward: the kernels' fp32 products (P W, P^T xg) against the plain
+# version's, and the finished bf16 dx and dW against the plain backward:
+# largest error over the largest magnitude of the reference; P enters
+# the kernels' second product rounded to bf16 (2^-9 of each term), and a
+# kernel that wrote zeros would be 1.0 off
+CE_GRAD_TOL = 2e-2
+# one training step in bf16 on the card against the same weights in fp32
+# on the CPU: per parameter, |g_card - g_cpu| / |g_cpu| (Frobenius norms)
+TRAIN_GRAD_TOL = 5e-2
 # bf16 serving against the same weights in fp32 on the CPU, fed the
 # engine's own tokens: each emitted token's logprob as the engine reports
 # it, within LOGITS_TOL of the fp32 logprob of that token; and the token a
@@ -113,6 +130,25 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of fn, for work a CUDA graph cannot
+    capture (autograd's backward): the sum of its kernels' durations as
+    CUPTI reports them through torch.profiler, gaps between kernels left
+    out, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device activity")
+    return us / 1e3 / calls
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -148,27 +184,27 @@ def phase_build(kernels) -> None:
           "compiled": sorted(logs), "ptxas": ptxas})
 
 
-def phase_flash(kernels, attention, gen) -> dict:
+def qkv(gen, b, tq, tk, h, d) -> list:
+    """bf16 q, k, v on the card; for tq == tk as the model makes them:
+    head views of one fused product."""
     dev = torch.device("cuda")
-
-    def qkv(b, tq, tk, h, d):
-        # q, k, v as the model makes them: head views of a fused product
-        if tq == tk:
-            fused = torch.randn(b, tq, 3 * h * d, generator=gen,
-                                device=dev).to(torch.bfloat16)
-            return [t.reshape(b, tq, h, d)
-                    for t in fused.split(h * d, dim=-1)]
-        return [torch.randn(b, t, h, d, generator=gen,
+    if tq == tk:
+        fused = torch.randn(b, tq, 3 * h * d, generator=gen,
                             device=dev).to(torch.bfloat16)
-                for t in (tq, tk, tk)]
+        return [t.reshape(b, tq, h, d) for t in fused.split(h * d, dim=-1)]
+    return [torch.randn(b, t, h, d, generator=gen,
+                        device=dev).to(torch.bfloat16)
+            for t in (tq, tk, tk)]
 
+
+def phase_flash(kernels, attention, gen) -> dict:
     cases = [(4, 512, 512, 12, 64, True),    # GPT-2 small, the main path
              (2, 128, 640, 12, 64, True),    # tq < tk: end-aligned mask
              (2, 256, 256, 8, 128, False),   # non-causal, head_dim 128
              (2, 300, 300, 12, 64, True)]    # ragged length
     results = []
     for b, tq, tk, h, d, causal in cases:
-        q, k, v = qkv(b, tq, tk, h, d)
+        q, k, v = qkv(gen, b, tq, tk, h, d)
         o, lse = kernels.flash_fwd(q, k, v, causal, d ** -0.5)
         torch.cuda.synchronize()
         ref = attention.mha_reference(q, k, v, causal)
@@ -187,7 +223,7 @@ def phase_flash(kernels, attention, gen) -> dict:
         results.append({"shape": [b, tq, tk, h, d], "causal": causal,
                         "max_abs_err": err, "lse_max_abs_err": lse_err})
     b, t, h, d = 4, 512, 12, 64
-    q, k, v = qkv(b, t, t, h, d)
+    q, k, v = qkv(gen, b, t, t, h, d)
     pairs = t * (t + 1) / 2  # visible (query, key) pairs under the mask
     flops = 4 * b * h * d * pairs
     nbytes = 4 * b * t * h * d * 2 + b * h * t * 4
@@ -281,15 +317,242 @@ def phase_ce(kernels, fused_ce, gen) -> dict:
             "library_ms": lib_ms}
 
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+def phase_flash_bwd(kernels, attention, gen) -> list:
+    """flash_bwd_dq and flash_bwd_dkv against the plain backward, from
+    the same q, k, v, dO and the forward kernel's O and LSE."""
+    dev = torch.device("cuda")
+    cases = [(8, 1024, 1024, 12, 64, True),   # GPT-2 small training
+             (2, 300, 300, 12, 64, True),     # ragged length
+             (2, 128, 384, 12, 64, True),     # tq < tk: end-aligned mask
+             (2, 256, 256, 8, 64, False),     # non-causal
+             (2, 256, 256, 8, 128, True)]     # head_dim 128
+    results = []
+    for b, tq, tk, h, d, causal in cases:
+        q, k, v = qkv(gen, b, tq, tk, h, d)
+        do = torch.randn(b, tq, h, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        scale = d ** -0.5
+        o, lse = kernels.flash_fwd(q, k, v, causal, scale)
+        # the forward at the training shapes, before its O and LSE feed
+        # both the kernels and the plain backward
+        fwd_ref = attention.mha_reference(q, k, v, causal, scale)
+        lse_ref = torch.logsumexp(
+            attention._masked_logits(q, k, causal, scale),
+            dim=-1).reshape(b * h, tq)
+        o_err, lse_err = max_err(o, fwd_ref), max_err(lse, lse_ref)
+        check(torch.allclose(o.float(), fwd_ref.float(), atol=BF16_TOL,
+                             rtol=BF16_TOL) and lse_err <= LSE_TOL,
+              f"flash_fwd {(b, tq, tk, h, d, causal)}: err {o_err}, "
+              f"lse err {lse_err}")
+        del fwd_ref, lse_ref
+        dcor = attention.softmax_correction(o, do)
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, dcor, causal, scale)
+        dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, dcor, causal, scale)
+        torch.cuda.synchronize()
+        ref = attention._flash_bwd_reference(q, k, v, o, lse, do, causal,
+                                             scale)
+        got = (dq, dk, dv)
+        errs = [max_err(a, r) for a, r in zip(got, ref)]
+        check(all(torch.isfinite(a.float()).all().item() for a in got),
+              "flash_bwd: non-finite gradient")
+        close = all(torch.allclose(a.float(), r.float(), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL) for a, r in zip(got, ref))
+        check(close, f"flash_bwd {(b, tq, tk, h, d, causal)}: errors {errs}")
+        results.append({"shape": [b, tq, tk, h, d], "causal": causal,
+                        "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
+                        "dv_max_abs_err": errs[2],
+                        "ref_max_abs": max(float(r.float().abs().max())
+                                           for r in ref)})
+        if len(results) == 1:
+            main = (q, k, v, o, lse, do, dcor)
+    q, k, v, o, lse, do, dcor = main
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    pairs = b * h * t * (t + 1) / 2  # visible (query, key) pairs
+    tensor = b * t * h * d * 2
+    rows = b * h * t * 4             # one fp32 value per query row
+    dq_bound = bound(6 * d * pairs, 5 * tensor + 2 * rows)
+    dkv_bound = bound(8 * d * pairs, 6 * tensor + 2 * rows)
+
+    def dq_fn():
+        return kernels.flash_bwd_dq(q, k, v, do, lse, dcor, True, scale)
+
+    def dkv_fn():
+        return kernels.flash_bwd_dkv(q, k, v, do, lse, dcor, True, scale)
+
+    dq_ms, dkv_ms = graph_ms(dq_fn), graph_ms(dkv_fn)
+    dq_host, dkv_host = median_ms(dq_fn), median_ms(dkv_fn)
+    plain_ms = graph_ms(lambda: attention._flash_bwd_reference(
+        q, k, v, o, lse, do, True, scale), reps=2, iters=5)
+    # the library's yardstick: SDPA's backward for dQ, dK and dV together
+    # (autograd; device time from CUPTI)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    emit({"phase": "flash_bwd", "tol": GRAD_TOL, "fwd_tol": BF16_TOL,
+          "lse_tol": LSE_TOL, "cases": results,
+          "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_host_paced_ms": dq_host,
+          "dkv_host_paced_ms": dkv_host, "plain_ms_dq_dk_dv": plain_ms,
+          "library_ms_dq_dk_dv": lib_ms, "dq_bound_ms": dq_bound[0],
+          "dkv_bound_ms": dkv_bound[0],
+          "dq_tflops": 6 * d * pairs / dq_ms / 1e9,
+          "dkv_tflops": 8 * d * pairs / dkv_ms / 1e9})
+    main_case = results[0]
+    common = {"route": "cuda", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+              "plain_ms": plain_ms, "library_ms": lib_ms}
+    return [{**common, "name": "flash_bwd_dq",
+             "replaces": "ray_tpu/ops/attention.py:197",
+             "max_abs_err": main_case["dq_max_abs_err"], "ms": dq_ms,
+             "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+            {**common, "name": "flash_bwd_dkv",
+             "replaces": "ray_tpu/ops/attention.py:251",
+             "max_abs_err": max(main_case["dk_max_abs_err"],
+                                main_case["dv_max_abs_err"]),
+             "ms": dkv_ms, "bound_ms": dkv_bound[0],
+             "bound_by": dkv_bound[1]}]
 
 
-def phase_score(kernels, gpt2):
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return max_err(a, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def phase_ce_bwd(kernels, fused_ce, gen) -> list:
+    """ce_dx and ce_dw against the plain version of their own products
+    (P W and P^T xg in fp32), from the forward kernel's LSE, which is held
+    against the plain forward first; then the finished gradients (the
+    one-hot terms and scaling added as the model's backward adds them)
+    against the plain backward."""
+    dev = torch.device("cuda")
+
+    def inputs(n, d, v, vocab):
+        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(v, d, generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        t = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+        g = torch.rand(n, generator=gen, device=dev) / n
+        loss, lse = kernels.ce_fwd(x, w, t, vocab)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = fused_ce._ce_reference(x, w, t, vocab)
+        fwd_err = max(max_err(loss, ref_loss), max_err(lse, ref_lse))
+        check(fwd_err <= CE_TOL, f"ce_fwd {(n, d, v, vocab)}: err {fwd_err}")
+        return (x, w, t, lse, g), fwd_err
+
+    def compare(args, vocab):
+        x, w, t, lse, g = args
+        xg = (x.float() * g[:, None]).to(x.dtype)
+        got = (kernels.ce_dx(x, w, lse, vocab),
+               kernels.ce_dw(x, w, xg, lse, vocab))
+        torch.cuda.synchronize()
+        want = fused_ce._ce_bwd_products(x, w, xg, lse, vocab)
+        check(all(torch.isfinite(a).all().item() for a in got),
+              "ce_bwd: non-finite product")
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        rels = [rel_err(a, b) for a, b in zip(got, want)]
+        check(max(rels) <= CE_GRAD_TOL, f"ce_bwd: errors {errs}, {rels}")
+        check(not got[1][vocab:].any().item(), "ce_dw: padded rows not zero")
+        del got, want
+        grads = fused_ce._ce_bwd_kernels(*args, vocab)
+        grad_rels = [rel_err(a, b) for a, b in
+                     zip(grads, fused_ce._ce_bwd_reference(*args, vocab))]
+        check(max(grad_rels) <= CE_GRAD_TOL,
+              f"ce_bwd gradients: relative errors {grad_rels}")
+        return xg, errs, rels, grad_rels
+
+    # ragged rows and a padded vocab, before the main shape
+    small_args, small_fwd_err = inputs(100, 128, 640, 600)
+    _, small_errs, small_rels, small_grad_rels = compare(small_args, 600)
+    n, d, v, vocab = 8192, 768, 50304, 50257
+    args, fwd_err = inputs(n, d, v, vocab)
+    x, w, t, lse, g = args
+    xg, errs, rels, grad_rels = compare(args, vocab)
+    # padding rows of w are never read: poison them and expect the same
+    # bits from both kernels (the scatter of the one-hot rows uses
+    # atomics, so the check is on the kernels' own outputs)
+    w_poison = w.clone()
+    w_poison[vocab:vocab + 20] = float("nan")
+    w_poison[vocab + 20:] = 1e4
+    for fn in (lambda w_: kernels.ce_dx(x, w_, lse, vocab),
+               lambda w_: kernels.ce_dw(x, w_, xg, lse, vocab)):
+        check(torch.equal(fn(w_poison), fn(w)),
+              "ce_bwd: padded vocab rows reached the gradients")
+
+    def probs():
+        # the library's route to P: fp32-out product, mask, softmax
+        lg = torch.mm(x, w.T, out_dtype=torch.float32)
+        lg[:, vocab:] = -math.inf
+        return torch.softmax(lg, dim=-1).to(torch.bfloat16)
+
+    def lib_dx():
+        return torch.mm(probs(), w, out_dtype=torch.float32)
+
+    def lib_dw():
+        return torch.mm(probs().T, xg, out_dtype=torch.float32)
+
+    lib_err = max(rel_err(lib_dx(), kernels.ce_dx(x, w, lse, vocab)),
+                  rel_err(lib_dw(), kernels.ce_dw(x, w, xg, lse, vocab)))
+    check(lib_err <= CE_GRAD_TOL, f"ce_bwd library yardstick: {lib_err}")
+    dx_ms = graph_ms(lambda: kernels.ce_dx(x, w, lse, vocab), reps=3,
+                     iters=5)
+    dw_ms = graph_ms(lambda: kernels.ce_dw(x, w, xg, lse, vocab), reps=3,
+                     iters=5)
+    plain_ms = graph_ms(lambda: fused_ce._ce_bwd_reference(*args, vocab),
+                        reps=1, iters=3)
+    lib_dx_ms = graph_ms(lib_dx, reps=2, iters=5)
+    lib_dw_ms = graph_ms(lib_dw, reps=2, iters=5)
+    # at the scoring shape's N (2048 rows) ce_dx has 64 CTAs for the
+    # card's 132 SMs, ce_dw its usual 1572
+    (xs, ws, _, lses, gs), _ = inputs(2048, d, v, vocab)
+    xgs = (xs.float() * gs[:, None]).to(xs.dtype)
+    dx_ms_2048 = graph_ms(lambda: kernels.ce_dx(xs, ws, lses, vocab),
+                          reps=3, iters=5)
+    dw_ms_2048 = graph_ms(lambda: kernels.ce_dw(xs, ws, xgs, lses, vocab),
+                          reps=3, iters=5)
+    flops = 4 * n * vocab * d
+    dx_bound = bound(flops, x.numel() * 2 + w.numel() * 2 + n * 4
+                     + n * d * 4)
+    dw_bound = bound(flops, 2 * x.numel() * 2 + w.numel() * 2 + n * 4
+                     + v * d * 4)
+    emit({"phase": "ce_bwd", "tol_relative": CE_GRAD_TOL,
+          "fwd_tol": CE_TOL, "shape": [n, d, v, vocab],
+          "small_case": {"shape": [100, 128, 640, 600],
+                         "fwd_max_abs_err": small_fwd_err,
+                         "dx_max_abs_err": small_errs[0],
+                         "dw_max_abs_err": small_errs[1],
+                         "dx_rel_err": small_rels[0],
+                         "dw_rel_err": small_rels[1],
+                         "grad_dx_rel_err": small_grad_rels[0],
+                         "grad_dw_rel_err": small_grad_rels[1]},
+          "fwd_max_abs_err": fwd_err,
+          "dx_max_abs_err": errs[0], "dw_max_abs_err": errs[1],
+          "dx_rel_err": rels[0], "dw_rel_err": rels[1],
+          "grad_dx_rel_err": grad_rels[0], "grad_dw_rel_err": grad_rels[1],
+          "poisoned_padding_unchanged": True,
+          "library_rel_err": lib_err, "dx_ms": dx_ms, "dw_ms": dw_ms,
+          "plain_ms_dx_dw": plain_ms, "library_dx_ms": lib_dx_ms,
+          "library_dw_ms": lib_dw_ms, "dx_bound_ms": dx_bound[0],
+          "dw_bound_ms": dw_bound[0], "dx_tflops": flops / dx_ms / 1e9,
+          "dw_tflops": flops / dw_ms / 1e9, "dx_ms_n2048": dx_ms_2048,
+          "dw_ms_n2048": dw_ms_2048,
+          "dx_tflops_n2048": flops / 4 / dx_ms_2048 / 1e9,
+          "dw_tflops_n2048": flops / 4 / dw_ms_2048 / 1e9})
+    common = {"route": "cuda", "source": "ray_tpu_torch/csrc/ce_bwd.cu",
+              "plain_ms": plain_ms}
+    return [{**common, "name": "ce_dx",
+             "replaces": "ray_tpu/ops/fused_ce.py:146",
+             "max_abs_err": errs[0], "ms": dx_ms, "bound_ms": dx_bound[0],
+             "bound_by": dx_bound[1], "library_ms": lib_dx_ms},
+            {**common, "name": "ce_dw",
+             "replaces": "ray_tpu/ops/fused_ce.py:178",
+             "max_abs_err": errs[1], "ms": dw_ms, "bound_ms": dw_bound[0],
+             "bound_by": dw_bound[1], "library_ms": lib_dw_ms}]
+
+
+def phase_score(kernels, gpt2, tree):
     """The scoring entry points on the kernel path; the launch counts
     are read by the caller after the serve phase."""
     cfg = gpt2.GPT2Config.small()
@@ -305,15 +568,16 @@ def phase_score(kernels, gpt2):
     after_fwd = dict(kernels.LAUNCHES)
     loss = float(gpt2.gpt2_loss(params, tok_d, tgt_d, cfg))
     after_loss = dict(kernels.LAUNCHES)
-    check(after_fwd == {"flash_fwd": cfg.num_layers, "ce_fwd": 0},
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
+    check(after_fwd == {**none, "flash_fwd": cfg.num_layers},
           f"forward launches {after_fwd}")
-    check(after_loss == {"flash_fwd": 2 * cfg.num_layers, "ce_fwd": 1},
-          f"loss launches {after_loss}")
+    check(after_loss == {**none, "flash_fwd": 2 * cfg.num_layers,
+                         "ce_fwd": 1}, f"loss launches {after_loss}")
 
     # the same weights through the port's CPU path in fp32: plain PyTorch
     # versions of both kernels, and the chunked loss
     cpu_cfg = gpt2.GPT2Config(dtype=torch.float32)
-    cpu_params = tree_map(lambda p: p.float().cpu(), params)
+    cpu_params = tree.tree_map(lambda p: p.float().cpu(), params)
     t0 = time.perf_counter()
     ref_logits = gpt2.gpt2_forward(cpu_params, tokens, cpu_cfg)
     ref_loss = float(gpt2.gpt2_loss(cpu_params, tokens, targets, cpu_cfg))
@@ -355,6 +619,150 @@ def phase_score_timing(gpt2, params, cfg, tok_d, tgt_d) -> None:
                      f"{name}_ms_max": max(times),
                      f"{name}_tokens_per_s": n / med * 1e3})
     emit(line)
+
+
+def named_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) of a parameter tree, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_train_check(gpt2, tree) -> None:
+    """One step's loss and gradients of GPT-2 small in bf16 on the card
+    (the four backward kernels) against the same weights in fp32 through
+    the port's CPU path (the plain versions)."""
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(4),
+                            device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    targets = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = tree.tree_map(lambda p: p.float().cpu(), params)
+
+    def loss_and_grads(p, c, tok, tgt):
+        leaves = tree.tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_()
+        loss = gpt2.gpt2_loss(p, tok, tgt, c)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss, grads = loss_and_grads(params, cfg, tokens.cuda(), targets.cuda())
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = loss_and_grads(cpu_params, cpu_cfg, tokens,
+                                         targets)
+    cpu_s = time.perf_counter() - t0
+    names = [n for n, _ in named_leaves(params)]
+    errs = {}
+    for name, g, r in zip(names, grads, ref_grads):
+        check(torch.isfinite(g.float()).all().item(), f"{name}: non-finite")
+        errs[name] = float((g.float().cpu() - r).norm()
+                           / max(float(r.norm()), 1e-30))
+    worst = max(errs, key=errs.get)
+    wte_grad = grads[names.index("wte")]
+    check(not wte_grad[cfg.vocab_size:].any().item(),
+          "padded wte rows have a gradient")
+    check(abs(loss - ref_loss) <= LOSS_TOL,
+          f"train_check: loss {loss} vs fp32 CPU {ref_loss}")
+    check(errs[worst] <= TRAIN_GRAD_TOL,
+          f"train_check: {worst} gradient error {errs[worst]}")
+    emit({"phase": "train_check", "model": "gpt2-small", "dtype": "bfloat16",
+          "tokens": [2, 256], "loss": loss, "cpu_fp32_loss": ref_loss,
+          "loss_tol": LOSS_TOL, "grad_rel_err_max": errs[worst],
+          "grad_rel_err_worst_leaf": worst,
+          "grad_rel_err_median": statistics.median(errs.values()),
+          "grad_tol": TRAIN_GRAD_TOL, "padded_wte_grad_zero": True,
+          "cpu_reference_s": cpu_s})
+
+
+TRAIN_STEPS = 10
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                           "flash_bwd_dkv": 12, "ce_fwd": 1, "ce_dx": 1,
+                           "ce_dw": 1}
+
+
+def phase_train(kernels, gpt2) -> dict:
+    """The training path: TrainStep + adamw(3e-4, weight_decay=0.1) on
+    GPT-2 small, bf16, one fixed batch of tokens [8, 1024]: a warm-up
+    step and TRAIN_STEPS timed ones. Launches are counted from 0 over
+    all of them; returns the counts."""
+    from ray_tpu_torch.observability import flops
+    from ray_tpu_torch.observability.step_timer import StepTimer
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import TrainStep
+
+    cfg = gpt2.GPT2Config.small()
+    b, t = 8, 1024
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(6),
+                            device="cuda")
+    seq = torch.randint(0, cfg.vocab_size, (b, t + 1),
+                        generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    fpt = flops.train_flops_per_token(cfg, t)
+    timer = StepTimer()
+    step = TrainStep(
+        lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"], cfg),
+        adamw(3e-4, weight_decay=0.1), flops_per_token=fpt, device="cuda",
+        timer=timer)
+    state = step.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, m = step(state, batch)  # warm-up
+    timer.end_step()
+    losses, times = [float(m["loss"])], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        timer.end_step()
+    launches = dict(kernels.LAUNCHES)
+    steps = TRAIN_STEPS + 1
+    check(all(launches[k] > 0 for k in TRAIN_LAUNCHES_PER_STEP),
+          f"a kernel never launched on the training path: {launches}")
+    check(launches == {k: n * steps for k, n in
+                       TRAIN_LAUNCHES_PER_STEP.items()},
+          f"training launches {launches} over {steps} steps")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    med = statistics.median(times)
+    peak = flops.device_peak_flops(0)
+    flops_per_step = fpt * b * t
+    summary = summarize(timer)
+    emit({"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
+          "tokens": [b, t], "optimizer": "adamw(3e-4, weight_decay=0.1)",
+          "steps_timed": TRAIN_STEPS, "losses": losses,
+          "launches_per_step": {k: n / steps for k, n in launches.items()},
+          "step_ms": med, "step_ms_min": min(times),
+          "step_ms_max": max(times), "tokens_per_s": b * t / med * 1e3,
+          "flops_per_step": flops_per_step, "peak_flops": peak,
+          "mfu": flops.mfu(flops_per_step, med / 1e3, peak),
+          "step_timer": summary,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+def summarize(timer) -> dict:
+    """The StepTimer's view of the timed steps: median device_step and
+    data_wait, and the median MFU its records give."""
+    from ray_tpu_torch.observability.step_timer import summarize_records
+
+    recs = list(timer.records)[1:]
+    phases = summarize_records(recs)["phases"]
+    return {"device_step_p50_ms": phases["device_step"]["p50_ms"],
+            "data_wait_p50_ms": phases["data_wait"]["p50_ms"],
+            "mfu_median": statistics.median(r.get("mfu", 0.0)
+                                            for r in recs)}
 
 
 SERVE_LENGTHS = [8, 40, 77, 120, 160, 200]
@@ -485,7 +893,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    from ray_tpu_torch import kernels
+    from ray_tpu_torch import kernels, tree
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.models import generate as generate_mod
     from ray_tpu_torch.models import gpt2
@@ -503,18 +911,29 @@ def main() -> int:
         phase_build(kernels)
         rows = [phase_flash(kernels, attention, gen),
                 phase_ce(kernels, fused_ce, gen)]
-        # the main path: every count from 0, read after both entry points
+        # the scoring and serving path: every count from 0, read after
+        # both entry points
         kernels.reset_launches()
-        params, cpu_params, cfg, tok_d, tgt_d = phase_score(kernels, gpt2)
+        params, cpu_params, cfg, tok_d, tgt_d = phase_score(kernels, gpt2,
+                                                            tree)
         phase_serve_fp32(gpt2, engine_mod, generate_mod)
         phase_serve_bf16(gpt2, engine_mod, generate_mod, params, cpu_params,
                          cfg)
         launches = dict(kernels.LAUNCHES)
-        for row in rows:
-            row["launches"] = launches[row["name"]]
-            check(row["launches"] > 0,
-                  f"{row['name']} never launched on the main path")
+        for name in ("flash_fwd", "ce_fwd"):
+            check(launches[name] > 0,
+                  f"{name} never launched on the scoring path")
         phase_score_timing(gpt2, params, cfg, tok_d, tgt_d)
+    del params, cpu_params
+    # training needs autograd, so it runs outside inference mode and on
+    # parameters of its own
+    rows += phase_flash_bwd(kernels, attention, gen)
+    rows += phase_ce_bwd(kernels, fused_ce, gen)
+    phase_train_check(gpt2, tree)
+    # the training path, the main path of this slice: counts from 0
+    launches = phase_train(kernels, gpt2)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

@@ -25,12 +25,9 @@
 //     on 132 SMs), so the vocab is split across `splits` CTAs per row
 //     tile; each warp writes its partial (max, sum, target) per row and a
 //     second, tiny kernel merges them into loss and LSE.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace port;
 
 namespace {
 
@@ -40,43 +37,11 @@ constexpr int KC = 64;        // d chunk of a staged W tile
 constexpr int THREADS = 256;  // 8 warps: 2 row halves x 4 column quarters
 constexpr int LDW = KC + 8;   // bf16 row stride of a W chunk
 constexpr int WCHUNK = BV * LDW;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr int MAX_DEVICES = 64;
 
 __host__ __device__ inline int ldx(int d) { return d + 8; }
 
 __host__ __device__ inline int smem_bytes(int d) {
   return (BN * ldx(d) + 2 * WCHUNK) * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; `valid` false zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // W rows [v0, v0 + BV) x columns [kd0, kd0 + kc) into a padded chunk;
@@ -92,13 +57,6 @@ __device__ __forceinline__ void load_w_chunk(bf16* dst, const bf16* w,
     const bf16* src = ok ? w + (long long)(v0 + r) * D + kd0 + c : w;
     cp_async16(dst + r * LDW + c, src, ok);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -280,20 +238,6 @@ __global__ void ce_combine_kernel(const float* __restrict__ part,
   lse[row] = lse_nat;
   loss[row] = lse_nat - tgt;
 }
-
-// Restores the thread's current CUDA device when it leaves scope, so a
-// launch on `device` leaves the caller's (and PyTorch's) device as it was.
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 

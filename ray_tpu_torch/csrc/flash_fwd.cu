@@ -27,53 +27,15 @@
 //     only tiles that straddle the diagonal or the ragged end of Tk pay for
 //     the mask. Any Tq, Tk: rows and keys past the end are zero-filled
 //     (cp.async with a zero source size) and masked.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace port;
 
 namespace {
 
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per kv tile
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; `valid` false zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 struct Layout {
@@ -243,10 +205,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < D / 8; j += 2) {
         // four 8x8 transposed tiles: keys kk*16 + [0,8) and [8,16) at
@@ -254,11 +213,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* addr =
             tV + (kk * 16 + (lane & 15)) * LD + (j + (lane >> 4)) * 8;
         uint32_t bv[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(bv[0]), "=r"(bv[1]), "=r"(bv[2]), "=r"(bv[3])
-            : "r"(smem_u32(addr)));
+        ldmatrix_x4_trans(bv, addr);
         mma16816(acc_o[j], pa, bv[0], bv[1]);
         mma16816(acc_o[j + 1], pa, bv[2], bv[3]);
       }
@@ -286,22 +241,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (tg == 0) lse[(long long)bh * Tq + row] = (m[r] + log2f(l[r])) * LN2;
   }
 }
-
-constexpr int MAX_DEVICES = 64;
-
-// Restores the thread's current CUDA device when it leaves scope, so a
-// launch on `device` leaves the caller's (and PyTorch's) device as it was.
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 template <int D>
 cudaError_t launch(int device, const bf16* q, const bf16* k, const bf16* v,

@@ -1,8 +1,9 @@
 """Build, bind and launch the port's hand-written Hopper kernels.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into a shared
-library with a plain C interface (`_build/<name>-<source hash>.so`, built
-at first use, all sources compiled in parallel) and loaded with ctypes.
+Each `csrc/<name>.cu` (with the shared `csrc/common.cuh`) is compiled by
+`nvcc` for sm_90a into a shared library with a plain C interface
+(`_build/<name>-<source hash>.so`, built at first use, all sources
+compiled in parallel) and loaded with ctypes.
 Pointers come from `data_ptr()`, the stream from PyTorch's current
 stream. The wrappers check device, dtype, shape, strides and alignment
 and raise on anything the kernel does not take; they allocate outputs
@@ -27,11 +28,13 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("flash_fwd", "ce_fwd")
+_SOURCES = ("flash_fwd", "flash_bwd", "ce_fwd", "ce_bwd")
 _LOG2E = 1.4426950408889634
 
 # launches per kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {name: 0 for name in _SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_fwd", "ce_dx",
+    "ce_dw")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -53,15 +56,23 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     if name == "flash_fwd":
-        fn = lib.flash_fwd_bf16
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 \
-            + [i, f, p]
+        fns = [(lib.flash_fwd_bf16, [i, p, p, p, p, p, i, i, i, i, i]
+                + [ll] * 9 + [i, f, p])]
+    elif name == "flash_bwd":
+        fns = [(lib.flash_bwd_dq_bf16, [i] + [p] * 7 + [i] * 5 + [ll] * 12
+                + [i, f, f, p]),
+               (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 5 + [ll] * 12
+                + [i, f, f, p])]
+    elif name == "ce_fwd":
+        fns = [(lib.ce_fwd_bf16, [i, p, p, p, p, p, p, i, i, i, i, i, p]),
+               (lib.ce_fwd_takes, [i, i])]
     else:
-        fn = lib.ce_fwd_bf16
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.ce_fwd_takes.argtypes = [i, i]
-        lib.ce_fwd_takes.restype = i
-    fn.restype = i
+        fns = [(lib.ce_dx_bf16, [i, p, p, p, p, i, i, i, i, p]),
+               (lib.ce_dw_bf16, [i, p, p, p, p, p, i, i, i, i, p]),
+               (lib.ce_bwd_takes, [i, i])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
+        fn.restype = i
 
 
 def build() -> Dict[str, str]:
@@ -75,7 +86,9 @@ def build() -> Dict[str, str]:
             if name in _libs:
                 continue
             src = _CSRC / f"{name}.cu"
-            digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+            digest = hashlib.sha1(
+                src.read_bytes() + (_CSRC / "common.cuh").read_bytes()
+            ).hexdigest()[:12]
             so = _BUILD / f"{name}-{digest}.so"
             proc = None
             if not so.exists():
@@ -114,14 +127,43 @@ def _launched(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def _bthd_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+def _bthd_strides(t: torch.Tensor, kernel: str, name: str
+                  ) -> Tuple[int, int, int]:
     """(batch, time, head) strides in elements of a [B, T, H, D] tensor,
     checked for the kernel's 16-byte vector loads."""
     sb, st, sh, sd = t.stride()
     if sd != 1 or sb % 8 or st % 8 or sh % 8 or t.data_ptr() % 16:
-        raise ValueError(f"flash_fwd: {name} needs unit stride on head_dim "
+        raise ValueError(f"{kernel}: {name} needs unit stride on head_dim "
                          f"and 16-byte aligned rows, got {t.stride()}")
     return sb, st, sh
+
+
+def _flash_check(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, causal: bool
+                 ) -> Tuple[int, int, int, int, int]:
+    """Checks shared by the attention kernels; returns (B, Tq, Tk, H, D)."""
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev):
+        raise ValueError(f"{kernel}: q, k, v must be CUDA tensors on one "
+                         f"device")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise ValueError(f"{kernel}: bf16 only, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{kernel}: q [B, Tq, H, D], k/v [B, Tk, H, D]")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError(f"{kernel}: k/v shape {tuple(k.shape)} vs q "
+                         f"{tuple(q.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"{kernel}: head_dim {d} not in (64, 128)")
+    if tq == 0 or tk == 0 or b * h == 0:
+        raise ValueError(f"{kernel}: empty input")
+    if causal and tq > tk:
+        raise ValueError(f"{kernel}: causal attention needs tq <= tk "
+                         f"(queries align to the end of the kv sequence)")
+    return b, tq, tk, h, d
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,29 +172,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention forward on the card. q [B, Tq, H, D], k/v [B, Tk, H, D],
     bf16 CUDA tensors, D 64 or 128. Returns O [B, Tq, H, D] bf16 and the
     natural-log LSE [B*H, Tq] fp32."""
+    b, tq, tk, h, d = _flash_check("flash_fwd", q, k, v, causal)
     dev = q.device
-    if not (q.is_cuda and k.device == dev and v.device == dev):
-        raise ValueError("flash_fwd: q, k, v must be CUDA tensors on one "
-                         "device")
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise ValueError(f"flash_fwd: bf16 only, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_fwd: q [B, Tq, H, D], k/v [B, Tk, H, D]")
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"flash_fwd: k/v shape {tuple(k.shape)} vs q "
-                         f"{tuple(q.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_fwd: head_dim {d} not in (64, 128)")
-    if tq == 0 or tk == 0 or b * h == 0:
-        raise ValueError("flash_fwd: empty input")
-    if causal and tq > tk:
-        raise ValueError("flash_fwd: causal attention needs tq <= tk "
-                         "(queries align to the end of the kv sequence)")
-    strides = (_bthd_strides(q, "q") + _bthd_strides(k, "k")
-               + _bthd_strides(v, "v"))
+    strides = (_bthd_strides(q, "flash_fwd", "q")
+               + _bthd_strides(k, "flash_fwd", "k")
+               + _bthd_strides(v, "flash_fwd", "v"))
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=dev)
     lib = _lib("flash_fwd")
@@ -164,21 +188,92 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _flash_bwd_args(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                    dcor: torch.Tensor, causal: bool) -> tuple:
+    """Checks of the backward kernels' inputs; returns (shape, strides)."""
+    b, tq, tk, h, d = _flash_check(kernel, q, k, v, causal)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"{kernel}: dO must match q, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("dcor", dcor)):
+        if (t.shape != (b * h, tq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} must be contiguous fp32 "
+                             f"[{b * h}, {tq}] on q's device")
+    strides = sum((_bthd_strides(t, kernel, name) for name, t in
+                   (("q", q), ("k", k), ("v", v), ("dO", do))), ())
+    return (b, h, tq, tk, d), strides
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, dcor: torch.Tensor,
+                 causal: bool, sm_scale: float) -> torch.Tensor:
+    """dQ on the card. q, dO [B, Tq, H, D], k/v [B, Tk, H, D] bf16 CUDA
+    tensors (D 64 or 128), the forward's natural-log LSE and
+    dcor = rowsum(dO * O), both [B*H, Tq] fp32. Returns dQ [B, Tq, H, D]
+    bf16."""
+    shape, strides = _flash_bwd_args("flash_bwd_dq", q, k, v, do, lse,
+                                     dcor, causal)
+    dev = q.device
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    err = _lib("flash_bwd").flash_bwd_dq_bf16(
+        dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dcor.data_ptr(), dq.data_ptr(), *shape, *strides,
+        int(causal), sm_scale * _LOG2E, sm_scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launched("flash_bwd_dq", err)
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, dcor: torch.Tensor,
+                  causal: bool, sm_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV on the card, inputs as `flash_bwd_dq`. Returns (dK, dV)
+    [B, Tk, H, D] bf16."""
+    shape, strides = _flash_bwd_args("flash_bwd_dkv", q, k, v, do, lse,
+                                     dcor, causal)
+    dev = q.device
+    dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
+    err = _lib("flash_bwd").flash_bwd_dkv_bf16(
+        dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dcor.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *shape, *strides, int(causal), sm_scale * _LOG2E, sm_scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launched("flash_bwd_dkv", err)
+    return dk, dv
+
+
+def _takes(lib: str, fn: str, d: int, device: torch.device) -> bool:
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    ok = getattr(_lib(lib), fn)(index, d)
+    if ok < 0:
+        raise RuntimeError(f"{fn}: CUDA error {-ok}")
+    return ok == 1
+
+
 def ce_fwd_supported(d: int, dtype: torch.dtype,
                      device: torch.device) -> bool:
     """Whether ce_fwd takes rows of width d in this dtype on this CUDA
     device: bf16, and what `ce_fwd_takes` in csrc/ce_fwd.cu says of d (a
     multiple of 16, the x tile within the device's shared memory). Builds
     the kernel on first use."""
-    if dtype != torch.bfloat16:
-        return False
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    ok = _lib("ce_fwd").ce_fwd_takes(index, d)
-    if ok < 0:
-        raise RuntimeError(f"ce_fwd_takes: CUDA error {-ok}")
-    return ok == 1
+    return dtype == torch.bfloat16 and _takes("ce_fwd", "ce_fwd_takes", d,
+                                              device)
+
+
+def ce_bwd_supported(d: int, dtype: torch.dtype,
+                     device: torch.device) -> bool:
+    """Whether ce_dx and ce_dw take rows of width d in this dtype on this
+    CUDA device: bf16, and what `ce_bwd_takes` in csrc/ce_bwd.cu says of
+    d (a width compiled there, the tiles within the device's shared
+    memory). Builds the kernels on first use."""
+    return dtype == torch.bfloat16 and _takes("ce_bwd", "ce_bwd_takes", d,
+                                              device)
 
 
 def _ce_splits(n: int, v: int, device: torch.device) -> int:
@@ -228,3 +323,65 @@ def ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
                           torch.cuda.current_stream(dev).cuda_stream)
     _launched("ce_fwd", err)
     return loss, lse
+
+
+def _ce_bwd_check(kernel: str, x: torch.Tensor, w: torch.Tensor,
+                  lse: torch.Tensor, vocab_size: int) -> Tuple[int, int, int]:
+    """Checks shared by ce_dx and ce_dw; returns (N, d, V)."""
+    dev = x.device
+    if not (x.is_cuda and w.device == dev and lse.device == dev):
+        raise ValueError(f"{kernel}: x, w, lse must be CUDA tensors on one "
+                         f"device")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"{kernel}: x [N, d], w [V, d], got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    n, d = x.shape
+    v = w.shape[0]
+    if w.dtype != x.dtype or not ce_bwd_supported(d, x.dtype, dev):
+        raise ValueError(f"{kernel}: needs bf16 and a width ce_bwd_takes, "
+                         f"got {x.dtype}/{w.dtype}, d={d}")
+    if lse.dtype != torch.float32 or lse.shape != (n,):
+        raise ValueError(f"{kernel}: lse must be fp32 [{n}]")
+    if not (x.is_contiguous() and w.is_contiguous()
+            and lse.is_contiguous()):
+        raise ValueError(f"{kernel}: inputs must be contiguous")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{kernel}: x and w must be 16-byte aligned")
+    if n == 0 or not 0 < vocab_size <= v:
+        raise ValueError(f"{kernel}: n={n}, vocab_size={vocab_size}, V={v}")
+    return n, d, v
+
+
+def ce_dx(x: torch.Tensor, w: torch.Tensor, lse: torch.Tensor,
+          vocab_size: int) -> torch.Tensor:
+    """dx_unscaled = P w on the card, P = exp(x w^T - lse) with the
+    columns at or past vocab_size zero. x [N, d], w [V, d] contiguous bf16
+    CUDA tensors, lse [N] fp32 (natural log). Returns [N, d] fp32."""
+    n, d, v = _ce_bwd_check("ce_dx", x, w, lse, vocab_size)
+    dev = x.device
+    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
+    err = _lib("ce_bwd").ce_dx_bf16(
+        dev.index, x.data_ptr(), w.data_ptr(), lse.data_ptr(), dx.data_ptr(),
+        n, d, v, vocab_size, torch.cuda.current_stream(dev).cuda_stream)
+    _launched("ce_dx", err)
+    return dx
+
+
+def ce_dw(x: torch.Tensor, w: torch.Tensor, xg: torch.Tensor,
+          lse: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """dW_unscaled = P^T xg on the card, inputs as `ce_dx` plus xg
+    [N, d] contiguous bf16 (x times the upstream gradient). Returns
+    [V, d] fp32, the rows at or past vocab_size zero."""
+    n, d, v = _ce_bwd_check("ce_dw", x, w, lse, vocab_size)
+    if (xg.shape != x.shape or xg.dtype != x.dtype or xg.device != x.device
+            or not xg.is_contiguous() or xg.data_ptr() % 16):
+        raise ValueError("ce_dw: xg must be a contiguous, 16-byte aligned "
+                         "tensor like x")
+    dev = x.device
+    dw = torch.empty((v, d), dtype=torch.float32, device=dev)
+    err = _lib("ce_bwd").ce_dw_bf16(
+        dev.index, x.data_ptr(), w.data_ptr(), xg.data_ptr(),
+        lse.data_ptr(), dw.data_ptr(), n, d, v, vocab_size,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launched("ce_dw", err)
+    return dw

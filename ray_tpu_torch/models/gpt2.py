@@ -9,15 +9,19 @@ statistics, fp32 logits.
 
 On CUDA tensors the full forward reaches the two Hopper kernels:
 attention in `_block` (`ops.attention.flash_attention`) and the LM-head
-loss in `gpt2_loss` (`ops.fused_ce.linear_cross_entropy`). The cached
+loss in `gpt2_loss` (`ops.fused_ce.linear_cross_entropy`); both are
+differentiable, their backward the four backward kernels, so
+`gpt2_loss` is the training loss (`train.step.TrainStep`). The cached
 prefill/decode path computes attention in plain PyTorch, as the JAX
 package does with einsums. Matrix products of the working dtype go to
 `torch.matmul`, which accumulates bf16 in fp32 on the card, as XLA does
 for the JAX package.
 
-Differences from the JAX package: the KV cache is updated in place
-(where JAX returns a new buffer and donates the old one), and there is
-no remat, sharding constraint or LoRA here yet.
+`remat=True` checkpoints each block (`torch.utils.checkpoint`, as
+`jax.checkpoint` in the JAX package): the backward recomputes one block
+at a time. Differences from the JAX package: the KV cache is updated in
+place (where JAX returns a new buffer and donates the old one), and
+there is no sharding constraint or LoRA here yet.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import flash_attention
@@ -121,10 +126,12 @@ def gpt2_init(config: GPT2Config,
 def _logits(x: torch.Tensor, wte: torch.Tensor) -> torch.Tensor:
     """Tied LM head, fp32 logits from products summed in fp32: the JAX
     package's `preferred_element_type=f32` product. On the card a bf16
-    product writes fp32 directly (`out_dtype`, tensor cores); elsewhere
-    the operands are widened first. bf16 products are exact in fp32, so
-    both are the same math."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
+    product writes fp32 directly (`out_dtype`, tensor cores); elsewhere,
+    and wherever a gradient is needed (that product has no derivative in
+    PyTorch), the operands are widened first. bf16 products are exact in
+    fp32, so both are the same math."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or wte.requires_grad)
+    if x.is_cuda and x.dtype == torch.bfloat16 and not grad:
         flat = torch.mm(x.reshape(-1, x.shape[-1]), wte.T,
                         out_dtype=torch.float32)
         return flat.reshape(*x.shape[:-1], wte.shape[0])
@@ -165,12 +172,17 @@ def _block(x: torch.Tensor, p: Params, config: GPT2Config) -> torch.Tensor:
 
 
 def gpt2_hidden(params: Params, tokens: torch.Tensor,
-                config: GPT2Config) -> torch.Tensor:
-    """tokens [B, T] int -> final hidden states [B, T, d_model]."""
+                config: GPT2Config, remat: bool = False) -> torch.Tensor:
+    """tokens [B, T] int -> final hidden states [B, T, d_model].
+    remat=True checkpoints each block: its activations are recomputed in
+    the backward, so peak activation memory is one block's worth."""
     t = tokens.shape[1]
     x = params["wte"][tokens] + params["wpe"][:t]
     for p in params["blocks"]:
-        x = _block(x, p, config)
+        if remat:
+            x = checkpoint(_block, x, p, config, use_reentrant=False)
+        else:
+            x = _block(x, p, config)
     return layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
 
 
@@ -291,19 +303,24 @@ def _ce_sum(x: torch.Tensor, targets: torch.Tensor, wte: torch.Tensor,
 
 
 def gpt2_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-              config: GPT2Config, loss_chunk_rows: int = 2048
-              ) -> torch.Tensor:
-    """Mean next-token cross-entropy (forward only). Through the fused
-    kernel where `fused_ce_supported` says it runs (the logits never
-    reach device memory); elsewhere in sequence chunks, so the
-    [B, T, padded_vocab] fp32 logits never materialise whole."""
+              config: GPT2Config, remat: bool = False,
+              loss_chunk_rows: int = 2048) -> torch.Tensor:
+    """Mean next-token cross-entropy, differentiable in the parameters.
+    Through the fused kernels where `fused_ce_supported` says they run
+    (the logits never reach device memory, in either direction);
+    elsewhere in sequence chunks, each checkpointed, so the
+    [B, T, padded_vocab] fp32 logits never materialise whole and the
+    backward recomputes one chunk's logits at a time."""
     c = config
-    x = gpt2_hidden(params, tokens, config)
+    x = gpt2_hidden(params, tokens, config, remat=remat)
     b, t = targets.shape
+    wte = params["wte"]
+    backward = torch.is_grad_enabled() and (x.requires_grad
+                                            or wte.requires_grad)
     if fused_ce_supported(b * t, c.d_model, c.padded_vocab, x.device,
-                          x.dtype):
+                          x.dtype, backward=backward):
         losses, _ = linear_cross_entropy(
-            x.reshape(b * t, c.d_model), params["wte"],
+            x.reshape(b * t, c.d_model), wte,
             targets.reshape(b * t).long(), c.vocab_size)
         return losses.sum() / (b * t)
 
@@ -311,8 +328,10 @@ def gpt2_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
     while t % n_chunks != 0:
         n_chunks -= 1
     tc = t // n_chunks
-    total = sum(_ce_sum(x[:, i * tc:(i + 1) * tc],
-                        targets[:, i * tc:(i + 1) * tc], params["wte"],
-                        c.vocab_size)
+    if n_chunks == 1:
+        return _ce_sum(x, targets, wte, c.vocab_size) / (b * t)
+    total = sum(checkpoint(_ce_sum, x[:, i * tc:(i + 1) * tc],
+                           targets[:, i * tc:(i + 1) * tc], wte,
+                           c.vocab_size, use_reentrant=False)
                 for i in range(n_chunks))
     return total / (b * t)

@@ -1,5 +1,6 @@
 """Where the time goes on the card: torch.profiler over the port's
-scoring entry points and one serving decode tick (fp32 and bf16), GPT-2
+scoring entry points, one serving decode tick (fp32 and bf16) and one
+training step (`TrainStep` + `adamw`, bf16, tokens [8, 1024]), GPT-2
 small.
 
     python -m ray_tpu_torch.profile_score
@@ -22,6 +23,8 @@ from torch.profiler import ProfilerActivity, profile
 from .kernels import build
 from .models import gpt2
 from .models.engine import _tick
+from .train.optim import adamw
+from .train.step import TrainStep
 
 
 def _window(name: str, fn, calls: int = 3, top: int = 10) -> dict:
@@ -85,6 +88,17 @@ def main() -> None:
                 ("engine decode tick bf16, 4 slots",
                  lambda: _tick(params, cfg, bf16_cache, tok, pos))]:
             print(json.dumps(_window(name, fn)), flush=True)
+    # training needs autograd: outside inference mode, on its own weights
+    del params, sparams, cache, bf16_cache
+    step = TrainStep(
+        lambda p, b: gpt2.gpt2_loss(p, b["tokens"], b["targets"], cfg),
+        adamw(3e-4, weight_decay=0.1))
+    state = step.init_state(gpt2.gpt2_init(
+        cfg, torch.Generator().manual_seed(6), device="cuda"))
+    seq = torch.randint(0, cfg.vocab_size, (8, 1025), generator=gen)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    print(json.dumps(_window("train step bf16 [8, 1024]",
+                             lambda: step(state, batch))), flush=True)
 
 
 if __name__ == "__main__":

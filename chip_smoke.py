@@ -5,19 +5,24 @@
 
 Builds the port's Hopper kernels from `ray_tpu_torch/csrc/` (nvcc,
 sm_90a), holds each against its plain PyTorch version on the card, then
-drives the port's paths at the full width of GPT-2 small (124M, random
-weights from fixed seeds): scoring (`gpt2_forward` logits and
-`gpt2_loss`, bf16, tokens [4, 512]) and continuous-batching serving
+drives the port's paths at full width and depth, random weights from
+fixed seeds. GPT-2 small (124M): scoring (`gpt2_forward` logits and
+`gpt2_loss`, bf16, tokens [4, 512]), continuous-batching serving
 (`ContinuousBatchingEngine`, 6 concurrent greedy requests, once in fp32
-and once in bf16); then training, the main path of the second slice:
-one step's gradients against the same weights in fp32 on the CPU
-(`train_check`), and `TrainStep` + `adamw` at tokens [8, 1024], a
-warm-up step and 10 timed steps (`train`). Every phase prints one JSON
-line; a phase that fails ends the run with a non-zero exit code and no
-result line. The line before last lists each kernel with its launches
-on the training path, its error against the plain version, its time,
-the plain version's and the library's time and the card's bound; the
-last line is {"ok": true, "device": {...}}.
+and once in bf16), one training step's gradients against the same
+weights in fp32 on the CPU (`train_check`) and `TrainStep` + `adamw` at
+tokens [8, 1024], a warm-up step and 10 timed steps (`train`). Llama
+small (the JAX package's ~125M-class Llama: GQA 12/4 heads, RoPE,
+SwiGLU), the main path of the third slice: scoring (`llama_score`),
+serving in fp32 and bf16, then training with the single-pass attention
+backward (Llama's only trained route): gradients against fp32 on the CPU
+(`llama_train_check`) and `TrainStep` + `adamw` at tokens [4, 2048]
+(`llama_train`). Every phase prints one JSON line; a phase that fails
+ends the run with a non-zero exit code and no result line. The line
+before last lists each kernel with its launches on its training path,
+its error against the plain version, its time, the plain version's and
+the library's time and the card's bound; the last line is
+{"ok": true, "device": {...}}.
 
 Times are CUDA-event medians (kernels: a CUDA graph of launches
 replayed between events; SDPA's backward, which a graph cannot capture:
@@ -31,6 +36,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,9 +56,23 @@ CE_TOL = 2e-3            # fp32 loss / lse of bf16 products, d = 768
 # these bounds leave ~3x and ~25x of room
 LOGITS_TOL = 0.1
 LOSS_TOL = 5e-3
-# bf16 attention gradients against the plain fp32 backward, atol and rtol,
-# as tests/test_ops.py:87-89 for bf16 gradients
+# bf16 attention gradients against the plain fp32 backward: rtol as
+# tests/test_ops.py:87-89 for bf16 gradients, atol GRAD_ATOL_FRAC of the
+# largest reference value, and GRAD_NORM_TOL in relative Frobenius norm.
+# Most causal dQ/dK/dV values are far below the largest (median |ref|
+# ~0.03 against ~5 at T 2048), so an atol of GRAD_TOL alone would pass a
+# wrong scale or a dropped kv tile. tests/test_torch_chip_gates.py holds
+# these gates on the CPU against an emulation of the kernels' bf16 casts
+# (it passes within half of GRAD_NORM_TOL) and against both faults.
 GRAD_TOL = 5e-2
+GRAD_ATOL_FRAC = 2e-3
+GRAD_NORM_TOL = 1e-2
+# the fused kernel against the two-pass kernels: dK and dV are the same
+# arithmetic (bit-equal); dQ is the same fp32 sum in another order, rounded
+# once to bf16, so at most one bf16 ulp (2^-7 of the value) apart
+TWO_PASS_DQ_RTOL = 2 ** -7
+TWO_PASS_DQ_ATOL_FRAC = 1e-4
+TWO_PASS_DQ_NORM_TOL = 2e-3
 # CE backward: the kernels' fp32 products (P W, P^T xg) against the plain
 # version's, and the finished bf16 dx and dW against the plain backward:
 # largest error over the largest magnitude of the reference; P enters
@@ -172,16 +192,59 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def norm_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """|a - ref| / |ref|, Frobenius norms."""
+    ref = ref.float()
+    return float((a.float() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def hold_grads(label: str, got, ref) -> dict:
+    """(dQ, dK, dV) against the plain backward's: each finite, within
+    allclose(rtol=GRAD_TOL, atol=GRAD_ATOL_FRAC * max|ref|) and within
+    GRAD_NORM_TOL in relative norm. Returns the errors and the reference's
+    median and largest magnitudes."""
+    out = {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a, r = a.float(), r.float()
+        check(torch.isfinite(a).all().item(), f"{label}: non-finite {name}")
+        top = float(r.abs().max())
+        rel = norm_err(a, r)
+        out.update({f"{name}_max_abs_err": max_err(a, r),
+                    f"{name}_rel_norm_err": rel,
+                    f"{name}_ref_median_abs": float(r.abs().median()),
+                    f"{name}_ref_max_abs": top})
+        check(torch.allclose(a, r, atol=GRAD_ATOL_FRAC * top, rtol=GRAD_TOL)
+              and rel <= GRAD_NORM_TOL,
+              f"{label} {name}: max error {out[f'{name}_max_abs_err']} "
+              f"(largest |ref| {top}), relative norm error {rel}")
+    out["ref_max_abs"] = max(out[f"{n}_ref_max_abs"] for n in ("dq", "dk",
+                                                                "dv"))
+    return out
+
+
 # ------------------------------------------------------------ phases
+
+
+def ptxas_lines(out: str) -> list:
+    """nvcc's `-Xptxas -v` register and spill lines, each prefixed with
+    the kernel (and template width) they describe."""
+    lines, name = [], "?"
+    for ln in out.splitlines():
+        m = re.search(r"entry function '\w*?((?:flash|ce)_\w+?_kernel)"
+                      r"(?:ILi(\d+)E)?", ln)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "registers" in ln or "spill" in ln:
+            lines.append(f"{name}: {ln.strip()}")
+    return lines
 
 
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
     logs = kernels.build()
-    ptxas = [ln.strip() for out in logs.values() for ln in out.splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": sorted(logs), "ptxas": ptxas})
+          "compiled": sorted(logs),
+          "ptxas": [ln for out in logs.values() for ln in ptxas_lines(out)]})
 
 
 def qkv(gen, b, tq, tk, h, d) -> list:
@@ -351,19 +414,11 @@ def phase_flash_bwd(kernels, attention, gen) -> list:
         torch.cuda.synchronize()
         ref = attention._flash_bwd_reference(q, k, v, o, lse, do, causal,
                                              scale)
-        got = (dq, dk, dv)
-        errs = [max_err(a, r) for a, r in zip(got, ref)]
-        check(all(torch.isfinite(a.float()).all().item() for a in got),
-              "flash_bwd: non-finite gradient")
-        close = all(torch.allclose(a.float(), r.float(), atol=GRAD_TOL,
-                                   rtol=GRAD_TOL) for a, r in zip(got, ref))
-        check(close, f"flash_bwd {(b, tq, tk, h, d, causal)}: errors {errs}")
+        held = hold_grads(f"flash_bwd {(b, tq, tk, h, d, causal)}",
+                          (dq, dk, dv), ref)
         results.append({"shape": [b, tq, tk, h, d], "causal": causal,
                         "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
-                        "dq_max_abs_err": errs[0], "dk_max_abs_err": errs[1],
-                        "dv_max_abs_err": errs[2],
-                        "ref_max_abs": max(float(r.float().abs().max())
-                                           for r in ref)})
+                        **held})
         if len(results) == 1:
             main = (q, k, v, o, lse, do, dcor)
     q, k, v, o, lse, do, dcor = main
@@ -394,7 +449,9 @@ def phase_flash_bwd(kernels, attention, gen) -> list:
     dot = do.transpose(1, 2)
     lib_ms = device_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
-    emit({"phase": "flash_bwd", "tol": GRAD_TOL, "fwd_tol": BF16_TOL,
+    emit({"phase": "flash_bwd", "tol": GRAD_TOL,
+          "atol_of_max_ref": GRAD_ATOL_FRAC, "rel_norm_tol": GRAD_NORM_TOL,
+          "fwd_tol": BF16_TOL,
           "lse_tol": LSE_TOL, "cases": results,
           "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_host_paced_ms": dq_host,
           "dkv_host_paced_ms": dkv_host, "plain_ms_dq_dk_dv": plain_ms,
@@ -415,6 +472,159 @@ def phase_flash_bwd(kernels, attention, gen) -> list:
                                 main_case["dv_max_abs_err"]),
              "ms": dkv_ms, "bound_ms": dkv_bound[0],
              "bound_by": dkv_bound[1]}]
+
+
+def gqa_qkv(gen, b, t, h, kv_heads, d) -> list:
+    """bf16 q [B, T, H, D] and k, v with `kv_heads` heads, each repeated
+    H / kv_heads times in a row: the inputs a Llama block hands the
+    attention kernels."""
+    dev = torch.device("cuda")
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, t, kv_heads, d, generator=gen, device=dev)
+            .to(torch.bfloat16).repeat_interleave(h // kv_heads, dim=2)
+            for _ in range(2))
+    return [q, k, v]
+
+
+def phase_flash_bwd_fused(kernels, attention, gen) -> dict:
+    """flash_bwd_fused against the plain backward and against the
+    two-pass kernels, from the same q, k, v, dO and the forward kernel's O
+    and LSE (held against the plain forward first); the spread of its fp32
+    dQ between two runs (atomics); times at the Llama and GPT-2 training
+    shapes."""
+    dev = torch.device("cuda")
+    cases = [(4, 2048, 2048, 12, 64, True),   # Llama small training (GQA)
+             (8, 1024, 1024, 12, 64, True),   # GPT-2 small training
+             (2, 300, 300, 12, 64, True),     # ragged length
+             (2, 128, 384, 12, 64, True),     # tq < tk: end-aligned mask
+             (2, 256, 256, 8, 64, False),     # non-causal
+             (2, 1024, 1024, 8, 128, True)]   # head_dim 128
+    results, timed = [], []
+    for i, (b, tq, tk, h, d, causal) in enumerate(cases):
+        if i == 0:
+            q, k, v = gqa_qkv(gen, b, tq, h, 4, d)
+        else:
+            q, k, v = qkv(gen, b, tq, tk, h, d)
+        do = torch.randn(b, tq, h, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        scale = d ** -0.5
+        o, lse = kernels.flash_fwd(q, k, v, causal, scale)
+        fwd_ref = attention.mha_reference(q, k, v, causal, scale)
+        lse_ref = torch.logsumexp(
+            attention._masked_logits(q, k, causal, scale),
+            dim=-1).reshape(b * h, tq)
+        o_err, lse_err = max_err(o, fwd_ref), max_err(lse, lse_ref)
+        check(torch.allclose(o.float(), fwd_ref.float(), atol=BF16_TOL,
+                             rtol=BF16_TOL) and lse_err <= LSE_TOL,
+              f"flash_fwd {(b, tq, tk, h, d, causal)}: err {o_err}, "
+              f"lse err {lse_err}")
+        del fwd_ref, lse_ref
+        dcor = attention.softmax_correction(o, do)
+        acc1, dk1, dv1 = kernels.flash_bwd_fused(q, k, v, do, lse, dcor,
+                                                 causal, scale)
+        # dQ as the model takes it: the fp32 sum cast to bf16
+        got = (acc1.to(q.dtype), dk1, dv1)
+        torch.cuda.synchronize()
+        label = f"flash_bwd_fused {(b, tq, tk, h, d, causal)}"
+        ref = attention._flash_bwd_reference(q, k, v, o, lse, do, causal,
+                                             scale)
+        held = hold_grads(label, got, ref)
+        del ref
+        two = (kernels.flash_bwd_dq(q, k, v, do, lse, dcor, causal, scale),
+               *kernels.flash_bwd_dkv(q, k, v, do, lse, dcor, causal, scale))
+        two_errs = [max_err(a, t) for a, t in zip(got, two)]
+        dq_two = two[0].float()
+        dq_two_rel = norm_err(got[0], dq_two)
+        check(torch.equal(dk1, two[1]) and torch.equal(dv1, two[2]),
+              f"{label}: dK / dV differ from the two-pass kernel's")
+        check(torch.allclose(got[0].float(), dq_two, rtol=TWO_PASS_DQ_RTOL,
+                             atol=TWO_PASS_DQ_ATOL_FRAC
+                             * float(dq_two.abs().max()))
+              and dq_two_rel <= TWO_PASS_DQ_NORM_TOL,
+              f"{label}: dQ vs the two-pass kernel's: max {two_errs[0]}, "
+              f"relative norm {dq_two_rel}")
+        del two, dq_two
+        # dK and dV are written without atomics: the same bits every run
+        acc2, dk2, dv2 = kernels.flash_bwd_fused(q, k, v, do, lse, dcor,
+                                                 causal, scale)
+        check(torch.equal(dk1, dk2) and torch.equal(dv1, dv2),
+              "flash_bwd_fused: dK / dV differ between two runs")
+        spread = max_err(acc1, acc2)
+        results.append({
+            "shape": [b, tq, tk, h, d], "causal": causal,
+            "o_max_abs_err": o_err, "lse_max_abs_err": lse_err, **held,
+            "vs_two_pass_max_abs": two_errs,
+            "vs_two_pass_dq_rel_norm": dq_two_rel,
+            "dq_fp32_run_to_run_max_abs": spread,
+            "dq_fp32_run_to_run_rel": spread / max(
+                float(acc1.abs().max()), 1e-30)})
+        if i < 2:
+            timed.append((q, k, v, o, lse, do, dcor))
+    times = []
+    for q, k, v, o, lse, do, dcor in timed:
+        b, t, h, d = q.shape
+        scale = d ** -0.5
+        pairs = b * h * t * (t + 1) / 2  # visible (query, key) pairs
+        tensor = b * t * h * d * 2
+        rows = b * h * t * 4
+        # q, k, v, dO, LSE and D read; dK, dV written in bf16, dQ in fp32
+        fused_bound = bound(10 * d * pairs, 4 * tensor + 2 * rows
+                            + 2 * tensor + 2 * tensor)
+
+        def fused():
+            dq, dk, dv = kernels.flash_bwd_fused(q, k, v, do, lse, dcor,
+                                                 True, scale)
+            return dq.to(q.dtype), dk, dv
+
+        def two_pass():
+            return (kernels.flash_bwd_dq(q, k, v, do, lse, dcor, True, scale),
+                    kernels.flash_bwd_dkv(q, k, v, do, lse, dcor, True,
+                                          scale))
+
+        def zero_and_cast():
+            return torch.zeros(q.shape, dtype=torch.float32,
+                               device=dev).to(q.dtype)
+
+        fused_ms = graph_ms(fused)
+        times.append({"shape": [b, t, t, h, d], "fused_ms": fused_ms,
+                      "two_pass_ms": graph_ms(two_pass),
+                      "zero_fill_and_cast_ms": graph_ms(zero_and_cast),
+                      "fused_host_paced_ms": median_ms(fused),
+                      "bound_ms": fused_bound[0],
+                      "bound_by": fused_bound[1],
+                      "fused_tflops": 10 * d * pairs / fused_ms / 1e9})
+    q, k, v, o, lse, do, dcor = timed[0]
+    scale = q.shape[-1] ** -0.5
+    plain_ms = graph_ms(lambda: attention._flash_bwd_reference(
+        q, k, v, o, lse, do, True, scale), reps=2, iters=5)
+    # the library's yardstick: SDPA's backward for dQ, dK and dV together
+    # on the same repeated-head inputs (autograd; device time from CUPTI)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    del out, qt, kt, vt
+    emit({"phase": "flash_bwd_fused", "tol": GRAD_TOL,
+          "atol_of_max_ref": GRAD_ATOL_FRAC, "rel_norm_tol": GRAD_NORM_TOL,
+          "two_pass_dq_rtol": TWO_PASS_DQ_RTOL,
+          "two_pass_dq_rel_norm_tol": TWO_PASS_DQ_NORM_TOL,
+          "fwd_tol": BF16_TOL,
+          "lse_tol": LSE_TOL, "cases": results, "times": times,
+          "fused_ms_includes": "zero-fill of the fp32 dQ and its bf16 cast",
+          "plain_ms_dq_dk_dv": plain_ms, "library_ms_dq_dk_dv": lib_ms})
+    main = results[0]
+    return {"name": "flash_bwd_fused", "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "ray_tpu/ops/attention.py:326",
+            "max_abs_err": max(main["dq_max_abs_err"],
+                               main["dk_max_abs_err"],
+                               main["dv_max_abs_err"]),
+            "ms": times[0]["fused_ms"], "plain_ms": plain_ms,
+            "bound_ms": times[0]["bound_ms"],
+            "bound_by": times[0]["bound_by"], "library_ms": lib_ms}
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -604,15 +814,66 @@ def phase_score(kernels, gpt2, tree):
     return params, cpu_params, cfg, tok_d, tgt_d
 
 
-def phase_score_timing(gpt2, params, cfg, tok_d, tgt_d) -> None:
+def phase_llama_score(kernels, llama, tree):
+    """Llama small's scoring entry points on the kernel path (the caller
+    sets the counts to 0 first): `llama_forward` logits and `llama_loss`
+    (log-softmax over the full fp32 logits, no CE kernel), bf16, against
+    the same weights in fp32 on the CPU."""
+    cfg = llama.LlamaConfig.small()
+    params = llama.llama_init(cfg, torch.Generator().manual_seed(10),
+                              device="cuda")
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen)
+    targets = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen)
+    tok_d, tgt_d = tokens.cuda(), targets.cuda()
+
+    logits = llama.llama_forward(params, tok_d, cfg)
+    torch.cuda.synchronize()
+    after_fwd = dict(kernels.LAUNCHES)
+    loss = float(llama.llama_loss(params, tok_d, tgt_d, cfg))
+    after_loss = dict(kernels.LAUNCHES)
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
+    check(after_fwd == {**none, "flash_fwd": cfg.num_layers},
+          f"llama forward launches {after_fwd}")
+    check(after_loss == {**none, "flash_fwd": 2 * cfg.num_layers},
+          f"llama loss launches {after_loss}")
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = tree.tree_map(lambda p: p.float().cpu(), params)
+    t0 = time.perf_counter()
+    ref_logits = llama.llama_forward(cpu_params, tokens, cpu_cfg)
+    ref_loss = float(llama.llama_loss(cpu_params, tokens, targets, cpu_cfg))
+    cpu_s = time.perf_counter() - t0
+    check(logits.shape == (4, 512, cfg.padded_vocab)
+          and logits.dtype == torch.float32, f"logits {logits.shape}")
+    check(torch.isfinite(logits).all().item(), "non-finite logits")
+    err = max_err(logits.cpu(), ref_logits)
+    mean_err = float((logits.cpu() - ref_logits).abs().mean())
+    check(err <= LOGITS_TOL, f"llama logits err {err} > {LOGITS_TOL}")
+    window = (math.log(cfg.vocab_size) - 0.5, math.log(cfg.vocab_size) + 0.7)
+    check(window[0] <= loss <= window[1], f"loss {loss} outside {window}")
+    check(abs(loss - ref_loss) <= LOSS_TOL,
+          f"llama loss {loss} vs fp32 CPU {ref_loss}")
+    emit({"phase": "llama_score", "model": "llama-small",
+          "dtype": "bfloat16", "tokens": [4, 512],
+          "launches_forward": after_fwd,
+          "launches_forward_and_loss": after_loss,
+          "logits_max_abs_err": err, "logits_mean_abs_err": mean_err,
+          "logits_tol": LOGITS_TOL, "loss": loss, "cpu_fp32_loss": ref_loss,
+          "loss_tol": LOSS_TOL, "loss_window": window,
+          "cpu_reference_s": cpu_s})
+    return params, cpu_params, cfg, tok_d, tgt_d
+
+
+def phase_score_timing(model: str, forward, loss, params, cfg, tok_d,
+                       tgt_d) -> None:
     """Host-paced time per scoring call: CUDA events around 5 back-to-back
     calls, 20 such windows; median, fastest and slowest window."""
     n = tok_d.numel()
-    line = {"phase": "score_timing", "windows": 20, "calls_per_window": 5}
-    for name, fn in (("forward", lambda: gpt2.gpt2_forward(params, tok_d,
-                                                            cfg)),
-                     ("loss", lambda: gpt2.gpt2_loss(params, tok_d, tgt_d,
-                                                     cfg))):
+    line = {"phase": "score_timing", "model": model, "windows": 20,
+            "calls_per_window": 5}
+    for name, fn in (("forward", lambda: forward(params, tok_d, cfg)),
+                     ("loss", lambda: loss(params, tok_d, tgt_d, cfg))):
         times = window_ms(fn, iters=20, reps=5)
         med = statistics.median(times)
         line.update({f"{name}_ms": med, f"{name}_ms_min": min(times),
@@ -632,16 +893,11 @@ def named_leaves(tree, prefix: str = "") -> list:
     return [(prefix[:-1], tree)]
 
 
-def phase_train_check(gpt2, tree) -> None:
-    """One step's loss and gradients of GPT-2 small in bf16 on the card
-    (the four backward kernels) against the same weights in fp32 through
-    the port's CPU path (the plain versions)."""
-    cfg = gpt2.GPT2Config.small()
-    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(4),
-                            device="cuda")
-    gen = torch.Generator().manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
-    targets = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+def card_vs_cpu_grads(tree, loss_fn, params, cfg, tokens, targets):
+    """One step's loss and gradients in bf16 on the card against the same
+    weights in fp32 through the port's CPU path (the plain versions):
+    (loss, CPU loss, leaf names, card gradients, per-leaf relative error
+    |g_card - g_cpu| / |g_cpu|, CPU seconds)."""
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = tree.tree_map(lambda p: p.float().cpu(), params)
 
@@ -649,7 +905,7 @@ def phase_train_check(gpt2, tree) -> None:
         leaves = tree.tree_leaves(p)
         for leaf in leaves:
             leaf.requires_grad_()
-        loss = gpt2.gpt2_loss(p, tok, tgt, c)
+        loss = loss_fn(p, tok, tgt, c)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
     loss, grads = loss_and_grads(params, cfg, tokens.cuda(), targets.cuda())
@@ -663,52 +919,93 @@ def phase_train_check(gpt2, tree) -> None:
         check(torch.isfinite(g.float()).all().item(), f"{name}: non-finite")
         errs[name] = float((g.float().cpu() - r).norm()
                            / max(float(r.norm()), 1e-30))
+    return loss, ref_loss, names, grads, errs, cpu_s
+
+
+def train_check_line(model, loss, ref_loss, errs, cpu_s) -> dict:
     worst = max(errs, key=errs.get)
+    check(abs(loss - ref_loss) <= LOSS_TOL,
+          f"train_check {model}: loss {loss} vs fp32 CPU {ref_loss}")
+    check(errs[worst] <= TRAIN_GRAD_TOL,
+          f"train_check {model}: {worst} gradient error {errs[worst]}")
+    return {"phase": "train_check", "model": model, "dtype": "bfloat16",
+            "tokens": [2, 256], "loss": loss, "cpu_fp32_loss": ref_loss,
+            "loss_tol": LOSS_TOL, "grad_rel_err_max": errs[worst],
+            "grad_rel_err_worst_leaf": worst,
+            "grad_rel_err_median": statistics.median(errs.values()),
+            "grad_tol": TRAIN_GRAD_TOL, "cpu_reference_s": cpu_s}
+
+
+def check_tokens(vocab_size: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab_size, (2, 256), generator=gen)
+            for _ in range(2)]
+
+
+def phase_train_check(gpt2, tree) -> None:
+    """One step's loss and gradients of GPT-2 small in bf16 on the card
+    (the four backward kernels) against the same weights in fp32 through
+    the port's CPU path (the plain versions)."""
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(4),
+                            device="cuda")
+    loss, ref_loss, names, grads, errs, cpu_s = card_vs_cpu_grads(
+        tree, gpt2.gpt2_loss, params, cfg, *check_tokens(cfg.vocab_size, 5))
     wte_grad = grads[names.index("wte")]
     check(not wte_grad[cfg.vocab_size:].any().item(),
           "padded wte rows have a gradient")
-    check(abs(loss - ref_loss) <= LOSS_TOL,
-          f"train_check: loss {loss} vs fp32 CPU {ref_loss}")
-    check(errs[worst] <= TRAIN_GRAD_TOL,
-          f"train_check: {worst} gradient error {errs[worst]}")
-    emit({"phase": "train_check", "model": "gpt2-small", "dtype": "bfloat16",
-          "tokens": [2, 256], "loss": loss, "cpu_fp32_loss": ref_loss,
-          "loss_tol": LOSS_TOL, "grad_rel_err_max": errs[worst],
-          "grad_rel_err_worst_leaf": worst,
-          "grad_rel_err_median": statistics.median(errs.values()),
-          "grad_tol": TRAIN_GRAD_TOL, "padded_wte_grad_zero": True,
-          "cpu_reference_s": cpu_s})
+    emit({**train_check_line("gpt2-small", loss, ref_loss, errs, cpu_s),
+          "padded_wte_grad_zero": True})
+
+
+def phase_llama_train_check(kernels, llama, tree) -> None:
+    """One step's loss and gradients of Llama small in bf16 on the card,
+    its attention backward the single-pass kernel (Llama's only trained
+    route), against the same weights in fp32 through the port's CPU
+    path."""
+    cfg = llama.LlamaConfig.small()
+    params = llama.llama_init(cfg, torch.Generator().manual_seed(14),
+                              device="cuda")
+    kernels.reset_launches()
+    loss, ref_loss, _, _, errs, cpu_s = card_vs_cpu_grads(
+        tree, llama.llama_loss, params, cfg,
+        *check_tokens(cfg.vocab_size, 15))
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {**dict.fromkeys(launches, 0), "flash_fwd": 12,
+                       "flash_bwd_fused": 12},
+          f"llama_train_check launches {launches}")
+    emit({**train_check_line("llama-small", loss, ref_loss, errs, cpu_s),
+          "phase": "llama_train_check", "launches": launches})
 
 
 TRAIN_STEPS = 10
-TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
-                           "flash_bwd_dkv": 12, "ce_fwd": 1, "ce_dx": 1,
-                           "ce_dw": 1}
+_NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_bwd_fused": 0, "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
+TRAIN_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
+                           "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                           "ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+LLAMA_TRAIN_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
+                                 "flash_bwd_fused": 12}
 
 
-def phase_train(kernels, gpt2) -> dict:
-    """The training path: TrainStep + adamw(3e-4, weight_decay=0.1) on
-    GPT-2 small, bf16, one fixed batch of tokens [8, 1024]: a warm-up
-    step and TRAIN_STEPS timed ones. Launches are counted from 0 over
-    all of them; returns the counts."""
+def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
+              b: int, t: int, seed: int, per_step: dict) -> dict:
+    """TrainStep + adamw(3e-4, weight_decay=0.1), bf16, one fixed batch of
+    tokens [b, t]: a warm-up step and TRAIN_STEPS timed ones. Launches are
+    counted from 0 over all of them and must be `per_step` times the
+    steps; returns the counts."""
     from ray_tpu_torch.observability import flops
     from ray_tpu_torch.observability.step_timer import StepTimer
     from ray_tpu_torch.train.optim import adamw
     from ray_tpu_torch.train.step import TrainStep
 
-    cfg = gpt2.GPT2Config.small()
-    b, t = 8, 1024
-    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(6),
-                            device="cuda")
     seq = torch.randint(0, cfg.vocab_size, (b, t + 1),
-                        generator=torch.Generator().manual_seed(7))
+                        generator=torch.Generator().manual_seed(seed))
     batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
     fpt = flops.train_flops_per_token(cfg, t)
     timer = StepTimer()
-    step = TrainStep(
-        lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"], cfg),
-        adamw(3e-4, weight_decay=0.1), flops_per_token=fpt, device="cuda",
-        timer=timer)
+    step = TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
+                     flops_per_token=fpt, device="cuda", timer=timer)
     state = step.init_state(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -728,18 +1025,16 @@ def phase_train(kernels, gpt2) -> dict:
         timer.end_step()
     launches = dict(kernels.LAUNCHES)
     steps = TRAIN_STEPS + 1
-    check(all(launches[k] > 0 for k in TRAIN_LAUNCHES_PER_STEP),
+    check(all(launches[k] > 0 for k, n in per_step.items() if n),
           f"a kernel never launched on the training path: {launches}")
-    check(launches == {k: n * steps for k, n in
-                       TRAIN_LAUNCHES_PER_STEP.items()},
+    check(launches == {k: n * steps for k, n in per_step.items()},
           f"training launches {launches} over {steps} steps")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     med = statistics.median(times)
     peak = flops.device_peak_flops(0)
     flops_per_step = fpt * b * t
-    summary = summarize(timer)
-    emit({"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
+    emit({"phase": phase, "model": model, "dtype": "bfloat16",
           "tokens": [b, t], "optimizer": "adamw(3e-4, weight_decay=0.1)",
           "steps_timed": TRAIN_STEPS, "losses": losses,
           "launches_per_step": {k: n / steps for k, n in launches.items()},
@@ -747,9 +1042,35 @@ def phase_train(kernels, gpt2) -> dict:
           "step_ms_max": max(times), "tokens_per_s": b * t / med * 1e3,
           "flops_per_step": flops_per_step, "peak_flops": peak,
           "mfu": flops.mfu(flops_per_step, med / 1e3, peak),
-          "step_timer": summary,
+          "step_timer": summarize(timer),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return launches
+
+
+def phase_train(kernels, gpt2) -> dict:
+    """The GPT-2 training path: GPT-2 small at tokens [8, 1024], the
+    two-pass attention backward and the CE kernels."""
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(6),
+                            device="cuda")
+    return train_run(
+        kernels, "train", "gpt2-small",
+        lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"], cfg),
+        cfg, params, 8, 1024, 7, TRAIN_LAUNCHES_PER_STEP)
+
+
+def phase_llama_train(kernels, llama) -> dict:
+    """The Llama training path, the main path of the third slice: Llama
+    small at tokens [4, 2048], its attention backward the single-pass
+    kernel, its loss log-softmax over the full fp32 logits (no CE
+    kernel)."""
+    cfg = llama.LlamaConfig.small()
+    params = llama.llama_init(cfg, torch.Generator().manual_seed(16),
+                              device="cuda")
+    return train_run(
+        kernels, "llama_train", "llama-small",
+        lambda p, bt: llama.llama_loss(p, bt["tokens"], bt["targets"], cfg),
+        cfg, params, 4, 2048, 17, LLAMA_TRAIN_LAUNCHES_PER_STEP)
 
 
 def summarize(timer) -> dict:
@@ -818,8 +1139,8 @@ def run_engine(engine_mod, params, cfg, prompts):
     return results, scores, wall, ttft
 
 
-def serve_line(dtype: str, prompts, wall, ttft) -> dict:
-    return {"phase": "serve", "model": "gpt2-small", "dtype": dtype,
+def serve_line(model: str, dtype: str, prompts, wall, ttft) -> dict:
+    return {"phase": "serve", "model": model, "dtype": dtype,
             "max_batch": 4, "requests": len(prompts),
             "prompt_lens": SERVE_LENGTHS, "new_tokens": SERVE_NEW,
             "wall_s": wall,
@@ -833,30 +1154,28 @@ def generated(generate_mod, params, cfg, prompts) -> list:
             for p in prompts]
 
 
-def phase_serve_fp32(gpt2, engine_mod, generate_mod) -> None:
-    """GPT-2 small at fp32, where the oracle is token identity with
+def phase_serve_fp32(model: str, cfg, params, engine_mod,
+                     generate_mod) -> None:
+    """A model at fp32, where the oracle is token identity with
     generate() at batch 1 while the engine decodes at batch 4."""
-    cfg = gpt2.GPT2Config(dtype=torch.float32)
-    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(2),
-                            device="cuda")
     prompts = serve_prompts(cfg)
     results, _, wall, ttft = run_engine(engine_mod, params, cfg, prompts)
     want = generated(generate_mod, params, cfg, prompts)
     mismatched = [i for i, (r, w) in enumerate(zip(results, want))
                   if r != w]
-    check(not mismatched, f"serve: streams {mismatched} differ from "
-          f"generate()")
-    emit({**serve_line("float32", prompts, wall, ttft),
+    check(not mismatched, f"serve {model}: streams {mismatched} differ "
+          f"from generate()")
+    emit({**serve_line(model, "float32", prompts, wall, ttft),
           "streams_equal_generate": len(prompts)})
 
 
-def phase_serve_bf16(gpt2, engine_mod, generate_mod, params, cpu_params,
-                     cfg) -> None:
-    """GPT-2 small in bf16, the precision a user serves in, on the score
+def phase_serve_bf16(model: str, forward, engine_mod, generate_mod, params,
+                     cpu_params, cfg) -> None:
+    """A model in bf16, the precision a user serves in, on the score
     phase's weights. bf16 rounds differently at batch 1 and batch 4, so
     near-tied greedy choices may flip between the engine and generate();
-    the oracle is the same weights in fp32 on the CPU, fed each stream's
-    own tokens (SERVE_LP_TOL, SERVE_GREEDY_TOL)."""
+    the oracle is the same weights in fp32 on the CPU (`forward`), fed
+    each stream's own tokens (SERVE_LP_TOL, SERVE_GREEDY_TOL)."""
     prompts = serve_prompts(cfg)
     results, scores, wall, ttft = run_engine(engine_mod, params, cfg,
                                              prompts)
@@ -864,7 +1183,7 @@ def phase_serve_bf16(gpt2, engine_mod, generate_mod, params, cpu_params,
     lp_err, greedy_gap = 0.0, 0.0
     for p, toks, lps in zip(prompts, results, scores):
         seq = torch.tensor(p + toks[:-1])[None]
-        logits = gpt2.gpt2_forward(cpu_params, seq, cpu_cfg)
+        logits = forward(cpu_params, seq, cpu_cfg)
         logp = torch.log_softmax(
             logits[0, len(p) - 1:, :cfg.vocab_size], dim=-1)
         ref = logp.gather(1, torch.tensor(toks)[:, None])[:, 0]
@@ -872,11 +1191,11 @@ def phase_serve_bf16(gpt2, engine_mod, generate_mod, params, cpu_params,
         greedy_gap = max(greedy_gap, float((logp.max(dim=-1).values
                                             - ref).max()))
     check(lp_err <= SERVE_LP_TOL,
-          f"serve bf16: logprob err {lp_err} > {SERVE_LP_TOL}")
+          f"serve {model} bf16: logprob err {lp_err} > {SERVE_LP_TOL}")
     check(greedy_gap <= SERVE_GREEDY_TOL,
-          f"serve bf16: a token {greedy_gap} below the fp32 best")
+          f"serve {model} bf16: a token {greedy_gap} below the fp32 best")
     want = generated(generate_mod, params, cfg, prompts)
-    emit({**serve_line("bfloat16", prompts, wall, ttft),
+    emit({**serve_line(model, "bfloat16", prompts, wall, ttft),
           "logprob_max_abs_err": lp_err, "logprob_tol": SERVE_LP_TOL,
           "greedy_gap_max": greedy_gap, "greedy_tol": SERVE_GREEDY_TOL,
           "streams_equal_generate": sum(r == w for r, w in
@@ -896,7 +1215,7 @@ def main() -> int:
     from ray_tpu_torch import kernels, tree
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.models import generate as generate_mod
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.ops import attention, fused_ce
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -911,29 +1230,56 @@ def main() -> int:
         phase_build(kernels)
         rows = [phase_flash(kernels, attention, gen),
                 phase_ce(kernels, fused_ce, gen)]
-        # the scoring and serving path: every count from 0, read after
-        # both entry points
+        # the GPT-2 scoring and serving path: every count from 0, read
+        # after both entry points
         kernels.reset_launches()
         params, cpu_params, cfg, tok_d, tgt_d = phase_score(kernels, gpt2,
                                                             tree)
-        phase_serve_fp32(gpt2, engine_mod, generate_mod)
-        phase_serve_bf16(gpt2, engine_mod, generate_mod, params, cpu_params,
-                         cfg)
+        scfg = gpt2.GPT2Config(dtype=torch.float32)
+        phase_serve_fp32("gpt2-small", scfg, gpt2.gpt2_init(
+            scfg, torch.Generator().manual_seed(2), device="cuda"),
+            engine_mod, generate_mod)
+        phase_serve_bf16("gpt2-small", gpt2.gpt2_forward, engine_mod,
+                         generate_mod, params, cpu_params, cfg)
         launches = dict(kernels.LAUNCHES)
         for name in ("flash_fwd", "ce_fwd"):
             check(launches[name] > 0,
                   f"{name} never launched on the scoring path")
-        phase_score_timing(gpt2, params, cfg, tok_d, tgt_d)
-    del params, cpu_params
+        phase_score_timing("gpt2-small", gpt2.gpt2_forward, gpt2.gpt2_loss,
+                           params, cfg, tok_d, tgt_d)
+        del params, cpu_params
+        # the Llama scoring and serving path, counted from 0 the same way
+        kernels.reset_launches()
+        params, cpu_params, cfg, tok_d, tgt_d = phase_llama_score(
+            kernels, llama, tree)
+        lcfg = llama.LlamaConfig(dtype=torch.float32)
+        phase_serve_fp32("llama-small", lcfg, llama.llama_init(
+            lcfg, torch.Generator().manual_seed(12), device="cuda"),
+            engine_mod, generate_mod)
+        phase_serve_bf16("llama-small", llama.llama_forward, engine_mod,
+                         generate_mod, params, cpu_params, cfg)
+        launches = dict(kernels.LAUNCHES)
+        check(launches["flash_fwd"] > 0,
+              "flash_fwd never launched on the Llama scoring path")
+        phase_score_timing("llama-small", llama.llama_forward,
+                           llama.llama_loss, params, cfg, tok_d, tgt_d)
+        del params, cpu_params
     # training needs autograd, so it runs outside inference mode and on
     # parameters of its own
     rows += phase_flash_bwd(kernels, attention, gen)
     rows += phase_ce_bwd(kernels, fused_ce, gen)
+    fused_row = phase_flash_bwd_fused(kernels, attention, gen)
     phase_train_check(gpt2, tree)
-    # the training path, the main path of this slice: counts from 0
+    phase_llama_train_check(kernels, llama, tree)
+    # the training paths, each counted from 0: GPT-2's reaches six of the
+    # kernels, Llama's (the main path of this slice) the single-pass
+    # backward
     launches = phase_train(kernels, gpt2)
     for row in rows:
         row["launches"] = launches[row["name"]]
+    fused_row["launches"] = phase_llama_train(kernels, llama)[
+        "flash_bwd_fused"]
+    rows.insert(4, fused_row)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

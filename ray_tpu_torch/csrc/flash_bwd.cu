@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulation:
-// two kernels, as the two-pass FlashAttention-2 backward.
+// the two kernels of the two-pass FlashAttention-2 backward, and the
+// single-pass (fused) one below them.
 //
 // Replaces ray_tpu/ops/attention.py:_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (launched by _flash_bwd_pallas). Both recompute
@@ -36,6 +37,33 @@
 //     sequence), so tq < tk is taken; only tiles that straddle the
 //     diagonal or a ragged end pay for the mask. Any Tq, Tk: rows past
 //     the end are zero-filled and masked, and never written.
+//
+// A third kernel, fused, replaces ray_tpu/ops/attention.py:
+// _flash_bwd_fused_kernel (the single-pass backward, opt-in there with
+// RAY_TPU_FLASH_FUSED_BWD=1; here `flash_attention(..., fused_bwd=True)`):
+// for each kv tile it computes dK, dV AND that tile's contributions to
+// dQ, forming S once per (q tile, kv tile) pair: 5 products where dq +
+// dkv take 7. Its plain version is the same as the two kernels'
+// (ops/attention.py:_flash_bwd_reference, which computes dQ, dK, dV
+// from O and the LSE). The TPU kernel keeps dQ as an output revisited by
+// a grid that runs in order; CTAs here run in parallel, so:
+//   * fused: one CTA per (batch*head, 64 keys), the dkv kernel's loop over
+//     q tiles; after dK += dS^T Q each warp stores its 16 rows of dS^T
+//     (bf16, the A fragments dK used) into a shared tile, and after a
+//     barrier each warp reads 16 query rows of dS back through
+//     ldmatrix.trans and multiplies them by the resident K tile
+//     (ldmatrix.trans again), 64 columns of D at a time so head_dim 128
+//     holds 32 extra accumulators, not 64; the partial dQ [64, D] is
+//     added to an fp32 [B, Tq, H, D] buffer the caller zero-filled, with
+//     float2 atomicAdd (sm_90 and up). Its cast to bf16 happens
+//     outside, as in JAX (attention.py:464). Atomics add in a different
+//     order each run, so dQ's last bits vary from run to run.
+// What bounds it: at the Llama training shape ([4, 2048, 12, 64], causal)
+// 10 * D flops per visible (query, key) pair, 64.4 GFLOP (65 us at the
+// bf16 peak) against ~0.10 GB (q, k, v, dO read, dK, dV written in bf16,
+// dQ in fp32; 30 us): operations, and the atomics' L2 traffic (each kv
+// tile adds a [64, D] fp32 partial per q tile it sees: ~0.4 GB of
+// read-modify-write at that shape) is the cost of not running in order.
 #include "common.cuh"
 
 using namespace port;
@@ -53,10 +81,14 @@ template <int D>
 struct Layout {
   static constexpr int LD = D + 8;  // bf16 row stride of a staged tile
   static constexpr int TILE = BT * LD;
-  // dq: Q, dO, 2 x K, 2 x V; dkv: K, V, 2 x Q, 2 x dO, then LSE and D
+  // dq: Q, dO, 2 x K, 2 x V; dkv: K, V, 2 x Q, 2 x dO, then LSE and D;
+  // fused: dkv's, then the dS^T tile [64 keys, 64 queries]
   static constexpr int dq_bytes = 6 * TILE * 2;
   static constexpr int dkv_bytes = 6 * TILE * 2 + 2 * BT * 4;
+  static constexpr int fused_bytes = dkv_bytes + BT * (BT + 8) * 2;
 };
+
+constexpr int LDS = BT + 8;  // bf16 row stride of the staged dS^T tile
 
 // BT x D bf16 rows (row r at base + (row0 + r) * stride) into a padded
 // shared tile with cp.async; rows at or past `valid` are zero-filled.
@@ -86,16 +118,17 @@ __device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile,
   a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * Layout<D>::LD + 8);
 }
 
-// acc[16 rows, D] += A[16 rows, 64] B where B [64, D] is a padded shared
-// tile read through ldmatrix.trans; `a` holds the 4 k-steps' fragments.
-template <int D>
+// acc[16 rows, W] += A[16 rows, 64] B where B [64, W] is W columns of a
+// padded shared tile of width D, read through ldmatrix.trans; `a` holds
+// the 4 k-steps' fragments.
+template <int D, int W = D>
 __device__ __forceinline__ void mma_a_tile(float (*acc)[4],
                                            uint32_t (*a)[4],
                                            const bf16* tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) {
 #pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
+    for (int j = 0; j < W / 8; j += 2) {
       // four 8x8 transposed tiles: rows kk*16 + [0,8) and [8,16) at
       // columns j*8 (lanes 0-15) and (j+1)*8 (lanes 16-31)
       uint32_t b[4];
@@ -407,6 +440,220 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The A fragments (rows m0 + [0, 16), k columns kk*16 + [0, 16)) of a
+// product operand held transposed in shared memory, t[k][m] with row
+// stride LDS: the four 8x8 matrices (k 0-7, m 0-7), (k 0-7, m 8-15),
+// (k 8-15, m 0-7), (k 8-15, m 8-15) transposed by ldmatrix.trans.
+__device__ __forceinline__ void a_frag_trans(uint32_t* a, const bf16* t,
+                                             int m0, int kk, int lane) {
+  ldmatrix_x4_trans(a, t + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
+                           + m0 + ((lane >> 3) & 1) * 8);
+}
+
+// p[0] += x, p[1] += y in device memory, p 8-byte aligned.
+__device__ __forceinline__ void atomic_add2(float* p, float x, float y) {
+#if CUDART_VERSION >= 12010
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
+#else
+  atomicAdd(p, x);
+  atomicAdd(p + 1, y);
+#endif
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_fused_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dcor,
+                       float* __restrict__ dq, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Tq, int Tk,
+                       Strides st, int causal, float scale_log2,
+                       float scale) {
+  typedef Layout<D> L;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + L::TILE;
+  bf16* sQ = sV + L::TILE;      // 2 buffers
+  bf16* sO = sQ + 2 * L::TILE;  // 2 buffers (dO)
+  float* sL = reinterpret_cast<float*>(sO + 2 * L::TILE);  // LSE, log2
+  float* sD = sL + BT;                                      // D
+  bf16* sS = reinterpret_cast<bf16*>(sD + BT);  // dS^T [64 keys][LDS]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * BT;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int q_offset = Tk - Tq;
+
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  const bf16* ob = dout + b * st.ob + h * st.oh;
+
+  const int n_qt = (Tq + BT - 1) / BT;
+  // the JAX kernel's start_q with its clamp at 0 (attention.py:356-362)
+  const int start_q = causal ? max(0, k0 - q_offset) / BT : 0;
+
+  load_tile<D>(sK, kb, st.kt, k0, Tk);
+  load_tile<D>(sV, vb, st.vt, k0, Tk);
+  if (start_q < n_qt) {
+    load_tile<D>(sQ, qb, st.qt, start_q * BT, Tq);
+    load_tile<D>(sO, ob, st.ot, start_q * BT, Tq);
+  }
+  cp_async_commit();
+
+  // this thread's two keys within the kv tile: r0 and r0 + 8
+  const int r0 = warp * 16 + g;
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+  }
+
+  for (int qt = start_q; qt < n_qt; ++qt) {
+    const int buf = (qt - start_q) & 1;
+    if (qt + 1 < n_qt) {
+      const int nq = (qt + 1) * BT;
+      load_tile<D>(sQ + (buf ^ 1) * L::TILE, qb, st.qt, nq, Tq);
+      load_tile<D>(sO + (buf ^ 1) * L::TILE, ob, st.ot, nq, Tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    {
+      const int i = threadIdx.x & (BT - 1);
+      const int row = qt * BT + i;
+      const long long at = (long long)bh * Tq + row;
+      if (threadIdx.x < BT) {
+        sL[i] = row < Tq ? lse[at] * LOG2E : 0.f;
+      } else {
+        sD[i] = row < Tq ? dcor[at] : 0.f;
+      }
+    }
+    __syncthreads();
+    const bf16* tQ = sQ + buf * L::TILE;
+    const bf16* tO = sO + buf * L::TILE;
+
+    // S^T = K Q^T and dP^T = V dO^T, [16 keys, 64 queries]
+    float s[BT / 8][4], dp[BT / 8][4];
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t ka[4], va[4];
+      a_frag<D>(ka, sK, r0, kd, tg);
+      a_frag<D>(va, sV, r0, kd, tg);
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j) {
+        const bf16* qrow = tQ + (j * 8 + g) * LD + kd * 16 + tg * 2;
+        const bf16* orow = tO + (j * 8 + g) * LD + kd * 16 + tg * 2;
+        mma16816(s[j], ka, *reinterpret_cast<const uint32_t*>(qrow),
+                 *reinterpret_cast<const uint32_t*>(qrow + 8));
+        mma16816(dp[j], va, *reinterpret_cast<const uint32_t*>(orow),
+                 *reinterpret_cast<const uint32_t*>(orow + 8));
+      }
+    }
+
+    // P^T and dS^T = P^T * (dP^T - D), LSE and D per column (query)
+    const bool masked = (causal && q_offset + qt * BT < k0 + BT - 1) ||
+                        (qt * BT + BT > Tq) || (k0 + BT > Tk);
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + tg * 2 + (e & 1);
+        float x = s[j][e] * scale_log2;
+        if (masked) {
+          const int key = k0 + r0 + (e >> 1) * 8;
+          const int qi = qt * BT + col;
+          if (qi >= Tq || key >= Tk || (causal && q_offset + qi < key)) {
+            x = -INFINITY;
+          }
+        }
+        const float p = exp2f(x - sL[col]);
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - sD[col]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, both [16 keys, D]; this warp's 16
+    // rows of dS^T, rounded to bf16 as dK takes them, go to sS
+    uint32_t pa[BT / 16][4], da[BT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      c_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+      bf16* row = sS + r0 * LDS + kk * 16 + tg * 2;
+      *reinterpret_cast<uint32_t*>(row) = da[kk][0];
+      *reinterpret_cast<uint32_t*>(row + 8 * LDS) = da[kk][1];
+      *reinterpret_cast<uint32_t*>(row + 8) = da[kk][2];
+      *reinterpret_cast<uint32_t*>(row + 8 * LDS + 8) = da[kk][3];
+    }
+    mma_a_tile<D>(acc_dv, pa, tO, lane);
+    mma_a_tile<D>(acc_dk, da, tQ, lane);
+    __syncthreads();  // every warp's rows of dS^T are in sS
+
+    // dQ[16 queries, D] += scale * dS K for this warp's 16 query rows, 64
+    // columns at a time, added to device memory with atomics
+    uint32_t dsa[BT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      a_frag_trans(dsa[kk], sS, warp * 16, kk, lane);
+    }
+    const int qrow = qt * BT + warp * 16 + g;
+#pragma unroll
+    for (int c = 0; c < D; c += 64) {
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      }
+      mma_a_tile<D, 64>(acc, dsa, sK + c, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qrow + r * 8;
+        if (row >= Tq) continue;
+        float* out = dq + (((long long)b * Tq + row) * H + h) * D + c + tg * 2;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          atomic_add2(out + j * 8, acc[j][2 * r] * scale,
+                      acc[j][2 * r + 1] * scale);
+        }
+      }
+    }
+    __syncthreads();  // this buffer, sL, sD and sS are refilled next
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + r0 + r * 8;
+    if (key >= Tk) continue;
+    const long long at = (((long long)b * Tk + key) * H + h) * D + tg * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + j * 8) =
+          __floats2bfloat162_rn(acc_dk[j][2 * r] * scale,
+                                acc_dk[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + j * 8) =
+          __floats2bfloat162_rn(acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, int bytes, int device, bool* done) {
   // the shared-memory opt-in is per device; set it on first use only
@@ -448,6 +695,24 @@ cudaError_t launch_dkv(int device, const bf16* q, const bf16* k,
   flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
       q, k, v, dout, lse, dcor, dk, dv, H, Tq, Tk, st, causal, scale_log2,
       scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fused(int device, const bf16* q, const bf16* k,
+                         const bf16* v, const bf16* dout, const float* lse,
+                         const float* dcor, float* dq, bf16* dk, bf16* dv,
+                         int B, int H, int Tq, int Tk, const Strides& st,
+                         int causal, float scale_log2, float scale,
+                         cudaStream_t stream) {
+  static bool done[MAX_DEVICES] = {};
+  const int bytes = Layout<D>::fused_bytes;
+  cudaError_t err = opt_in(flash_bwd_fused_kernel<D>, bytes, device, done);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tk + BT - 1) / BT, B * H);
+  flash_bwd_fused_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, dout, lse, dcor, dq, dk, dv, H, Tq, Tk, st, causal,
+      scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -524,6 +789,45 @@ extern "C" int flash_bwd_dkv_bf16(
   if (D == 128) {
     return launch_dkv<128>(device, qp, kp, vp, op, lp, dp, dkp, dvp, B, H,
                            Tq, Tk, st, causal, scale_log2, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_bwd_dkv_bf16, plus dq [B, Tq, H, D] contiguous fp32, zero-filled
+// by the caller: the kernel adds scale * dS K into it (atomics), dk and dv
+// it writes. The single-pass backward (`flash_bwd_fused_kernel`).
+extern "C" int flash_bwd_fused_bf16(
+    int device, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* dcor, void* dq,
+    void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+    long long qsb, long long qst, long long qsh, long long ksb,
+    long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, long long osb, long long ost, long long osh, int causal,
+    float scale_log2, float scale, void* stream) {
+  if (device < 0 || device >= MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                   osb, ost, osh};
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* op = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(dcor);
+  float* dqp = static_cast<float*>(dq);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    return launch_fused<64>(device, qp, kp, vp, op, lp, dp, dqp, dkp, dvp,
+                            B, H, Tq, Tk, st, causal, scale_log2, scale, s);
+  }
+  if (D == 128) {
+    return launch_fused<128>(device, qp, kp, vp, op, lp, dp, dqp, dkp, dvp,
+                             B, H, Tq, Tk, st, causal, scale_log2, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,8 +33,8 @@ _LOG2E = 1.4426950408889634
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_fwd", "ce_dx",
-    "ce_dw")}
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused",
+    "ce_fwd", "ce_dx", "ce_dw")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,7 +62,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         fns = [(lib.flash_bwd_dq_bf16, [i] + [p] * 7 + [i] * 5 + [ll] * 12
                 + [i, f, f, p]),
                (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 5 + [ll] * 12
-                + [i, f, f, p])]
+                + [i, f, f, p]),
+               (lib.flash_bwd_fused_bf16, [i] + [p] * 9 + [i] * 5
+                + [ll] * 12 + [i, f, f, p])]
     elif name == "ce_fwd":
         fns = [(lib.ce_fwd_bf16, [i, p, p, p, p, p, p, i, i, i, i, i, p]),
                (lib.ce_fwd_takes, [i, i])]
@@ -244,6 +246,30 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _launched("flash_bwd_dkv", err)
     return dk, dv
+
+
+def flash_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, dcor: torch.Tensor,
+                    causal: bool, sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dQ, dK and dV in one pass on the card (the single-pass backward),
+    inputs as `flash_bwd_dq`. Returns dQ [B, Tq, H, D] fp32 (zero-filled
+    here, then summed by the kernel with atomics, so its last bits vary
+    from run to run; the caller casts it, as the JAX package does outside
+    its kernel) and dK, dV [B, Tk, H, D] bf16."""
+    shape, strides = _flash_bwd_args("flash_bwd_fused", q, k, v, do, lse,
+                                     dcor, causal)
+    dev = q.device
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
+    err = _lib("flash_bwd").flash_bwd_fused_bf16(
+        dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dcor.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *shape, *strides, int(causal), sm_scale * _LOG2E,
+        sm_scale, torch.cuda.current_stream(dev).cuda_stream)
+    _launched("flash_bwd_fused", err)
+    return dq, dk, dv
 
 
 def _takes(lib: str, fn: str, d: int, device: torch.device) -> bool:

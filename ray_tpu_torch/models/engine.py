@@ -23,6 +23,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from ..tree import tree_device
 from .generate import _model_fns
 
 _DONE = object()
@@ -111,7 +112,7 @@ class ContinuousBatchingEngine:
         self.max_batch = max_batch
         self.idle_sleep_s = idle_sleep_s
         self.max_prefills_per_tick = max(1, int(max_prefills_per_tick))
-        self.device = params["wte"].device
+        self.device = tree_device(params)
         self._cache = _model_fns(config)[1](config, max_batch,
                                             device=self.device)
         self._tokens = np.zeros(max_batch, np.int64)

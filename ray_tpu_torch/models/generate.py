@@ -1,5 +1,5 @@
 """Autoregressive generation over the KV cache (port of
-ray_tpu/models/generate.py, GPT-2 family).
+ray_tpu/models/generate.py: the GPT-2 and Llama families).
 
 Prefill is one forward over the prompt into a fresh max_seq_len cache;
 decoding is a Python loop of one-token forwards (JAX's `lax.scan`), the
@@ -11,14 +11,19 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..tree import tree_device
 from .gpt2 import (GPT2Config, gpt2_decode, gpt2_forward_cached,
                    gpt2_init_kv_cache)
+from .llama import (LlamaConfig, init_kv_cache, llama_decode,
+                    llama_forward_cached)
 
 
 def _model_fns(config) -> Tuple[Callable, Callable, Callable]:
     """(forward_cached, init_cache, ragged_decode) for the config's model
     family — generation and the continuous-batching engine are
     model-agnostic over this cache protocol."""
+    if isinstance(config, LlamaConfig):
+        return llama_forward_cached, init_kv_cache, llama_decode
     if isinstance(config, GPT2Config):
         return gpt2_forward_cached, gpt2_init_kv_cache, gpt2_decode
     raise TypeError(f"no generation support for {type(config).__name__}")
@@ -39,7 +44,7 @@ def _sample(logits: torch.Tensor, vocab_size: int, temperature: float,
 
 
 @torch.inference_mode()
-def generate(params: Any, config: GPT2Config, prompt: Any, *,
+def generate(params: Any, config: Any, prompt: Any, *,
              max_new_tokens: int, temperature: float = 0.0,
              top_k: int = 0, generator: Optional[torch.Generator] = None,
              eos_token: Optional[int] = None) -> torch.Tensor:
@@ -48,7 +53,7 @@ def generate(params: Any, config: GPT2Config, prompt: Any, *,
     top-k / temperature sampling from `generator` (which must live on
     that device). With eos_token, tokens after a sequence's first EOS
     are replaced by EOS."""
-    device = params["wte"].device
+    device = tree_device(params)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, t0 = prompt.shape
     if t0 + max_new_tokens > config.max_seq_len:

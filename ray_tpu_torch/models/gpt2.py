@@ -34,9 +34,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import flash_attention
+from ..ops.attention import cached_attention, flash_attention
 from ..ops.fused_ce import fused_ce_supported, linear_cross_entropy
-from ..ops.layers import layer_norm
+from ..ops.layers import fp32_logits, layer_norm
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -123,21 +123,6 @@ def gpt2_init(config: GPT2Config,
     return params
 
 
-def _logits(x: torch.Tensor, wte: torch.Tensor) -> torch.Tensor:
-    """Tied LM head, fp32 logits from products summed in fp32: the JAX
-    package's `preferred_element_type=f32` product. On the card a bf16
-    product writes fp32 directly (`out_dtype`, tensor cores); elsewhere,
-    and wherever a gradient is needed (that product has no derivative in
-    PyTorch), the operands are widened first. bf16 products are exact in
-    fp32, so both are the same math."""
-    grad = torch.is_grad_enabled() and (x.requires_grad or wte.requires_grad)
-    if x.is_cuda and x.dtype == torch.bfloat16 and not grad:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), wte.T,
-                        out_dtype=torch.float32)
-        return flat.reshape(*x.shape[:-1], wte.shape[0])
-    return x.float() @ wte.float().T
-
-
 def _attn_proj_res(x: torch.Tensor, a: torch.Tensor, p: Params
                    ) -> torch.Tensor:
     """Attention output projection + residual (shared by the full,
@@ -189,7 +174,7 @@ def gpt2_hidden(params: Params, tokens: torch.Tensor,
 def gpt2_forward(params: Params, tokens: torch.Tensor,
                  config: GPT2Config) -> torch.Tensor:
     """tokens [B, T] int -> logits [B, T, padded_vocab] (fp32)."""
-    return _logits(gpt2_hidden(params, tokens, config), params["wte"])
+    return fp32_logits(gpt2_hidden(params, tokens, config), params["wte"].T)
 
 
 # ------------------------------------------------------- KV-cache decode
@@ -208,26 +193,6 @@ def gpt2_init_kv_cache(config: GPT2Config, batch_size: int,
             for _ in range(c.num_layers)]
 
 
-def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                      positions: torch.Tensor, config: GPT2Config
-                      ) -> torch.Tensor:
-    """q [B, t, H, hd] at `positions` ([B, t] or [t]) attends every cache
-    row at or before its own position. fp32 scores over the whole slab
-    (the JAX package's reduction shapes), probabilities in the working
-    dtype."""
-    b, t = q.shape[0], q.shape[1]
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), ck.float())
-    scores = scores / (config.head_dim ** 0.5)
-    col = torch.arange(ck.shape[1], device=q.device)
-    if positions.dim() == 1:
-        positions = positions[None]
-    visible = col[None, None, None, :] <= positions[:, None, :, None]
-    scores = scores.masked_fill(~visible, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    a = torch.einsum("bhts,bshd->bthd", probs, cv)
-    return a.reshape(b, t, config.d_model)
-
-
 def _block_cached(x: torch.Tensor, p: Params, config: GPT2Config,
                   cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
     """Cache-path block: tokens at [pos, pos+t) are written into the
@@ -237,7 +202,7 @@ def _block_cached(x: torch.Tensor, p: Params, config: GPT2Config,
     cache["k"][:, pos:pos + t] = k
     cache["v"][:, pos:pos + t] = v
     positions = pos + torch.arange(t, device=x.device)
-    a = _cached_attention(q, cache["k"], cache["v"], positions, config)
+    a = cached_attention(q, cache["k"], cache["v"], positions)
     return _mlp_res(_attn_proj_res(x, a, p), p), cache
 
 
@@ -252,7 +217,7 @@ def _block_decode(x: torch.Tensor, p: Params, config: GPT2Config,
     positions = pos_vec[:, None] + torch.arange(t, device=x.device)[None]
     cache["k"][rows, positions] = k
     cache["v"][rows, positions] = v
-    a = _cached_attention(q, cache["k"], cache["v"], positions, config)
+    a = cached_attention(q, cache["k"], cache["v"], positions)
     return _mlp_res(_attn_proj_res(x, a, p), p), cache
 
 
@@ -275,7 +240,7 @@ def gpt2_decode(params: Params, tokens: torch.Tensor, config: GPT2Config,
     x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     if ragged:
         x = x[:, 0]
-    return _logits(x, params["wte"]), cache
+    return fp32_logits(x, params["wte"].T), cache
 
 
 def gpt2_forward_cached(params: Params, tokens: torch.Tensor,
@@ -289,13 +254,13 @@ def gpt2_forward_cached(params: Params, tokens: torch.Tensor,
     for p, blk in zip(params["blocks"], cache):
         x, _ = _block_cached(x, p, config, blk, pos)
     x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
-    return _logits(x, params["wte"]), cache
+    return fp32_logits(x, params["wte"].T), cache
 
 
 def _ce_sum(x: torch.Tensor, targets: torch.Tensor, wte: torch.Tensor,
             vocab_size: int) -> torch.Tensor:
     """Sum of next-token cross-entropy. x [..., d], targets [...]."""
-    logits = _logits(x, wte)
+    logits = fp32_logits(x, wte.T)
     if wte.shape[0] != vocab_size:  # mask the vocab padding
         logits[..., vocab_size:] = -1e30
     logp = torch.log_softmax(logits, dim=-1)

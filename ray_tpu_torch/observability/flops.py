@@ -29,14 +29,21 @@ def device_peak_flops(device: Union[str, torch.device, int, None] = None
 
 
 def param_count(cfg: Any) -> int:
-    """Analytic parameter count of a GPT2Config: tied wte, wpe and 12 d^2
-    per layer (qkv 3, proj 1, mlp 8), as the JAX package counts it."""
-    if type(cfg).__name__ != "GPT2Config":
-        raise TypeError(f"no analytic parameter count for "
-                        f"{type(cfg).__name__}")
-    return (cfg.padded_vocab * cfg.d_model
-            + cfg.max_seq_len * cfg.d_model
-            + cfg.num_layers * 12 * cfg.d_model * cfg.d_model)
+    """Analytic parameter count, as the JAX package counts it. GPT2Config:
+    tied wte, wpe and 12 d^2 per layer (qkv 3, proj 1, mlp 8).
+    LlamaConfig: the embedding and per layer q, k, v, o (2 d^2 + 2 d
+    kv_dim) and gate, up, down (3 d d_ff); the untied `lm_head` is not
+    counted, as in JAX."""
+    name = type(cfg).__name__
+    d, layers = cfg.d_model, cfg.num_layers
+    if name == "GPT2Config":
+        return (cfg.padded_vocab * d + cfg.max_seq_len * d
+                + layers * 12 * d * d)
+    if name == "LlamaConfig":
+        kv_dim = cfg.num_kv_heads * cfg.head_dim
+        return cfg.padded_vocab * d + layers * (
+            2 * d * d + 2 * d * kv_dim + 3 * d * cfg.d_ff)
+    raise TypeError(f"no analytic parameter count for {name}")
 
 
 def attn_flops_per_token(cfg: Any, seq: Optional[int] = None,

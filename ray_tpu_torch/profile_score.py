@@ -1,7 +1,8 @@
 """Where the time goes on the card: torch.profiler over the port's
 scoring entry points, one serving decode tick (fp32 and bf16) and one
-training step (`TrainStep` + `adamw`, bf16, tokens [8, 1024]), GPT-2
-small.
+training step (`TrainStep` + `adamw`, bf16, tokens [8, 1024]) of GPT-2
+small, and one training step of Llama small (tokens [4, 2048], the
+single-pass attention backward).
 
     python -m ray_tpu_torch.profile_score
 
@@ -21,7 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .kernels import build
-from .models import gpt2
+from .models import gpt2, llama
 from .models.engine import _tick
 from .train.optim import adamw
 from .train.step import TrainStep
@@ -98,6 +99,17 @@ def main() -> None:
     seq = torch.randint(0, cfg.vocab_size, (8, 1025), generator=gen)
     batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
     print(json.dumps(_window("train step bf16 [8, 1024]",
+                             lambda: step(state, batch))), flush=True)
+    del step, state
+    lcfg = llama.LlamaConfig.small()
+    step = TrainStep(
+        lambda p, b: llama.llama_loss(p, b["tokens"], b["targets"], lcfg),
+        adamw(3e-4, weight_decay=0.1))
+    state = step.init_state(llama.llama_init(
+        lcfg, torch.Generator().manual_seed(16), device="cuda"))
+    seq = torch.randint(0, lcfg.vocab_size, (4, 2049), generator=gen)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    print(json.dumps(_window("llama train step bf16 [4, 2048], fused backward",
                              lambda: step(state, batch))), flush=True)
 
 

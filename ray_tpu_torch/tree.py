@@ -19,3 +19,9 @@ def tree_leaves(tree: Any) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_device(tree: Any) -> Any:
+    """The device of the tree's first leaf: where a model whose parameters
+    all live on one device runs, whatever its family's keys."""
+    return tree_leaves(tree)[0].device

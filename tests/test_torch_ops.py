@@ -127,6 +127,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.125)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.flash_bwd_dkv(q, q, q, q, lse, lse, True, 0.125)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.flash_bwd_fused(q, q, q, q, lse, lse, True, 0.125)
     x = torch.zeros(64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.ce_fwd(x, x, torch.zeros(64, dtype=torch.long), 64)
@@ -135,8 +137,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.ce_dw(x, x, x, torch.zeros(64), 64)
     assert kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                "flash_bwd_dkv": 0, "ce_fwd": 0,
-                                "ce_dx": 0, "ce_dw": 0}
+                                "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
+                                "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
 
 
 def _grad_tol(dtype: str):
@@ -175,26 +177,36 @@ def test_flash_bwd_reference_matches_jax_kernels(causal, tq, tk, dtype):
                                    **_grad_tol(dtype))
 
 
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,tq,tk", [(True, 256, 256),
                                           (False, 256, 256),
                                           (True, 128, 384)])
-def test_flash_attention_grad_matches_jax(causal, tq, tk, dtype):
+def test_flash_attention_grad_matches_jax(monkeypatch, causal, tq, tk, dtype,
+                                          fused):
     """torch.autograd through the port's `flash_attention` (FlashAttention,
     its plain backward on the CPU) against jax.grad through the JAX one
-    (its custom_vjp, the Pallas backward in interpret mode)."""
+    (its custom_vjp, the Pallas backward in interpret mode). With `fused`
+    the port takes `fused_bwd=True` and JAX `RAY_TPU_FLASH_FUSED_BWD=1`:
+    the single-pass Pallas kernel with 128-row blocks, so its dQ sums over
+    several kv blocks."""
+    blocks = (None, None)
+    if fused:
+        monkeypatch.setenv("RAY_TPU_FLASH_FUSED_BWD", "1")
+        blocks = (128, 128)
     (jq, q), (jk, k), (jv, v), (jdo, do) = _attention_inputs(tq, tk, dtype)
 
     def jloss(q_, k_, v_):
-        o = jattn.flash_attention(q_, k_, v_, causal)
+        o = jattn.flash_attention(q_, k_, v_, causal, None, *blocks)
         return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    o, lse = tattn.flash_attention(q, k, v, causal)
+    o, lse = tattn.flash_attention(q, k, v, causal, fused_bwd=fused)
     assert not lse.requires_grad
     got = torch.autograd.grad(o, (q, k, v), do)
     for name, g, w in zip("qkv", got, want):
+        assert g.dtype == q.dtype, name
         np.testing.assert_allclose(_f32(g), _f32(w), err_msg=f"d{name}",
                                    **_grad_tol(dtype))
 

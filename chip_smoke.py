@@ -17,16 +17,23 @@ SwiGLU), the main path of the third slice: scoring (`llama_score`),
 serving in fp32 and bf16, then training with the single-pass attention
 backward (Llama's only trained route): gradients against fp32 on the CPU
 (`llama_train_check`) and `TrainStep` + `adamw` at tokens [4, 2048]
-(`llama_train`). Every phase prints one JSON line; a phase that fails
-ends the run with a non-zero exit code and no result line. The line
-before last lists each kernel with its launches on its training path,
-its error against the plain version, its time, the plain version's and
-the library's time and the card's bound; the last line is
-{"ok": true, "device": {...}}.
+(`llama_train`). The GPT-2 loss's backward is the chunked CE backward
+(`kernels.ce_bwd`: ce_probs, ce_dx and ce_dw per vocabulary chunk, 7
+chunks a step), held on three shapes (`ce_bwd`). Inputs the attention
+kernels refuse run the plain route on the card (`plain_route`: Llama tiny
+in bf16, GPT-2 tiny in fp32, causal tq > tk, no kernel launched, each
+such call counted in `ops.attention.PLAIN_CALLS`, which the main paths
+must leave at 0). Every
+phase prints one JSON line; a phase that fails ends the run with a
+non-zero exit code and no result line. The line before last lists each
+kernel with its launches on its training path, its error against the
+plain version, its time, the plain version's and the library's time and
+the card's bound; the last line is {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians (kernels: a CUDA graph of launches
-replayed between events; SDPA's backward, which a graph cannot capture:
-its kernels' CUPTI durations) on the card named on the first line of
+replayed between events; SDPA's backward, which a graph cannot capture,
+and the CE backward's split by kernel: their kernels' CUPTI durations)
+on the card named on the first line of
 output (name and power limit from nvidia-smi); bounds use the H100 SXM
 data-sheet peaks (989 TFLOP/s dense bf16, 3.35 TB/s HBM3).
 """
@@ -79,6 +86,12 @@ TWO_PASS_DQ_NORM_TOL = 2e-3
 # the kernels' second product rounded to bf16 (2^-9 of each term), and a
 # kernel that wrote zeros would be 1.0 off
 CE_GRAD_TOL = 2e-2
+# ce_probs against its plain version, both bf16: the same fp32 logits up
+# to summation order, so at most one bf16 ulp apart (2^-7 of the value)
+CE_PROBS_RTOL = 2 ** -7
+# fp32 on the card against fp32 on the CPU (tf32 off): the same
+# arithmetic in another summation order
+FP32_TOL = 1e-4
 # one training step in bf16 on the card against the same weights in fp32
 # on the CPU: per parameter, |g_card - g_cpu| / |g_cpu| (Frobenius norms)
 TRAIN_GRAD_TOL = 5e-2
@@ -225,15 +238,28 @@ def hold_grads(label: str, got, ref) -> dict:
 # ------------------------------------------------------------ phases
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable name for a kernel's mangled name: the CE backward's GEMM
+    by its epilogue and tile (BM, BN, BK, STAGES, WARPS_M, MIN_BLOCKS),
+    the others by name and template width."""
+    epi = re.search(r"(Probs|Dx|Dw)Epi", mangled)
+    if "gemm_kernel" in mangled and epi:
+        tile = re.findall(r"Li(\d+)E", mangled)[:6]
+        return f"ce_{epi.group(1).lower()}<{','.join(tile)}>"
+    m = re.search(r"((?:flash|ce)_\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def ptxas_lines(out: str) -> list:
     """nvcc's `-Xptxas -v` register and spill lines, each prefixed with
-    the kernel (and template width) they describe."""
+    the kernel (and template width or tile) they describe."""
     lines, name = [], "?"
     for ln in out.splitlines():
-        m = re.search(r"entry function '\w*?((?:flash|ce)_\w+?_kernel)"
-                      r"(?:ILi(\d+)E)?", ln)
+        m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            name = kernel_label(m.group(1))
         elif "registers" in ln or "spill" in ln:
             lines.append(f"{name}: {ln.strip()}")
     return lines
@@ -631,12 +657,43 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return max_err(a, ref) / max(float(ref.float().abs().max()), 1e-30)
 
 
+def kernel_split_ms(fn, labels: dict, calls: int = 3) -> dict:
+    """Device milliseconds per call of fn spent in the kernels whose names
+    hold each label's substring (CUPTI durations through torch.profiler,
+    summed over all their launches in a call), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(labels, 0.0)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, part in labels.items():
+            if part in ev.name:
+                out[label] += ev.time_range.elapsed_us() / 1e3 / calls
+    check(all(ms > 0 for ms in out.values()),
+          f"the profiler did not see every kernel: {out}")
+    return out
+
+
+# the CE backward's kernels by the epilogue in their (demangled) names
+CE_BWD_KERNELS = {"ce_probs": "ProbsEpi", "ce_dx": "DxEpi", "ce_dw": "DwEpi"}
+
+
 def phase_ce_bwd(kernels, fused_ce, gen) -> list:
-    """ce_dx and ce_dw against the plain version of their own products
-    (P W and P^T xg in fp32), from the forward kernel's LSE, which is held
-    against the plain forward first; then the finished gradients (the
-    one-hot terms and scaling added as the model's backward adds them)
-    against the plain backward."""
+    """kernels.ce_bwd (ce_probs, ce_dx and ce_dw per vocabulary chunk)
+    against the plain version of its products (P W and P^T xg in fp32),
+    from the forward kernel's LSE, which is held against the plain forward
+    first; ce_probs alone against its plain version on a chunk; then the
+    finished gradients (the one-hot terms and scaling added as the
+    model's backward adds them) against the plain backward. On a ragged
+    one-chunk case, GPT-2's training shape (7 chunks) and a case of 4
+    chunks whose last is partial and holds the vocab padding."""
     dev = torch.device("cuda")
 
     def inputs(n, d, v, vocab):
@@ -654,10 +711,25 @@ def phase_ce_bwd(kernels, fused_ce, gen) -> list:
 
     def compare(args, vocab):
         x, w, t, lse, g = args
+        n, v = x.shape[0], w.shape[0]
+        vc = kernels.ce_chunk_width(n, v)
+        chunks = -(-v // vc)
+        c0 = (chunks - 1) * vc  # the last chunk: partial, holds the padding
+        p = kernels.ce_probs(x, w, lse, vocab, c0, v - c0)
+        p_ref = fused_ce._ce_probs_reference(x, w, lse, vocab, c0, v - c0)
+        check(torch.allclose(p.float(), p_ref.float(), rtol=CE_PROBS_RTOL,
+                             atol=0.0),
+              f"ce_probs {(n, v, vocab)} chunk at {c0}: max error "
+              f"{max_err(p, p_ref)}")
+        p_err = max_err(p, p_ref)
+        del p, p_ref
         xg = (x.float() * g[:, None]).to(x.dtype)
-        got = (kernels.ce_dx(x, w, lse, vocab),
-               kernels.ce_dw(x, w, xg, lse, vocab))
+        kernels.reset_launches()
+        got = kernels.ce_bwd(x, w, xg, lse, vocab)
         torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES[k] for k in CE_BWD_KERNELS}
+        check(launches == dict.fromkeys(CE_BWD_KERNELS, chunks),
+              f"ce_bwd {(n, v)}: launches {launches}, {chunks} chunks")
         want = fused_ce._ce_bwd_products(x, w, xg, lse, vocab)
         check(all(torch.isfinite(a).all().item() for a in got),
               "ce_bwd: non-finite product")
@@ -665,31 +737,45 @@ def phase_ce_bwd(kernels, fused_ce, gen) -> list:
         rels = [rel_err(a, b) for a, b in zip(got, want)]
         check(max(rels) <= CE_GRAD_TOL, f"ce_bwd: errors {errs}, {rels}")
         check(not got[1][vocab:].any().item(), "ce_dw: padded rows not zero")
-        del got, want
+        del want
+        # padding rows of w are never read: poison them and expect the
+        # same bits (the scatter of the one-hot rows uses atomics, so the
+        # check is on the kernels' own outputs)
+        w_poison = w.clone()
+        w_poison[vocab:vocab + 20] = float("nan")
+        w_poison[vocab + 20:] = 1e4
+        poisoned = kernels.ce_bwd(x, w_poison, xg, lse, vocab)
+        check(torch.equal(poisoned[0], got[0])
+              and torch.equal(poisoned[1], got[1]),
+              "ce_bwd: padded vocab rows reached the gradients")
+        del got, poisoned, w_poison
         grads = fused_ce._ce_bwd_kernels(*args, vocab)
         grad_rels = [rel_err(a, b) for a, b in
                      zip(grads, fused_ce._ce_bwd_reference(*args, vocab))]
         check(max(grad_rels) <= CE_GRAD_TOL,
               f"ce_bwd gradients: relative errors {grad_rels}")
-        return xg, errs, rels, grad_rels
+        return xg, {"shape": [n, x.shape[1], v, vocab], "chunk_width": vc,
+                    "chunks": chunks, "launches": launches,
+                    "probs_max_abs_err": p_err,
+                    "dx_max_abs_err": errs[0], "dw_max_abs_err": errs[1],
+                    "dx_rel_err": rels[0], "dw_rel_err": rels[1],
+                    "grad_dx_rel_err": grad_rels[0],
+                    "grad_dw_rel_err": grad_rels[1],
+                    "poisoned_padding_unchanged": True}
 
-    # ragged rows and a padded vocab, before the main shape
-    small_args, small_fwd_err = inputs(100, 128, 640, 600)
-    _, small_errs, small_rels, small_grad_rels = compare(small_args, 600)
+    cases = []
+    # ragged rows and a padded vocab in one chunk, then several chunks,
+    # the last partial and holding the padding, before the main shape
+    for shape in ((100, 128, 640, 600), (20000, 256, 13056, 13000)):
+        args, fwd_err = inputs(*shape)
+        cases.append({**compare(args, shape[3])[1], "fwd_max_abs_err":
+                      fwd_err})
+        del args
     n, d, v, vocab = 8192, 768, 50304, 50257
     args, fwd_err = inputs(n, d, v, vocab)
     x, w, t, lse, g = args
-    xg, errs, rels, grad_rels = compare(args, vocab)
-    # padding rows of w are never read: poison them and expect the same
-    # bits from both kernels (the scatter of the one-hot rows uses
-    # atomics, so the check is on the kernels' own outputs)
-    w_poison = w.clone()
-    w_poison[vocab:vocab + 20] = float("nan")
-    w_poison[vocab + 20:] = 1e4
-    for fn in (lambda w_: kernels.ce_dx(x, w_, lse, vocab),
-               lambda w_: kernels.ce_dw(x, w_, xg, lse, vocab)):
-        check(torch.equal(fn(w_poison), fn(w)),
-              "ce_bwd: padded vocab rows reached the gradients")
+    xg, main = compare(args, vocab)
+    cases.append({**main, "fwd_max_abs_err": fwd_err})
 
     def probs():
         # the library's route to P: fp32-out product, mask, softmax
@@ -697,69 +783,82 @@ def phase_ce_bwd(kernels, fused_ce, gen) -> list:
         lg[:, vocab:] = -math.inf
         return torch.softmax(lg, dim=-1).to(torch.bfloat16)
 
+    # ce_dx and ce_dw each read a P that ce_probs wrote: their library
+    # yardstick is one product from a P made before the timing
+    p_lib = probs()
+
     def lib_dx():
-        return torch.mm(probs(), w, out_dtype=torch.float32)
+        return torch.mm(p_lib, w, out_dtype=torch.float32)
 
     def lib_dw():
-        return torch.mm(probs().T, xg, out_dtype=torch.float32)
+        return torch.mm(p_lib.T, xg, out_dtype=torch.float32)
 
-    lib_err = max(rel_err(lib_dx(), kernels.ce_dx(x, w, lse, vocab)),
-                  rel_err(lib_dw(), kernels.ce_dw(x, w, xg, lse, vocab)))
+    def lib_pair():
+        # P once, then both products
+        pr = probs()
+        return (torch.mm(pr, w, out_dtype=torch.float32),
+                torch.mm(pr.T, xg, out_dtype=torch.float32))
+
+    def pair():
+        return kernels.ce_bwd(x, w, xg, lse, vocab)
+
+    got = pair()
+    lib_err = max(rel_err(a, b) for a, b in zip(lib_pair(), got))
     check(lib_err <= CE_GRAD_TOL, f"ce_bwd library yardstick: {lib_err}")
-    dx_ms = graph_ms(lambda: kernels.ce_dx(x, w, lse, vocab), reps=3,
-                     iters=5)
-    dw_ms = graph_ms(lambda: kernels.ce_dw(x, w, xg, lse, vocab), reps=3,
-                     iters=5)
+    del got
+    pair_ms = graph_ms(pair, reps=3, iters=5)
+    split = kernel_split_ms(pair, CE_BWD_KERNELS)
     plain_ms = graph_ms(lambda: fused_ce._ce_bwd_reference(*args, vocab),
                         reps=1, iters=3)
+    lib_probs_ms = graph_ms(probs, reps=2, iters=5)
     lib_dx_ms = graph_ms(lib_dx, reps=2, iters=5)
     lib_dw_ms = graph_ms(lib_dw, reps=2, iters=5)
-    # at the scoring shape's N (2048 rows) ce_dx has 64 CTAs for the
-    # card's 132 SMs, ce_dw its usual 1572
+    lib_pair_ms = graph_ms(lib_pair, reps=2, iters=5)
+    del p_lib
+    # at the scoring shape's N (2048 rows): two chunks, 32768 columns wide
     (xs, ws, _, lses, gs), _ = inputs(2048, d, v, vocab)
     xgs = (xs.float() * gs[:, None]).to(xs.dtype)
-    dx_ms_2048 = graph_ms(lambda: kernels.ce_dx(xs, ws, lses, vocab),
-                          reps=3, iters=5)
-    dw_ms_2048 = graph_ms(lambda: kernels.ce_dw(xs, ws, xgs, lses, vocab),
-                          reps=3, iters=5)
-    flops = 4 * n * vocab * d
-    dx_bound = bound(flops, x.numel() * 2 + w.numel() * 2 + n * 4
-                     + n * d * 4)
-    dw_bound = bound(flops, 2 * x.numel() * 2 + w.numel() * 2 + n * 4
-                     + v * d * 4)
+    pair_ms_2048 = graph_ms(lambda: kernels.ce_bwd(xs, ws, xgs, lses, vocab),
+                            reps=3, iters=5)
+    # each kernel's inputs read once and outputs written once, P [N, vocab]
+    # bf16 among them; the pair's are x, the live W, xg, LSE, dx and dW
+    product = 2 * n * vocab * d  # each of the three products
+    xb, wb, pb = x.numel() * 2, vocab * d * 2, 2 * n * vocab
+    bounds = {"ce_probs": bound(product, xb + wb + n * 4 + pb),
+              "ce_dx": bound(product, pb + wb + n * d * 4),
+              "ce_dw": bound(product, pb + xb + v * d * 4)}
+    pair_bound = bound(3 * product, 2 * xb + wb + n * 4 + n * d * 4
+                       + v * d * 4)
     emit({"phase": "ce_bwd", "tol_relative": CE_GRAD_TOL,
-          "fwd_tol": CE_TOL, "shape": [n, d, v, vocab],
-          "small_case": {"shape": [100, 128, 640, 600],
-                         "fwd_max_abs_err": small_fwd_err,
-                         "dx_max_abs_err": small_errs[0],
-                         "dw_max_abs_err": small_errs[1],
-                         "dx_rel_err": small_rels[0],
-                         "dw_rel_err": small_rels[1],
-                         "grad_dx_rel_err": small_grad_rels[0],
-                         "grad_dw_rel_err": small_grad_rels[1]},
-          "fwd_max_abs_err": fwd_err,
-          "dx_max_abs_err": errs[0], "dw_max_abs_err": errs[1],
-          "dx_rel_err": rels[0], "dw_rel_err": rels[1],
-          "grad_dx_rel_err": grad_rels[0], "grad_dw_rel_err": grad_rels[1],
-          "poisoned_padding_unchanged": True,
-          "library_rel_err": lib_err, "dx_ms": dx_ms, "dw_ms": dw_ms,
-          "plain_ms_dx_dw": plain_ms, "library_dx_ms": lib_dx_ms,
-          "library_dw_ms": lib_dw_ms, "dx_bound_ms": dx_bound[0],
-          "dw_bound_ms": dw_bound[0], "dx_tflops": flops / dx_ms / 1e9,
-          "dw_tflops": flops / dw_ms / 1e9, "dx_ms_n2048": dx_ms_2048,
-          "dw_ms_n2048": dw_ms_2048,
-          "dx_tflops_n2048": flops / 4 / dx_ms_2048 / 1e9,
-          "dw_tflops_n2048": flops / 4 / dw_ms_2048 / 1e9})
+          "probs_rtol": CE_PROBS_RTOL, "fwd_tol": CE_TOL, "cases": cases,
+          "library_rel_err": lib_err, "pair_ms": pair_ms,
+          "kernel_ms": split, "kernel_ms_method": "CUPTI, per backward",
+          "plain_ms_dx_dw": plain_ms, "library_probs_ms": lib_probs_ms,
+          "library_dx_ms": lib_dx_ms, "library_dw_ms": lib_dw_ms,
+          "library_pair_ms": lib_pair_ms,
+          "bound_ms": {k: b[0] for k, b in bounds.items()},
+          "pair_bound_ms": pair_bound[0], "pair_bound_by": pair_bound[1],
+          "pair_tflops": 3 * product / pair_ms / 1e9,
+          "pair_ms_n2048": pair_ms_2048,
+          "pair_tflops_n2048": 3 * product / 4 / pair_ms_2048 / 1e9,
+          "scratch_bytes": 2 * n * kernels.ce_chunk_width(n, v)})
     common = {"route": "cuda", "source": "ray_tpu_torch/csrc/ce_bwd.cu",
               "plain_ms": plain_ms}
-    return [{**common, "name": "ce_dx",
+    return [{**common, "name": "ce_probs",
              "replaces": "ray_tpu/ops/fused_ce.py:146",
-             "max_abs_err": errs[0], "ms": dx_ms, "bound_ms": dx_bound[0],
-             "bound_by": dx_bound[1], "library_ms": lib_dx_ms},
+             "max_abs_err": main["probs_max_abs_err"],
+             "ms": split["ce_probs"], "bound_ms": bounds["ce_probs"][0],
+             "bound_by": bounds["ce_probs"][1], "library_ms": lib_probs_ms},
+            {**common, "name": "ce_dx",
+             "replaces": "ray_tpu/ops/fused_ce.py:146",
+             "max_abs_err": main["dx_max_abs_err"], "ms": split["ce_dx"],
+             "bound_ms": bounds["ce_dx"][0], "bound_by": bounds["ce_dx"][1],
+             "library_ms": lib_dx_ms},
             {**common, "name": "ce_dw",
              "replaces": "ray_tpu/ops/fused_ce.py:178",
-             "max_abs_err": errs[1], "ms": dw_ms, "bound_ms": dw_bound[0],
-             "bound_by": dw_bound[1], "library_ms": lib_dw_ms}]
+             "max_abs_err": main["dw_max_abs_err"], "ms": split["ce_dw"],
+             "bound_ms": bounds["ce_dw"][0], "bound_by": bounds["ce_dw"][1],
+             "library_ms": lib_dw_ms}]
 
 
 def phase_score(kernels, gpt2, tree):
@@ -978,14 +1077,109 @@ def phase_llama_train_check(kernels, llama, tree) -> None:
           "phase": "llama_train_check", "launches": launches})
 
 
+def reset_counts(kernels) -> None:
+    """Every kernel's launch count, and the calls of the plain attention
+    route on the card, to 0."""
+    from ray_tpu_torch.ops import attention
+
+    kernels.reset_launches()
+    attention.PLAIN_CALLS["attention"] = 0
+
+
+def check_no_plain_route(path: str) -> int:
+    """Fails if an attention call of `path` took the plain route on the
+    card since reset_counts(); returns the count (0)."""
+    from ray_tpu_torch.ops import attention
+
+    n = attention.PLAIN_CALLS["attention"]
+    check(n == 0, f"{path}: {n} attention calls took the plain route on "
+          f"the card")
+    return n
+
+
+def phase_plain_route(kernels, attention, gpt2, llama, tree) -> None:
+    """Inputs the attention kernels refuse (`kernels.flash_takes`) take the
+    plain route on the card, as the JAX package takes its reference off
+    `_shapes_ok`: Llama tiny in bf16 (head_dim 32) and GPT-2 tiny in fp32,
+    forward, loss and one gradient, against the same weights in fp32 on
+    the CPU; and causal attention with tq > tk. No kernel launches; every
+    attention call on the card (one per layer in the forward and in the
+    loss, then the causal one) is counted as a plain-route call."""
+    reset_counts(kernels)
+    results, want_plain = [], 1
+    for model, cfg, forward, loss_fn, seed, tols in (
+            ("llama-tiny", llama.LlamaConfig.tiny(), llama.llama_forward,
+             llama.llama_loss, 20, (LOGITS_TOL, LOSS_TOL, TRAIN_GRAD_TOL)),
+            ("gpt2-tiny", dataclasses.replace(gpt2.GPT2Config.tiny(),
+                                              dtype=torch.float32),
+             gpt2.gpt2_forward, gpt2.gpt2_loss, 22,
+             (FP32_TOL, FP32_TOL, FP32_TOL))):
+        init = llama.llama_init if model.startswith("llama") \
+            else gpt2.gpt2_init
+        params = init(cfg, torch.Generator().manual_seed(seed),
+                      device="cuda")
+        gen = torch.Generator().manual_seed(seed + 1)
+        tokens, targets = (torch.randint(0, cfg.vocab_size, (2, 128),
+                                         generator=gen) for _ in range(2))
+        with torch.no_grad():
+            logits = forward(params, tokens.cuda(), cfg)
+            ref_logits = forward(
+                tree.tree_map(lambda p: p.float().cpu(), params), tokens,
+                dataclasses.replace(cfg, dtype=torch.float32))
+        want_plain += 2 * cfg.num_layers
+        live = slice(0, cfg.vocab_size)
+        check(torch.isfinite(logits).all().item(), f"{model}: non-finite")
+        logits_err = max_err(logits[..., live].cpu(), ref_logits[..., live])
+        loss, ref_loss, _, _, errs, _ = card_vs_cpu_grads(
+            tree, loss_fn, params, cfg, tokens, targets)
+        worst = max(errs, key=errs.get)
+        check(logits_err <= tols[0] and abs(loss - ref_loss) <= tols[1]
+              and errs[worst] <= tols[2],
+              f"{model} on the plain route: logits err {logits_err}, loss "
+              f"{loss} vs {ref_loss}, {worst} gradient error {errs[worst]}")
+        results.append({"model": model, "dtype": str(cfg.dtype),
+                        "tokens": [2, 128], "logits_max_abs_err": logits_err,
+                        "loss": loss, "cpu_fp32_loss": ref_loss,
+                        "grad_rel_err_max": errs[worst],
+                        "grad_rel_err_worst_leaf": worst,
+                        "tols": list(tols)})
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = qkv(gen, 2, 256, 128, 4, 64)
+    o, lse = attention.flash_attention(q, k, v, True)
+    ref = attention.mha_reference(q.float().cpu(), k.float().cpu(),
+                                  v.float().cpu(), True)
+    causal_err = max_err(o.cpu(), ref)
+    check(torch.allclose(o.float().cpu(), ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and lse.shape == (2 * 4, 256),
+          f"causal tq > tk on the plain route: err {causal_err}")
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()),
+          f"a kernel launched on the plain route: {launches}")
+    plain = attention.PLAIN_CALLS["attention"]
+    check(plain == want_plain,
+          f"plain-route attention calls {plain}, expected {want_plain}")
+    emit({"phase": "plain_route", "cases": results,
+          "causal_tq_gt_tk_max_abs_err": causal_err, "launches": launches,
+          "plain_attention_calls": plain})
+
+
 TRAIN_STEPS = 10
 _NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "flash_bwd_fused": 0, "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
-TRAIN_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
-                           "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-                           "ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+                "flash_bwd_fused": 0, "ce_fwd": 0, "ce_probs": 0, "ce_dx": 0,
+                "ce_dw": 0}
 LLAMA_TRAIN_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
                                  "flash_bwd_fused": 12}
+
+
+def train_launches_per_step(kernels, cfg, tokens: int) -> dict:
+    """GPT-2's launches a training step: 12 of each attention kernel, one
+    ce_fwd, and one of each CE backward kernel per vocabulary chunk (7 at
+    tokens [8, 1024])."""
+    chunks = -(-cfg.padded_vocab
+               // kernels.ce_chunk_width(tokens, cfg.padded_vocab))
+    return {**_NO_LAUNCHES, "flash_fwd": 12, "flash_bwd_dq": 12,
+            "flash_bwd_dkv": 12, "ce_fwd": 1, "ce_probs": chunks,
+            "ce_dx": chunks, "ce_dw": chunks}
 
 
 def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
@@ -1009,7 +1203,7 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
     state = step.init_state(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    reset_counts(kernels)
     state, m = step(state, batch)  # warm-up
     timer.end_step()
     losses, times = [float(m["loss"])], []
@@ -1029,6 +1223,7 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
           f"a kernel never launched on the training path: {launches}")
     check(launches == {k: n * steps for k, n in per_step.items()},
           f"training launches {launches} over {steps} steps")
+    plain = check_no_plain_route(phase)
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     med = statistics.median(times)
@@ -1038,7 +1233,7 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
           "tokens": [b, t], "optimizer": "adamw(3e-4, weight_decay=0.1)",
           "steps_timed": TRAIN_STEPS, "losses": losses,
           "launches_per_step": {k: n / steps for k, n in launches.items()},
-          "step_ms": med, "step_ms_min": min(times),
+          "plain_attention_calls": plain, "step_ms": med, "step_ms_min": min(times),
           "step_ms_max": max(times), "tokens_per_s": b * t / med * 1e3,
           "flops_per_step": flops_per_step, "peak_flops": peak,
           "mfu": flops.mfu(flops_per_step, med / 1e3, peak),
@@ -1056,7 +1251,8 @@ def phase_train(kernels, gpt2) -> dict:
     return train_run(
         kernels, "train", "gpt2-small",
         lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"], cfg),
-        cfg, params, 8, 1024, 7, TRAIN_LAUNCHES_PER_STEP)
+        cfg, params, 8, 1024, 7,
+        train_launches_per_step(kernels, cfg, 8 * 1024))
 
 
 def phase_llama_train(kernels, llama) -> dict:
@@ -1232,7 +1428,7 @@ def main() -> int:
                 phase_ce(kernels, fused_ce, gen)]
         # the GPT-2 scoring and serving path: every count from 0, read
         # after both entry points
-        kernels.reset_launches()
+        reset_counts(kernels)
         params, cpu_params, cfg, tok_d, tgt_d = phase_score(kernels, gpt2,
                                                             tree)
         scfg = gpt2.GPT2Config(dtype=torch.float32)
@@ -1245,11 +1441,12 @@ def main() -> int:
         for name in ("flash_fwd", "ce_fwd"):
             check(launches[name] > 0,
                   f"{name} never launched on the scoring path")
+        check_no_plain_route("the GPT-2 scoring and serving path")
         phase_score_timing("gpt2-small", gpt2.gpt2_forward, gpt2.gpt2_loss,
                            params, cfg, tok_d, tgt_d)
         del params, cpu_params
         # the Llama scoring and serving path, counted from 0 the same way
-        kernels.reset_launches()
+        reset_counts(kernels)
         params, cpu_params, cfg, tok_d, tgt_d = phase_llama_score(
             kernels, llama, tree)
         lcfg = llama.LlamaConfig(dtype=torch.float32)
@@ -1261,6 +1458,7 @@ def main() -> int:
         launches = dict(kernels.LAUNCHES)
         check(launches["flash_fwd"] > 0,
               "flash_fwd never launched on the Llama scoring path")
+        check_no_plain_route("the Llama scoring and serving path")
         phase_score_timing("llama-small", llama.llama_forward,
                            llama.llama_loss, params, cfg, tok_d, tgt_d)
         del params, cpu_params
@@ -1271,9 +1469,9 @@ def main() -> int:
     fused_row = phase_flash_bwd_fused(kernels, attention, gen)
     phase_train_check(gpt2, tree)
     phase_llama_train_check(kernels, llama, tree)
-    # the training paths, each counted from 0: GPT-2's reaches six of the
-    # kernels, Llama's (the main path of this slice) the single-pass
-    # backward
+    phase_plain_route(kernels, attention, gpt2, llama, tree)
+    # the training paths, each counted from 0: GPT-2's reaches seven of
+    # the kernels, Llama's the single-pass backward
     launches = phase_train(kernels, gpt2)
     for row in rows:
         row["launches"] = launches[row["name"]]

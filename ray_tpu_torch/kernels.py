@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` (with the shared `csrc/common.cuh`) is compiled by
 (`_build/<name>-<source hash>.so`, built at first use, all sources
 compiled in parallel) and loaded with ctypes.
 Pointers come from `data_ptr()`, the stream from PyTorch's current
-stream. The wrappers check device, dtype, shape, strides and alignment
+stream (`ce_bwd` also forks a side stream from it and joins it back). The
+wrappers check device, dtype, shape, strides and alignment
 and raise on anything the kernel does not take; they allocate outputs
 with `torch.empty`, raise if the launch returned a CUDA error, and add
 one to `LAUNCHES[name]` for every launch.
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,7 +35,9 @@ _LOG2E = 1.4426950408889634
 # launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused",
-    "ce_fwd", "ce_dx", "ce_dw")}
+    "ce_fwd", "ce_probs", "ce_dx", "ce_dw")}
+# bytes of the CE backward's bf16 probability scratch, at most
+CE_SCRATCH_BYTES = 128 << 20
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -69,8 +72,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         fns = [(lib.ce_fwd_bf16, [i, p, p, p, p, p, p, i, i, i, i, i, p]),
                (lib.ce_fwd_takes, [i, i])]
     else:
-        fns = [(lib.ce_dx_bf16, [i, p, p, p, p, i, i, i, i, p]),
-               (lib.ce_dw_bf16, [i, p, p, p, p, p, i, i, i, i, p]),
+        fns = [(lib.ce_probs_bf16, [i, p, p, p, p] + [i] * 6 + [p]),
+               (lib.ce_dx_bf16, [i, p, p, p] + [i] * 7 + [p]),
+               (lib.ce_dw_bf16, [i, p, p, p] + [i] * 6 + [p]),
                (lib.ce_bwd_takes, [i, i])]
     for fn, argtypes in fns:
         fn.argtypes = argtypes
@@ -140,32 +144,48 @@ def _bthd_strides(t: torch.Tensor, kernel: str, name: str
     return sb, st, sh
 
 
+def _flash_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> Optional[str]:
+    """Why the attention kernels do not take these inputs, or None when
+    they do. Never raises."""
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev):
+        return "q, k, v must be CUDA tensors on one device"
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        return f"bf16 only, got {q.dtype}/{k.dtype}/{v.dtype}"
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        return "q [B, Tq, H, D], k/v [B, Tk, H, D]"
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        return f"k/v shape {tuple(k.shape)} vs q {tuple(q.shape)}"
+    if d not in (64, 128):
+        return f"head_dim {d} not in (64, 128)"
+    if tq == 0 or tk == 0 or b * h == 0:
+        return "empty input"
+    if causal and tq > tk:
+        return ("causal attention needs tq <= tk (queries align to the end "
+                "of the kv sequence)")
+    return None
+
+
+def flash_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> bool:
+    """Whether the attention kernels take q, k, v: CUDA tensors on one
+    device, all bf16, q [B, Tq, H, D] and k, v [B, Tk, H, D] with D 64 or
+    128, none empty, and not causal with Tq > Tk. Never raises."""
+    return _flash_refusal(q, k, v, causal) is None
+
+
 def _flash_check(kernel: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, causal: bool
                  ) -> Tuple[int, int, int, int, int]:
     """Checks shared by the attention kernels; returns (B, Tq, Tk, H, D)."""
-    dev = q.device
-    if not (q.is_cuda and k.device == dev and v.device == dev):
-        raise ValueError(f"{kernel}: q, k, v must be CUDA tensors on one "
-                         f"device")
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise ValueError(f"{kernel}: bf16 only, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{kernel}: q [B, Tq, H, D], k/v [B, Tk, H, D]")
+    why = _flash_refusal(q, k, v, causal)
+    if why is not None:
+        raise ValueError(f"{kernel}: {why}")
     b, tq, h, d = q.shape
-    tk = k.shape[1]
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"{kernel}: k/v shape {tuple(k.shape)} vs q "
-                         f"{tuple(q.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"{kernel}: head_dim {d} not in (64, 128)")
-    if tq == 0 or tk == 0 or b * h == 0:
-        raise ValueError(f"{kernel}: empty input")
-    if causal and tq > tk:
-        raise ValueError(f"{kernel}: causal attention needs tq <= tk "
-                         f"(queries align to the end of the kv sequence)")
-    return b, tq, tk, h, d
+    return b, tq, k.shape[1], h, d
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -294,9 +314,9 @@ def ce_fwd_supported(d: int, dtype: torch.dtype,
 
 def ce_bwd_supported(d: int, dtype: torch.dtype,
                      device: torch.device) -> bool:
-    """Whether ce_dx and ce_dw take rows of width d in this dtype on this
-    CUDA device: bf16, and what `ce_bwd_takes` in csrc/ce_bwd.cu says of
-    d (a width compiled there, the tiles within the device's shared
+    """Whether the CE backward kernels take rows of width d in this dtype
+    on this CUDA device: bf16, and what `ce_bwd_takes` in csrc/ce_bwd.cu
+    says of d (a multiple of 64, the copy rings within the device's shared
     memory). Builds the kernels on first use."""
     return dtype == torch.bfloat16 and _takes("ce_bwd", "ce_bwd_takes", d,
                                               device)
@@ -351,9 +371,18 @@ def ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     return loss, lse
 
 
+def ce_chunk_width(n: int, v: int) -> int:
+    """Vocabulary columns per chunk of the CE backward, from the shape
+    alone: the largest multiple of 128 whose bf16 probabilities [n, width]
+    fit CE_SCRATCH_BYTES, at least 128 and at most v rounded up to 128
+    (8192 at n = 8192: 7 chunks of V = 50304)."""
+    fit = CE_SCRATCH_BYTES // (2 * max(n, 1)) // 128 * 128
+    return max(128, min(fit, -(-v // 128) * 128))
+
+
 def _ce_bwd_check(kernel: str, x: torch.Tensor, w: torch.Tensor,
                   lse: torch.Tensor, vocab_size: int) -> Tuple[int, int, int]:
-    """Checks shared by ce_dx and ce_dw; returns (N, d, V)."""
+    """Checks of the CE backward kernels' inputs; returns (N, d, V)."""
     dev = x.device
     if not (x.is_cuda and w.device == dev and lse.device == dev):
         raise ValueError(f"{kernel}: x, w, lse must be CUDA tensors on one "
@@ -378,36 +407,76 @@ def _ce_bwd_check(kernel: str, x: torch.Tensor, w: torch.Tensor,
     return n, d, v
 
 
-def ce_dx(x: torch.Tensor, w: torch.Tensor, lse: torch.Tensor,
-          vocab_size: int) -> torch.Tensor:
-    """dx_unscaled = P w on the card, P = exp(x w^T - lse) with the
-    columns at or past vocab_size zero. x [N, d], w [V, d] contiguous bf16
-    CUDA tensors, lse [N] fp32 (natural log). Returns [N, d] fp32."""
-    n, d, v = _ce_bwd_check("ce_dx", x, w, lse, vocab_size)
+def ce_probs(x: torch.Tensor, w: torch.Tensor, lse: torch.Tensor,
+             vocab_size: int, c0: int, width: int) -> torch.Tensor:
+    """One launch of `ce_probs` alone, for holding it against its plain
+    version: P = exp(x w^T - lse) for the vocab columns [c0, c0 + width),
+    zero at columns at or past vocab_size, as bf16 [N, width]. Inputs as
+    `ce_bwd`."""
+    n, d, v = _ce_bwd_check("ce_probs", x, w, lse, vocab_size)
+    if not (0 <= c0 and 0 < width and c0 + width <= v):
+        raise ValueError(f"ce_probs: columns [{c0}, {c0 + width}) of {v}")
     dev = x.device
-    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
-    err = _lib("ce_bwd").ce_dx_bf16(
-        dev.index, x.data_ptr(), w.data_ptr(), lse.data_ptr(), dx.data_ptr(),
-        n, d, v, vocab_size, torch.cuda.current_stream(dev).cuda_stream)
-    _launched("ce_dx", err)
-    return dx
+    ldp = -(-width // 128) * 128
+    p = torch.empty((n, ldp), dtype=torch.bfloat16, device=dev)
+    _launched("ce_probs", _lib("ce_bwd").ce_probs_bf16(
+        dev.index, x.data_ptr(), w.data_ptr(), lse.data_ptr(), p.data_ptr(),
+        n, d, c0, width, ldp, vocab_size,
+        torch.cuda.current_stream(dev).cuda_stream))
+    return p[:, :width]
 
 
-def ce_dw(x: torch.Tensor, w: torch.Tensor, xg: torch.Tensor,
-          lse: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """dW_unscaled = P^T xg on the card, inputs as `ce_dx` plus xg
-    [N, d] contiguous bf16 (x times the upstream gradient). Returns
-    [V, d] fp32, the rows at or past vocab_size zero."""
-    n, d, v = _ce_bwd_check("ce_dw", x, w, lse, vocab_size)
+def ce_bwd(x: torch.Tensor, w: torch.Tensor, xg: torch.Tensor,
+           lse: torch.Tensor, vocab_size: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CE backward's two products on the card: (dx_unscaled = P w
+    [N, d], dW_unscaled = P^T xg [V, d]) in fp32, P = exp(x w^T - lse)
+    with the columns at or past vocab_size zero (those rows of dW zero,
+    those rows of w never read). x, xg [N, d] and w [V, d] contiguous bf16
+    CUDA tensors (xg = x times the upstream gradient), lse [N] fp32
+    (natural log). Walks the vocabulary in `ce_chunk_width(N, V)` columns:
+    per chunk `ce_probs` writes P into a bf16 scratch, then `ce_dx` adds
+    P w to dx and `ce_dw` writes the chunk's rows of dW. ce_dx and ce_dw
+    only read P, so ce_dw runs on a side stream forked from the current
+    one after ce_probs and joined back before the next chunk's ce_probs:
+    the two overlap (alone, each fills 1.45 waves of the H100's 132 SMs
+    at GPT-2's shape). The caller sees one stream's order."""
+    n, d, v = _ce_bwd_check("ce_bwd", x, w, lse, vocab_size)
     if (xg.shape != x.shape or xg.dtype != x.dtype or xg.device != x.device
             or not xg.is_contiguous() or xg.data_ptr() % 16):
-        raise ValueError("ce_dw: xg must be a contiguous, 16-byte aligned "
+        raise ValueError("ce_bwd: xg must be a contiguous, 16-byte aligned "
                          "tensor like x")
     dev = x.device
+    vc = ce_chunk_width(n, v)
+    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
     dw = torch.empty((v, d), dtype=torch.float32, device=dev)
-    err = _lib("ce_bwd").ce_dw_bf16(
-        dev.index, x.data_ptr(), w.data_ptr(), xg.data_ptr(),
-        lse.data_ptr(), dw.data_ptr(), n, d, v, vocab_size,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launched("ce_dw", err)
-    return dw
+    p = torch.empty((n, vc), dtype=torch.bfloat16, device=dev)
+    lib = _lib("ce_bwd")
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    for c0 in range(0, v, vc):
+        width = min(vc, v - c0)
+        _launched("ce_probs", lib.ce_probs_bf16(
+            dev.index, x.data_ptr(), w.data_ptr(), lse.data_ptr(),
+            p.data_ptr(), n, d, c0, width, vc, vocab_size, main.cuda_stream))
+        side.wait_stream(main)
+        _launched("ce_dx", lib.ce_dx_bf16(
+            dev.index, p.data_ptr(), w.data_ptr(), dx.data_ptr(), n, d, c0,
+            width, vc, vocab_size, int(c0 == 0), main.cuda_stream))
+        _launched("ce_dw", lib.ce_dw_bf16(
+            dev.index, p.data_ptr(), xg.data_ptr(), dw.data_ptr(), n, d, c0,
+            width, vc, vocab_size, side.cuda_stream))
+        main.wait_stream(side)
+    return dx, dw
+
+
+_side_streams: Dict[int, torch.cuda.Stream] = {}
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The stream `ce_bwd` runs ce_dw on beside the current one, one per
+    device."""
+    with _lock:
+        if dev.index not in _side_streams:
+            _side_streams[dev.index] = torch.cuda.Stream(dev)
+        return _side_streams[dev.index]

@@ -1,17 +1,25 @@
 """Flash attention, forward and backward (port of ray_tpu/ops/attention.py).
 
-`flash_attention` is differentiable (`FlashAttention`, the port's twin of
-the JAX `custom_vjp`). On CUDA tensors the forward runs the hand-written
-Hopper kernel `csrc/flash_fwd.cu`, and the backward either the two
-kernels of `csrc/flash_bwd.cu` (dQ, then dK/dV, as the JAX package's
-default two-pass backward) or, with `fused_bwd=True`, its single-pass
-kernel (dQ, dK, dV from one pass per kv tile; the port's stand-in for
-the JAX package's `RAY_TPU_FLASH_FUSED_BWD=1`). Both recompute P from
-the saved LSE. On CPU tensors both directions run the plain versions
-below. Layout [B, T, H, D]; a causal mask is aligned to the END of the
-kv sequence (query i sees keys j <= i + tk - tq), as in the JAX
-reference. `cached_attention` is the serving path's attention over a KV
-cache, plain PyTorch as the JAX package's einsums are.
+`flash_attention` is differentiable. Which route an input takes:
+- CUDA tensors the kernels take (`kernels.flash_takes`: bf16, head_dim
+  64 or 128, not causal with tq > tk) go through `FlashAttention`, the
+  port's twin of the JAX `custom_vjp`: the forward runs the hand-written
+  Hopper kernel `csrc/flash_fwd.cu`, and the backward either the two
+  kernels of `csrc/flash_bwd.cu` (dQ, then dK/dV, as the JAX package's
+  default two-pass backward) or, with `fused_bwd=True`, its single-pass
+  kernel (dQ, dK, dV from one pass per kv tile; the port's stand-in for
+  the JAX package's `RAY_TPU_FLASH_FUSED_BWD=1`). Both recompute P from
+  the saved LSE.
+- CUDA tensors the kernels refuse (fp32, head_dim 32, causal tq > tk)
+  go through the plain `mha_reference` under autograd, as the JAX
+  package takes its XLA reference where `_shapes_ok` fails.
+- CPU tensors go through `FlashAttention` with the plain versions below
+  in both directions.
+Layout [B, T, H, D]; a causal mask is aligned to the END of the kv
+sequence (query i sees keys j <= i + tk - tq), as in the JAX reference,
+so a causal query row that sees no key (tq > tk) gets the mean of V.
+`cached_attention` is the serving path's attention over a KV cache,
+plain PyTorch as the JAX package's einsums are.
 """
 from __future__ import annotations
 
@@ -22,6 +30,10 @@ import torch
 from .. import kernels
 
 _NEG_INF = -1e30
+# flash_attention calls on CUDA tensors the kernels refuse, which took the
+# plain route, since it was last set to 0: no kernel counts them, so this
+# makes that route visible (the main paths expect none)
+PLAIN_CALLS = {"attention": 0}
 
 
 def _masked_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -51,6 +63,17 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attend(_masked_logits(q, k, causal, sm_scale), v, q.dtype)
 
 
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, sm_scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, natural-log LSE [B*H, Tq] fp32) in plain PyTorch: O as
+    `mha_reference` (differentiable), the LSE detached."""
+    b, tq, h, _ = q.shape
+    logits = _masked_logits(q, k, causal, sm_scale)
+    lse = torch.logsumexp(logits.detach(), dim=-1).reshape(b * h, tq)
+    return _attend(logits, v, q.dtype), lse
+
+
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool, sm_scale: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,10 +81,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain version for CPU tensors."""
     if q.is_cuda:
         return kernels.flash_fwd(q, k, v, causal, sm_scale)
-    b, tq, h, _ = q.shape
-    logits = _masked_logits(q, k, causal, sm_scale)
-    lse = torch.logsumexp(logits, dim=-1).reshape(b * h, tq)
-    return _attend(logits, v, q.dtype), lse
+    return _plain_attention(q, k, v, causal, sm_scale)
 
 
 def softmax_correction(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -137,12 +157,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     fused_bwd: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention: (O [B, Tq, H, D], natural-log LSE [B*H, Tq] fp32),
-    differentiable in q, k and v. The Hopper kernels for CUDA tensors
-    (they raise on inputs they do not take), the plain versions for CPU
-    tensors. `fused_bwd` picks the single-pass backward kernel over the
-    two-pass pair (the same function; off by default, as in JAX)."""
+    """Attention: (O [B, Tq, H, D], natural-log LSE [B*H, Tq] fp32,
+    non-differentiable), differentiable in q, k and v. The Hopper kernels
+    for CUDA tensors they take (`kernels.flash_takes`); `mha_reference`
+    under autograd for CUDA tensors they refuse, as JAX falls back to its
+    reference off `_shapes_ok`; the plain versions inside `FlashAttention`
+    for CPU tensors. `fused_bwd` picks the single-pass backward kernel over
+    the two-pass pair (the same function; off by default, as in JAX)."""
     scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    if q.is_cuda and not kernels.flash_takes(q, k, v, causal):
+        PLAIN_CALLS["attention"] += 1
+        return _plain_attention(q, k, v, causal, scale)
     return FlashAttention.apply(q, k, v, causal, scale, fused_bwd)
 
 

@@ -5,11 +5,14 @@ ray_tpu/ops/fused_ce.py).
 without writing the [N, V] logits to device memory, and is
 differentiable in x and w (`LinearCrossEntropy`, the port's twin of the
 JAX `custom_vjp`). On CUDA tensors the forward runs the hand-written
-Hopper kernel `csrc/ce_fwd.cu` and the backward the two kernels of
-`csrc/ce_bwd.cu` (P W for dx, P^T xg for dW), with the one-hot terms and
-the upstream scaling in PyTorch, as the JAX package leaves them to XLA.
-On CPU tensors both directions run the plain versions below. Rows of w
-at or past `vocab_size` are padding and masked.
+Hopper kernel `csrc/ce_fwd.cu` and the backward `kernels.ce_bwd`: the
+vocabulary in chunks of `kernels.ce_chunk_width(N, V)` columns (the bf16
+P of a chunk in at most 128 MiB of scratch), per chunk `ce_probs` (P),
+`ce_dx` (dx += P W) and `ce_dw` (the chunk's rows of P^T xg) from
+`csrc/ce_bwd.cu`, with the one-hot terms and the upstream scaling in
+PyTorch, as the JAX package leaves them to XLA. On CPU tensors both
+directions run the plain versions below. Rows of w at or past
+`vocab_size` are padding and masked.
 """
 from __future__ import annotations
 
@@ -36,14 +39,50 @@ def _ce_reference(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 def _ce_bwd_products(x: torch.Tensor, w: torch.Tensor, xg: torch.Tensor,
                      lse: torch.Tensor, vocab_size: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the two backward kernels: (P w [N, d], P^T xg
-    [V, d]) in fp32, P = exp(x w^T - lse) over the live rows of w; rows
-    of P^T xg at or past vocab_size are zero."""
+    """Plain version of the backward's products (`kernels.ce_bwd`): (P w
+    [N, d], P^T xg [V, d]) in fp32, P = exp(x w^T - lse) over the live
+    rows of w; rows of P^T xg at or past vocab_size are zero."""
     wl = w[:vocab_size].float()
     p = torch.exp(x.float() @ wl.T - lse[:, None])
     ptxg = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
     ptxg[:vocab_size] = p.T @ xg.float()
     return p @ wl, ptxg
+
+
+def _ce_probs_reference(x: torch.Tensor, w: torch.Tensor,
+                        lse: torch.Tensor, vocab_size: int, c0: int,
+                        vc: int) -> torch.Tensor:
+    """Plain version of `ce_probs`: P = exp(x w^T - lse) for the vocab
+    columns [c0, c0 + vc), zero at columns at or past vocab_size (those
+    rows of w are not read), rounded to x.dtype as the JAX kernels round P
+    before their products ([N, vc], bf16 for bf16 x)."""
+    live = max(0, min(vc, vocab_size - c0))
+    p = torch.zeros((x.shape[0], vc), dtype=torch.float32, device=x.device)
+    p[:, :live] = torch.exp(x.float() @ w[c0:c0 + live].float().T
+                            - lse[:, None])
+    return p.to(x.dtype)
+
+
+def _ce_bwd_chunked(x: torch.Tensor, w: torch.Tensor, xg: torch.Tensor,
+                    lse: torch.Tensor, vocab_size: int, vc: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What `kernels.ce_bwd` composes, in plain PyTorch: for each chunk of
+    vc vocab columns, P_c from `_ce_probs_reference`, then dx += P_c w_c
+    and the chunk's rows of dW = P_c^T xg as fp32 products (the plain
+    forms of `ce_dx` and `ce_dw`). The same function as
+    `_ce_bwd_products`; the CPU tests hold the two together to show that
+    chunking changes nothing."""
+    n, d = x.shape
+    v = w.shape[0]
+    dx = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty((v, d), dtype=torch.float32, device=x.device)
+    for c0 in range(0, v, vc):
+        width = min(vc, v - c0)
+        live = max(0, min(width, vocab_size - c0))
+        p = _ce_probs_reference(x, w, lse, vocab_size, c0, width).float()
+        dx += p[:, :live] @ w[c0:c0 + live].float()
+        dw[c0:c0 + width] = p.T @ xg.float()
+    return dx, dw
 
 
 def _ce_bwd_reference(x: torch.Tensor, w: torch.Tensor,
@@ -69,13 +108,13 @@ def _ce_bwd_kernels(x: torch.Tensor, w: torch.Tensor,
                     targets: torch.Tensor, lse: torch.Tensor,
                     g: torch.Tensor, vocab_size: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward on the card: `ce_dx` and `ce_dw` for the products,
+    """The backward on the card: `kernels.ce_bwd` for the two products,
     the one-hot terms and the scaling by g in PyTorch, in the order of
     `_ce_bwd_reference`."""
     gf = g.float()[:, None]
-    dx = (kernels.ce_dx(x, w, lse, vocab_size) - w[targets].float()) * gf
     xg = (x.float() * gf).to(x.dtype)
-    dw = kernels.ce_dw(x, w, xg, lse, vocab_size)
+    pw, dw = kernels.ce_bwd(x, w, xg, lse, vocab_size)
+    dx = (pw - w[targets].float()) * gf
     dw.index_add_(0, targets, -xg.float())
     return dx.to(x.dtype), dw.to(w.dtype)
 
@@ -83,7 +122,7 @@ def _ce_bwd_kernels(x: torch.Tensor, w: torch.Tensor,
 def fused_ce_supported(n: int, d: int, v: int, device: torch.device,
                        dtype: torch.dtype, backward: bool = False) -> bool:
     """True iff the fused kernels run for these shapes on this device —
-    the forward, and the two backward kernels too when `backward` —
+    the forward, and the backward kernels too when `backward` —
     `gpt2_loss` dispatches on it, so everything else takes the model's
     own chunked path, never the unchunked full-logit reference."""
     return (torch.device(device).type == "cuda" and n > 0 and v > 0
@@ -101,7 +140,7 @@ def _ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 class LinearCrossEntropy(torch.autograd.Function):
     """Per-row CE of x @ w.T with the fused backward: saves x, w, the
     targets and the row LSE (returned too, non-differentiable). On CUDA
-    tensors the backward launches `ce_dx` and `ce_dw`, with the one-hot
+    tensors the backward runs `kernels.ce_bwd`, with the one-hot
     terms and the scaling by g in PyTorch (`index_add_` for the scatter);
     on CPU tensors it runs `_ce_bwd_reference`."""
 

@@ -113,32 +113,120 @@ def test_norms_match_jax(dtype):
         **_tol(dtype))
 
 
-def test_kernel_wrappers_refuse_cpu_tensors():
+_Q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+_LSE = torch.zeros(2, 64)
+_X = torch.zeros(64, 64, dtype=torch.bfloat16)
+_WRAPPER_CALLS = {
+    "flash_fwd": lambda k: k.flash_fwd(_Q, _Q, _Q, True, 0.125),
+    "flash_bwd_dq": lambda k: k.flash_bwd_dq(_Q, _Q, _Q, _Q, _LSE, _LSE,
+                                             True, 0.125),
+    "flash_bwd_dkv": lambda k: k.flash_bwd_dkv(_Q, _Q, _Q, _Q, _LSE, _LSE,
+                                               True, 0.125),
+    "flash_bwd_fused": lambda k: k.flash_bwd_fused(_Q, _Q, _Q, _Q, _LSE,
+                                                   _LSE, True, 0.125),
+    "ce_fwd": lambda k: k.ce_fwd(_X, _X, torch.zeros(64, dtype=torch.long),
+                                 64),
+    "ce_bwd": lambda k: k.ce_bwd(_X, _X, _X, torch.zeros(64), 64),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(_WRAPPER_CALLS))
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """The wrappers never run a plain version: the CPU path is chosen
     by the callers in ops/ for CPU tensors, and a wrapper handed one
     raises instead of computing."""
     from ray_tpu_torch import kernels
 
-    q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
-    lse = torch.zeros(2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.flash_fwd(q, q, q, True, 0.125)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.125)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.flash_bwd_dkv(q, q, q, q, lse, lse, True, 0.125)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.flash_bwd_fused(q, q, q, q, lse, lse, True, 0.125)
-    x = torch.zeros(64, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.ce_fwd(x, x, torch.zeros(64, dtype=torch.long), 64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.ce_dx(x, x, torch.zeros(64), 64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.ce_dw(x, x, x, torch.zeros(64), 64)
+        _WRAPPER_CALLS[wrapper](kernels)
     assert kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                 "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
-                                "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
+                                "ce_fwd": 0, "ce_probs": 0, "ce_dx": 0,
+                                "ce_dw": 0}
+
+
+class _CudaLike:
+    """What `kernels.flash_takes` reads of a tensor, as a CUDA tensor
+    would show it (this host has no card to make one on)."""
+
+    def __init__(self, shape, dtype=torch.bfloat16):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device("cuda", 0)
+        self.is_cuda = True
+
+    def dim(self):
+        return len(self.shape)
+
+
+@pytest.mark.parametrize("q,k,causal,takes", [
+    ((2, 128, 4, 64), (2, 128, 4, 64), True, True),
+    ((2, 64, 4, 128), (2, 256, 4, 128), True, True),     # tq < tk
+    ((2, 256, 4, 64), (2, 128, 4, 64), False, True),     # tq > tk, full
+    ((2, 128, 4, 32), (2, 128, 4, 32), True, False),     # head_dim 32
+    ((2, 256, 4, 64), (2, 128, 4, 64), True, False),     # causal tq > tk
+    ((2, 128, 64), (2, 128, 64), True, False),           # not 4-D
+    ((2, 128, 4, 64), (2, 128, 2, 64), True, False),     # heads differ
+    ((2, 0, 4, 64), (2, 128, 4, 64), True, False),       # empty
+])
+def test_flash_takes(q, k, causal, takes):
+    """The attention kernels' predicate: bf16 CUDA tensors with head_dim
+    64 or 128 and not causal with tq > tk; everything else is refused
+    without raising, fp32 and CPU tensors included."""
+    from ray_tpu_torch import kernels
+
+    qs, ks = _CudaLike(q), _CudaLike(k)
+    assert kernels.flash_takes(qs, ks, ks, causal) is takes
+    wide = _CudaLike(q, torch.float32)
+    assert kernels.flash_takes(wide, _CudaLike(k, torch.float32),
+                               _CudaLike(k, torch.float32), causal) is False
+    cpu_q, cpu_k = (torch.zeros(s, dtype=torch.bfloat16) for s in (q, k))
+    assert kernels.flash_takes(cpu_q, cpu_k, cpu_k, causal) is False
+
+
+@pytest.mark.parametrize("causal,tq,tk", [(True, 128, 128),
+                                          (True, 128, 64),
+                                          (False, 64, 128)])
+def test_refused_attention_route_matches_jax(causal, tq, tk):
+    """What `flash_attention` runs for CUDA inputs the kernels refuse
+    (`_plain_attention`, mha_reference under autograd) against the JAX
+    `flash_attention` at head_dim 32, which its `_shapes_ok` sends to the
+    JAX reference: O, the LSE and the gradients, fp32. Causal tq > tk
+    gives the mean of V to the rows that see no key, as JAX does."""
+    (jq, q), (jk, k), (jv, v), (jdo, do) = _attention_inputs(
+        tq, tk, "float32", d=32)
+
+    def jloss(q_, k_, v_):
+        o = jattn.flash_attention(q_, k_, v_, causal)
+        return jnp.sum(o * jdo)
+
+    want = jattn.flash_attention(jq, jk, jv, causal)
+    want_grads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o, lse = tattn._plain_attention(q, k, v, causal, 32 ** -0.5)
+    np.testing.assert_allclose(_f32(o.detach()), _f32(want), **_tol(
+        "float32"))
+    logits = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * 32 ** -0.5
+    if causal:
+        logits = jnp.where(jnp.tril(jnp.ones((tq, tk), bool), tk - tq),
+                           logits, -1e30)
+    want_lse = jax.nn.logsumexp(logits, axis=-1).reshape(-1, tq)
+    assert not lse.requires_grad and lse.shape == (2 * 2, tq)
+    np.testing.assert_allclose(lse.numpy(), _f32(want_lse),
+                               **_tol("float32"))
+    if causal and tq > tk:  # the first tq - tk rows see no key
+        np.testing.assert_allclose(
+            _f32(o.detach()[:, :tq - tk]),
+            np.broadcast_to(_f32(v.detach()).mean(1, keepdims=True),
+                            (2, tq - tk, 2, 32)), atol=1e-6)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    for name, g, w in zip("qkv", got, want_grads):
+        np.testing.assert_allclose(_f32(g), _f32(w), err_msg=f"d{name}",
+                                   **_grad_tol("float32"))
+    # CPU tensors take FlashAttention's plain versions: no plain-route call
+    calls = tattn.PLAIN_CALLS["attention"]
+    tattn.flash_attention(q.detach(), k.detach(), v.detach(), causal)
+    assert tattn.PLAIN_CALLS["attention"] == calls
 
 
 def _grad_tol(dtype: str):
@@ -146,9 +234,9 @@ def _grad_tol(dtype: str):
         else dict(atol=1e-4, rtol=1e-3)
 
 
-def _attention_inputs(tq, tk, dtype, seed=3):
+def _attention_inputs(tq, tk, dtype, seed=3, d=64):
     rng = np.random.default_rng(seed)
-    b, h, d = 2, 2, 64
+    b, h = 2, 2
     arrs = [rng.standard_normal((b, t, h, d), dtype=np.float32)
             for t in (tq, tk, tk, tq)]
     return [_pair(a, dtype) for a in arrs]  # q, k, v, dO
@@ -235,30 +323,70 @@ def test_ce_bwd_reference_matches_jax_kernels(v, vocab):
     assert not got[1][vocab:].any()
 
 
-@pytest.mark.parametrize("v,vocab", [(384, 380), (384, 384)])
-def test_ce_bwd_products_match_jax_kernels(v, vocab):
-    """The plain version of the two backward kernels' products, P W and
-    P^T xg, against the JAX dx and dW kernels' own outputs, fp32: with
-    g = 1 the one-hot terms `_ce_bwd_pallas` adds (-w[t] to dx, -x at
-    the target rows of dW) are taken back out."""
+_CHUNKINGS = [(384, 380, 128),   # chunks divide V, padding in the last
+              (384, 380, 256),   # chunks of 256 and 128
+              (384, 250, 128)]   # padding from inside a chunk to the end
+
+
+@pytest.mark.parametrize("v,vocab,vc,dtype", [
+    (384, 380, None, "float32"), (384, 384, None, "float32"),
+    *((*c, "float32") for c in _CHUNKINGS),
+    *((*c, "bfloat16") for c in _CHUNKINGS)])
+def test_ce_bwd_products_match_jax_kernels(v, vocab, vc, dtype):
+    """The plain versions of the backward's products, P W and P^T xg —
+    whole (`_ce_bwd_products`, vc None) or composed chunk by chunk as
+    `kernels.ce_bwd` composes its kernels (`_ce_probs_reference`, then the
+    fp32 products: `_ce_bwd_chunked`) — against the JAX dx and dW kernels'
+    own outputs: with g = 1 the one-hot terms `_ce_bwd_pallas` adds (-w[t]
+    to dx, -x at the target rows of dW) are taken back out. fp32, and the
+    chunked composition in bf16 too, where both round P to bf16 before the
+    products."""
     rng = np.random.default_rng(6)
     n, d = 128, 128
     x = rng.standard_normal((n, d), dtype=np.float32)
     w = rng.standard_normal((v, d), dtype=np.float32) * 0.1
     t = rng.integers(0, vocab, size=n)
-    jx, jw, jt = jnp.asarray(x), jnp.asarray(w), jnp.asarray(t, jnp.int32)
+    (jx, tx), (jw, tw) = _pair(x, dtype), _pair(w, dtype)
+    jt = jnp.asarray(t, jnp.int32)
     _, jlse = jce._ce_reference(jx, jw, jt, vocab)
     jdx, jdw = jce._ce_bwd_pallas(jx, jw, jt, jlse, jnp.ones(n), vocab, 128,
                                   jce._pick_block_v(v), interpret=True)
-    want_pw = np.asarray(jdx) + w[t]
-    want_ptxg = np.asarray(jdw).copy()
-    np.add.at(want_ptxg, t, x)
-    xt = torch.from_numpy(x)
-    pw, ptxg = tce._ce_bwd_products(
-        xt, torch.from_numpy(w), xt, torch.from_numpy(np.array(jlse)), vocab)
-    np.testing.assert_allclose(pw.numpy(), want_pw, atol=1e-5, rtol=1e-3)
-    np.testing.assert_allclose(ptxg.numpy(), want_ptxg, atol=1e-5, rtol=1e-3)
+    xf, wf = _f32(jx), _f32(jw)
+    want_pw = _f32(jdx) + wf[t]
+    want_ptxg = _f32(jdw).copy()
+    np.add.at(want_ptxg, t, xf)
+    lse = torch.from_numpy(np.array(jlse, np.float32))
+    if vc is None:
+        pw, ptxg = tce._ce_bwd_products(tx, tw, tx, lse, vocab)
+    else:
+        pw, ptxg = tce._ce_bwd_chunked(tx, tw, tx, lse, vocab, vc)
+    tol = dict(atol=1e-5, rtol=2e-4) if dtype == "float32" \
+        else _tol(dtype)
+    np.testing.assert_allclose(pw.numpy(), want_pw, **tol)
+    np.testing.assert_allclose(ptxg.numpy(), want_ptxg, **tol)
     assert not ptxg[vocab:].any()
+
+
+@pytest.mark.parametrize("n,v", [(8192, 50304), (2048, 50304), (100, 640),
+                                 (20000, 13056), (1, 50257), (2 ** 19, 384),
+                                 (2 ** 20, 50304)])
+def test_ce_chunk_width(n, v):
+    """The CE backward's chunk planner: a multiple of 128, at least 128,
+    at most V rounded up to 128, and the largest whose bf16 scratch [n, Vc]
+    fits 128 MiB (where 128 columns fit at all); GPT-2's training shape
+    walks V = 50304 in 7 chunks of 8192."""
+    from ray_tpu_torch import kernels
+
+    vc = kernels.ce_chunk_width(n, v)
+    top = -(-v // 128) * 128
+    assert vc % 128 == 0 and 128 <= vc <= top
+    if 2 * n * 128 <= kernels.CE_SCRATCH_BYTES:
+        assert 2 * n * vc <= kernels.CE_SCRATCH_BYTES
+        assert vc == top or 2 * n * (vc + 128) > kernels.CE_SCRATCH_BYTES
+    else:
+        assert vc == 128
+    if (n, v) == (8192, 50304):
+        assert vc == 8192 and -(-v // vc) == 7
 
 
 def test_linear_cross_entropy_grad_matches_autograd():

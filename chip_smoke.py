@@ -241,26 +241,32 @@ def hold_grads(label: str, got, ref) -> dict:
 def kernel_label(mangled: str) -> str:
     """A readable name for a kernel's mangled name: the CE backward's GEMM
     by its epilogue and tile (BM, BN, BK, STAGES, WARPS_M, MIN_BLOCKS),
-    the others by name and template width."""
+    the others by name and template width, and the dK/dV main loop's
+    instance (`flash_bwd_kv_kernel<64, dkv>` / `<64, fused>`)."""
     epi = re.search(r"(Probs|Dx|Dw)Epi", mangled)
     if "gemm_kernel" in mangled and epi:
         tile = re.findall(r"Li(\d+)E", mangled)[:6]
         return f"ce_{epi.group(1).lower()}<{','.join(tile)}>"
-    m = re.search(r"((?:flash|ce)_\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+    m = re.search(r"((?:flash|ce)_\w+?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?",
+                  mangled)
     if not m:
         return mangled
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = [m.group(2)] if m.group(2) else []
+    if m.group(3):
+        args.append("fused" if m.group(3) == "1" else "dkv")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_lines(out: str) -> list:
-    """nvcc's `-Xptxas -v` register and spill lines, each prefixed with
-    the kernel (and template width or tile) they describe."""
+    """nvcc's `-Xptxas -v` register and spill lines, and any note that
+    wgmma products were serialized, each prefixed with the kernel (and
+    template width or tile) they describe."""
     lines, name = [], "?"
     for ln in out.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
             name = kernel_label(m.group(1))
-        elif "registers" in ln or "spill" in ln:
+        elif "registers" in ln or "spill" in ln or "wgmma" in ln:
             lines.append(f"{name}: {ln.strip()}")
     return lines
 
@@ -270,7 +276,11 @@ def phase_build(kernels) -> None:
     logs = kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(logs),
-          "ptxas": [ln for out in logs.values() for ln in ptxas_lines(out)]})
+          "ptxas": [ln for out in logs.values() for ln in ptxas_lines(out)],
+          # the dK/dV main loop's tile: keys per CTA, dynamic shared
+          # memory per CTA of each instance (ptxas counts only static)
+          "flash_bwd_kv": {d: kernels.flash_bwd_kv_config(d)
+                           for d in (64, 128)}})
 
 
 def qkv(gen, b, tq, tk, h, d) -> list:
@@ -613,6 +623,9 @@ def phase_flash_bwd_fused(kernels, attention, gen) -> dict:
 
         fused_ms = graph_ms(fused)
         times.append({"shape": [b, t, t, h, d], "fused_ms": fused_ms,
+                      "dq_accumulation": kernels.FLASH_DQ_ACCUMULATION,
+                      "keys_per_cta": kernels.flash_bwd_kv_config(d)[
+                          "keys_per_cta"],
                       "two_pass_ms": graph_ms(two_pass),
                       "zero_fill_and_cast_ms": graph_ms(zero_and_cast),
                       "fused_host_paced_ms": median_ms(fused),

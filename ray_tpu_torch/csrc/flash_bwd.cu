@@ -1,77 +1,81 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulation:
-// the two kernels of the two-pass FlashAttention-2 backward, and the
-// single-pass (fused) one below them.
+// the dQ kernel of the two-pass FlashAttention-2 backward, and one dK/dV
+// main loop that serves both the two-pass backward and the single-pass
+// (fused) one.
 //
-// Replaces ray_tpu/ops/attention.py:_flash_bwd_dq_kernel and
-// _flash_bwd_dkv_kernel (launched by _flash_bwd_pallas). Both recompute
-// P = exp2(S * scale * log2(e) - LSE * log2(e)) from the forward's saved
-// natural-log LSE and read D = rowsum(dO * O) (computed outside, fp32):
+// All of them recompute P = exp2(S * scale * log2(e) - LSE * log2(e)) from
+// the forward's saved natural-log LSE and read D = rowsum(dO * O)
+// (computed outside, fp32):
 //   dq:  dQ = scale * sum_kv dS K,            dS = P * (dO V^T - D)
 //   dkv: dV = sum_q P^T dO,  dK = scale * sum_q dS^T Q
 // without writing P or dS to device memory.
 //
-// What bounds them on an H100: at GPT-2 small's training shape
-// ([8, 1024, 12, 64], causal) dq does 19.4 GFLOP (S, dP and dS K over the
-// 50.4 M visible (query, key) pairs) against 63.7 MB, dkv 25.8 GFLOP
-// (S^T, dP^T, P^T dO and dS^T Q) against 75.5 MB: ~300-340 FLOP per byte,
-// at the card's ridge, so the tensor cores and the memory bound them
-// about equally (~20-26 us). A simple kernel fights latency, so both keep
-// the design of flash_fwd.cu:
-//   * 4 warps per CTA, each owning 16 rows of a 64-row tile, mma.sync
-//     m16n8k16 bf16 products with fp32 accumulators in registers; the C
-//     fragments of a score tile are re-packed in registers as the A
-//     fragments of the next product (P, dS: c_to_a), so no score tile
-//     touches shared memory;
-//   * dq: one CTA per (batch*head, 64 query rows). Q and dO are staged
-//     once and held as A fragments; K/V tiles of 64 keys are
-//     double-buffered with cp.async up to the causal diagonal; K is read
-//     a second time, transposed by ldmatrix.trans, as the B operand of
-//     dS K;
-//   * dkv: one CTA per (batch*head, 64 keys). K and V stay in shared
-//     memory as the A operands of S^T = K Q^T and dP^T = V dO^T; Q and dO
-//     tiles (and their LSE and D) stream in from the first q tile that
-//     sees the key tile (the JAX kernel's start_q), double-buffered with
-//     cp.async, and are read again through ldmatrix.trans as the B
-//     operands of P^T dO and dS^T Q; dK and dV accumulate in registers;
-//   * causal with q_offset = Tk - Tq (queries aligned to the end of the kv
-//     sequence), so tq < tk is taken; only tiles that straddle the
-//     diagonal or a ragged end pay for the mask. Any Tq, Tk: rows past
-//     the end are zero-filled and masked, and never written.
+// flash_bwd_dq_kernel replaces ray_tpu/ops/attention.py:
+// _flash_bwd_dq_kernel (attention.py:197). At GPT-2 small's training shape
+// ([8, 1024, 12, 64], causal) it does 19.4 GFLOP (S, dP and dS K over the
+// 50.4 M visible (query, key) pairs) against 63.7 MB: 20 us at the bf16
+// peak. One CTA per (batch*head, 64 query rows), 4 warps of 16 rows,
+// mma.sync m16n8k16 with fp32 accumulators in registers: Q and dO staged
+// once and held as A fragments, K/V tiles of 64 keys double-buffered with
+// cp.async up to the causal diagonal, the C fragments of dS re-packed in
+// registers as the A fragments of dS K (c_to_a), K read again through
+// ldmatrix.trans.
 //
-// A third kernel, fused, replaces ray_tpu/ops/attention.py:
-// _flash_bwd_fused_kernel (the single-pass backward, opt-in there with
-// RAY_TPU_FLASH_FUSED_BWD=1; here `flash_attention(..., fused_bwd=True)`):
-// for each kv tile it computes dK, dV AND that tile's contributions to
-// dQ, forming S once per (q tile, kv tile) pair: 5 products where dq +
-// dkv take 7. Its plain version is the same as the two kernels'
-// (ops/attention.py:_flash_bwd_reference, which computes dQ, dK, dV
-// from O and the LSE). The TPU kernel keeps dQ as an output revisited by
-// a grid that runs in order; CTAs here run in parallel, so:
-//   * fused: one CTA per (batch*head, 64 keys), the dkv kernel's loop over
-//     q tiles; after dK += dS^T Q each warp stores its 16 rows of dS^T
-//     (bf16, the A fragments dK used) into a shared tile, and after a
-//     barrier each warp reads 16 query rows of dS back through
-//     ldmatrix.trans and multiplies them by the resident K tile
-//     (ldmatrix.trans again), 64 columns of D at a time so head_dim 128
-//     holds 32 extra accumulators, not 64; the partial dQ [64, D] is
-//     added to an fp32 [B, Tq, H, D] buffer the caller zero-filled, with
-//     float2 atomicAdd (sm_90 and up). Its cast to bf16 happens
-//     outside, as in JAX (attention.py:464). Atomics add in a different
-//     order each run, so dQ's last bits vary from run to run.
-// What bounds it: at the Llama training shape ([4, 2048, 12, 64], causal)
-// 10 * D flops per visible (query, key) pair, 64.4 GFLOP (65 us at the
-// bf16 peak) against ~0.10 GB (q, k, v, dO read, dK, dV written in bf16,
-// dQ in fp32; 30 us): operations, and the atomics' L2 traffic (each kv
-// tile adds a [64, D] fp32 partial per q tile it sees: ~0.4 GB of
-// read-modify-write at that shape) is the cost of not running in order.
+// flash_bwd_kv_kernel<D, WITH_DQ> replaces _flash_bwd_dkv_kernel
+// (attention.py:251; WITH_DQ false: `flash_bwd_dkv`) and
+// _flash_bwd_fused_kernel (attention.py:326; WITH_DQ true:
+// `flash_bwd_fused`, the single-pass backward, opt-in in JAX with
+// RAY_TPU_FLASH_FUSED_BWD=1, here `flash_attention(..., fused_bwd=True)`).
+// Both instances run the same instructions in the same order for dK and
+// dV, so they agree bit for bit; the fused one adds a dQ stage. Its plain
+// version is ops/attention.py:_flash_bwd_reference.
+// What bounds them on an H100: dkv at GPT-2's training shape does 25.8
+// GFLOP (8 D flops per visible pair) against 75.5 MB, 26 us at the bf16
+// peak against 23 us for the bytes; fused at the Llama training shape
+// ([4, 2048, 12, 64], causal) 64.4 GFLOP (10 D per pair) against ~0.10
+// GB, 65 us against 30 us. Both are bound by operations, and Hopper's
+// tensor cores reach their rate only through wgmma, fed from shared
+// memory without the issue cost of per-warp fragment loads. The design:
+//   * one CTA per (batch*head, BN keys): at D 64 two consumer warpgroups
+//     of 64 keys each (BN 128, so each dQ row takes half as many fp32
+//     partials as with 64-key tiles: Tk / 128 at T 2048, 16), at D 128
+//     one (BN 64), where the registers (dK and dV accumulators, 128 fp32
+//     a thread, plus S^T and dP^T, 64) allow no more;
+//   * K and V are loaded once by TMA; Q and dO tiles of 64 rows, with
+//     their LSE and D rows, stream through a three-stage ring by TMA
+//     (128-byte swizzle, one mbarrier per stage) from the first q tile
+//     that sees the CTA's keys (the JAX kernel's start_q): one thread
+//     issues the loads two tiles ahead while every warpgroup computes,
+//     with one CTA barrier per q tile and no copy instructions on the
+//     others;
+//   * per q tile each warpgroup runs wgmma m64nNk16: S^T = K Q^T and
+//     dP^T = V dO^T with both operands in shared memory (K-major); P^T
+//     and dS^T = P^T (dP^T - D) on the accumulators in the log2 domain,
+//     the mask only on tiles that straddle the causal diagonal or a ragged
+//     end; then dV += P^T dO and dK += dS^T Q with A from registers (the
+//     bf16 re-pack of the accumulators, c_to_a) and B = dO, Q read
+//     MN-major through the descriptor's transpose bit: no operand is
+//     copied or transposed;
+//   * fused: dS^T goes to shared memory in bf16 (the values dK used,
+//     swizzled as TMA would write them); after a barrier each warpgroup
+//     computes its D / NWG columns of dQ[64 q, D] = dS K over all BN keys
+//     (A = dS^T read transposed, B = the resident K, MN-major), so each
+//     partial is added once, into an fp32 [B, Tq, H, D] buffer the caller
+//     zero-filled, with float2 atomics from registers (vector
+//     red.global.add). The cast to bf16 happens outside, as in JAX
+//     (attention.py:464). Atomics add in a different order each run, so
+//     dQ's last bits vary from run to run;
+//   * causal with q_offset = Tk - Tq (queries aligned to the end of the kv
+//     sequence), so tq < tk is taken; any Tq, Tk: rows past the end are
+//     zero-filled by TMA, masked, and never written.
 #include "common.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int BT = 64;        // rows of a q tile and of a kv tile
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+constexpr int BT = 64;        // rows of a q tile (and of dq's kv tile)
+constexpr int THREADS = 128;  // dq: 4 warps x 16 rows
 
 struct Strides {  // (batch, time, head) strides in elements
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
@@ -81,14 +85,8 @@ template <int D>
 struct Layout {
   static constexpr int LD = D + 8;  // bf16 row stride of a staged tile
   static constexpr int TILE = BT * LD;
-  // dq: Q, dO, 2 x K, 2 x V; dkv: K, V, 2 x Q, 2 x dO, then LSE and D;
-  // fused: dkv's, then the dS^T tile [64 keys, 64 queries]
-  static constexpr int dq_bytes = 6 * TILE * 2;
-  static constexpr int dkv_bytes = 6 * TILE * 2 + 2 * BT * 4;
-  static constexpr int fused_bytes = dkv_bytes + BT * (BT + 8) * 2;
+  static constexpr int dq_bytes = 6 * TILE * 2;  // Q, dO, 2 x K, 2 x V
 };
-
-constexpr int LDS = BT + 8;  // bf16 row stride of the staged dS^T tile
 
 // BT x D bf16 rows (row r at base + (row0 + r) * stride) into a padded
 // shared tile with cp.async; rows at or past `valid` are zero-filled.
@@ -139,6 +137,20 @@ __device__ __forceinline__ void mma_a_tile(float (*acc)[4],
       mma16816(acc[j + 1], a[kk], b[2], b[3]);
     }
   }
+}
+
+// P and dS of one score with every rounding pinned by an intrinsic, so no
+// compiler contraction differs between kernels: the dq kernel and the
+// dK/dV loop's dQ stage then take the same bf16 dS bit for bit (left to
+// the compiler, some products were fused in one kernel and not the
+// other). x = S * scale * log2(e) - LSE * log2(e) in one fma, -inf where
+// masked; P = 2^x; dS = P (dP - D).
+__device__ __forceinline__ float score_log2(float s, float scale_log2,
+                                            float lse2) {
+  return __fmaf_rn(s, scale_log2, -lse2);
+}
+__device__ __forceinline__ float score_ds(float p, float dp, float dc) {
+  return __fmul_rn(p, __fsub_rn(dp, dc));
 }
 
 template <int D>
@@ -193,7 +205,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + r * 8;
-    lse2[r] = row < Tq ? lse[(long long)bh * Tq + row] * LOG2E : 0.f;
+    lse2[r] =
+        row < Tq ? __fmul_rn(lse[(long long)bh * Tq + row], LOG2E) : 0.f;
     dc[r] = row < Tq ? dcor[(long long)bh * Tq + row] : 0.f;
   }
   float acc[D / 8][4];
@@ -250,14 +263,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
+        float x = score_log2(s[j][e], scale_log2, lse2[e >> 1]);
         if (masked) {
           const int key = k0 + j * 8 + tg * 2 + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
           if (key >= Tk || (causal && key > qpos)) x = -INFINITY;
         }
-        const float p = exp2f(x - lse2[e >> 1]);
-        s[j][e] = p * (dp[j][e] - dc[e >> 1]);
+        s[j][e] = score_ds(exp2f(x), dp[j][e], dc[e >> 1]);
       }
     }
 
@@ -285,371 +297,313 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- the dK/dV main loop (wgmma + TMA) ----
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dcor, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Tq, int Tk,
-                     Strides st, int causal, float scale_log2, float scale) {
-  typedef Layout<D> L;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + L::TILE;
-  bf16* sQ = sV + L::TILE;      // 2 buffers
-  bf16* sO = sQ + 2 * L::TILE;  // 2 buffers (dO)
-  float* sL = reinterpret_cast<float*>(sO + 2 * L::TILE);  // LSE, log2
-  float* sD = sL + BT;                                      // D
+struct KvCfg {
+  static constexpr int NWG = D == 64 ? 2 : 1;  // consumer warpgroups
+  static constexpr int BN = 64 * NWG;          // keys per CTA
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int STAGES = 3;             // the Q / dO ring
+  static constexpr int KV_BYTES = BN * D * 2;  // K or V
+  static constexpr int Q_BYTES = BT * D * 2;   // a Q or dO tile
+  static constexpr int ROW_BYTES = BT * 4;     // a q tile's LSE or D
+  static constexpr int STAGE_TX = 2 * Q_BYTES + 2 * ROW_BYTES;
+  static constexpr int DS_BYTES = BN * BT * 2;  // dS^T in bf16
+  static constexpr int DQ_COLS = D / NWG;       // dQ columns a warpgroup
+  static constexpr int NC = DQ_COLS < 64 ? DQ_COLS : 64;  // a product's
+  // shared memory, tiles 1024-byte aligned: K, V, the Q and dO stages,
+  // dS^T (fused only), the LSE and D stages, then the mbarriers (K/V, one
+  // a stage)
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_O = OFF_Q + STAGES * Q_BYTES;
+  static constexpr int OFF_S = OFF_O + STAGES * Q_BYTES;
+  __host__ __device__ static constexpr int off_lse(bool with_dq) {
+    return OFF_S + (with_dq ? DS_BYTES : 0);
+  }
+  __host__ __device__ static constexpr int off_dcor(bool with_dq) {
+    return off_lse(with_dq) + STAGES * ROW_BYTES;
+  }
+  __host__ __device__ static constexpr int off_bar(bool with_dq) {
+    return off_dcor(with_dq) + STAGES * ROW_BYTES;
+  }
+  // + 1024 for aligning the dynamic shared memory's base
+  __host__ __device__ static constexpr int smem_bytes(bool with_dq) {
+    return off_bar(with_dq) + 8 * (1 + STAGES) + 1024;
+  }
+};
+
+// TMA maps: boxes of Q, dO (64 rows) and K, V (BN rows), 64 columns of D
+// each; the LSE and D rows of a q tile
+struct KvMaps {
+  CUtensorMap q, k, v, o, lse, dcor;
+};
+
+// p[0] += x, p[1] += y in device memory, p 8-byte aligned (one vector
+// red.global.add: the result is not read)
+__device__ __forceinline__ void atomic_add2(float* p, float x, float y) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+// One thread: the loads of q tile `qt` into ring stage `stage`.
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void load_stage(unsigned char* smem,
+                                           const KvMaps& m, int stage,
+                                           int qt, int bh, int b, int h,
+                                           int Tq) {
+  typedef KvCfg<D> C;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + C::off_bar(WITH_DQ)) + 1 + stage;
+  unsigned char* sq = smem + C::OFF_Q + stage * C::Q_BYTES;
+  unsigned char* so = smem + C::OFF_O + stage * C::Q_BYTES;
+  mbar_expect_tx(full, C::STAGE_TX);
+#pragma unroll
+  for (int half = 0; half < D / 64; ++half) {
+    tma_load_4d(sq + half * BT * 128, &m.q, full, half * 64, h, qt * BT, b);
+    tma_load_4d(so + half * BT * 128, &m.o, full, half * 64, h, qt * BT, b);
+  }
+  const int row = bh * Tq + qt * BT;
+  tma_load_1d(smem + C::off_lse(WITH_DQ) + stage * C::ROW_BYTES, &m.lse,
+              full, row);
+  tma_load_1d(smem + C::off_dcor(WITH_DQ) + stage * C::ROW_BYTES, &m.dcor,
+              full, row);
+}
+
+template <int D, bool WITH_DQ>
+__global__ void __launch_bounds__(KvCfg<D>::THREADS, 1)
+flash_bwd_kv_kernel(const __grid_constant__ KvMaps maps,
+                    float* __restrict__ dq, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Tq, int Tk, int causal,
+                    float scale_log2, float scale) {
+  typedef KvCfg<D> C;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + C::OFF_V;
+  const uint32_t sQ = sK + C::OFF_Q;
+  const uint32_t sO = sK + C::OFF_O;
+  const uint32_t sS = sK + C::OFF_S;
+  const float* sL =
+      reinterpret_cast<const float*>(smem + C::off_lse(WITH_DQ));
+  const float* sD =
+      reinterpret_cast<const float*>(smem + C::off_dcor(WITH_DQ));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::off_bar(WITH_DQ));
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int k0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32;
+  const int k0 = blockIdx.x * C::BN;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int tg = lane & 3;
   const int q_offset = Tk - Tq;
-
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* kb = k + b * st.kb + h * st.kh;
-  const bf16* vb = v + b * st.vb + h * st.vh;
-  const bf16* ob = dout + b * st.ob + h * st.oh;
-
   const int n_qt = (Tq + BT - 1) / BT;
   // q tiles before start_q see none of these keys (attention.py:272-280;
   // the max(0, .) is the clamp that keeps tq < tk off a phantom tile)
   const int start_q = causal ? max(0, k0 - q_offset) / BT : 0;
+  const int n_it = n_qt - start_q;
 
-  load_tile<D>(sK, kb, st.kt, k0, Tk);
-  load_tile<D>(sV, vb, st.vt, k0, Tk);
-  if (start_q < n_qt) {
-    load_tile<D>(sQ, qb, st.qt, start_q * BT, Tq);
-    load_tile<D>(sO, ob, st.ot, start_q * BT, Tq);
-  }
-  cp_async_commit();
-
-  // this thread's two keys within the kv tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], 2 * C::KV_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+    for (int half = 0; half < D / 64; ++half) {
+      tma_load_4d(smem + half * C::BN * 128, &maps.k, &bar[0], half * 64, h,
+                  k0, b);
+      tma_load_4d(smem + C::OFF_V + half * C::BN * 128, &maps.v, &bar[0],
+                  half * 64, h, k0, b);
+    }
+    for (int s = 0; s < STAGES - 1 && s < n_it; ++s) {
+      load_stage<D, WITH_DQ>(smem, maps, s, start_q + s, bh, b, h, Tq);
+    }
   }
 
-  for (int qt = start_q; qt < n_qt; ++qt) {
-    const int buf = (qt - start_q) & 1;
-    if (qt + 1 < n_qt) {
-      const int nq = (qt + 1) * BT;
-      load_tile<D>(sQ + (buf ^ 1) * L::TILE, qb, st.qt, nq, Tq);
-      load_tile<D>(sO + (buf ^ 1) * L::TILE, ob, st.ot, nq, Tq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    {
-      const int i = threadIdx.x & (BT - 1);
-      const int row = qt * BT + i;
-      const long long at = (long long)bh * Tq + row;
-      if (threadIdx.x < BT) {
-        sL[i] = row < Tq ? lse[at] * LOG2E : 0.f;
-      } else {
-        sD[i] = row < Tq ? dcor[at] : 0.f;
-      }
-    }
+  // this warpgroup's 64 keys start at kw0; this thread's two keys are
+  // kw0 + warp * 16 + g (+ 8), rows of the S^T accumulator
+  const int kw0 = k0 + wg * 64;
+  const int key0 = kw0 + warp * 16 + g;
+  const uint32_t kA = sK + wg * 64 * 128;  // this warpgroup's K rows
+  const uint32_t vA = sV + wg * 64 * 128;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+  __syncwarp();
+
+  for (int it = 0; it < n_it; ++it) {
+    const int qt = start_q + it;
+    const int stage = it % STAGES;
+    // every warpgroup is done with the stage refilled here (it waited for
+    // its products at the end of the last q tile)
     __syncthreads();
-    const bf16* tQ = sQ + buf * L::TILE;
-    const bf16* tO = sO + buf * L::TILE;
-
-    // S^T = K Q^T and dP^T = V dO^T, [16 keys, 64 queries]
-    float s[BT / 8][4], dp[BT / 8][4];
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if (threadIdx.x == 0 && it + STAGES - 1 < n_it) {
+      load_stage<D, WITH_DQ>(smem, maps, (it + STAGES - 1) % STAGES,
+                             qt + STAGES - 1, bh, b, h, Tq);
     }
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t ka[4], va[4];
-      a_frag<D>(ka, sK, r0, kd, tg);
-      a_frag<D>(va, sV, r0, kd, tg);
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        const bf16* qrow = tQ + (j * 8 + g) * LD + kd * 16 + tg * 2;
-        const bf16* orow = tO + (j * 8 + g) * LD + kd * 16 + tg * 2;
-        mma16816(s[j], ka, *reinterpret_cast<const uint32_t*>(qrow),
-                 *reinterpret_cast<const uint32_t*>(qrow + 8));
-        mma16816(dp[j], va, *reinterpret_cast<const uint32_t*>(orow),
-                 *reinterpret_cast<const uint32_t*>(orow + 8));
-      }
-    }
+    mbar_wait(&bar[1 + stage], (it / STAGES) & 1);
+    __syncwarp();
+    const uint32_t tQ = sQ + stage * C::Q_BYTES;
+    const uint32_t tO = sO + stage * C::Q_BYTES;
 
-    // P^T and dS^T = P^T * (dP^T - D), LSE and D per column (query)
-    const bool masked = (causal && q_offset + qt * BT < k0 + BT - 1) ||
-                        (qt * BT + BT > Tq) || (k0 + BT > Tk);
+    // S^T = K Q^T and dP^T = V dO^T, [64 keys, 64 queries] each: A and B
+    // K-major, k-steps of 16 along D (32 bytes in a swizzled row; a new
+    // 64-column half every 4)
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ka = (kk / 4) * C::BN * 128 + (kk % 4) * 32;
+      const uint32_t qb = (kk / 4) * BT * 128 + (kk % 4) * 32;
+      Wgmma<64>::ss<0, 0>(s, desc_sw128(kA + ka, 16, 1024),
+                          desc_sw128(tQ + qb, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ka = (kk / 4) * C::BN * 128 + (kk % 4) * 32;
+      const uint32_t qb = (kk / 4) * BT * 128 + (kk % 4) * 32;
+      Wgmma<64>::ss<0, 0>(dp, desc_sw128(vA + ka, 16, 1024),
+                          desc_sw128(tO + qb, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+
+    // P^T (log2 domain) while dP^T is computed; LSE and D per column
+    const float* lse = sL + stage * BT;
+    const float* dcor = sD + stage * BT;
+    const bool masked = (causal && q_offset + qt * BT < kw0 + 63) ||
+                        (qt * BT + BT > Tq) || (kw0 + 64 > Tk);
+    wgmma_wait<1>();
+    fence_regs<32>(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + tg * 2 + (e & 1);
-        float x = s[j][e] * scale_log2;
+        float x = score_log2(s[4 * j + e], scale_log2,
+                             __fmul_rn(lse[col], LOG2E));
         if (masked) {
-          const int key = k0 + r0 + (e >> 1) * 8;
+          const int key = key0 + (e >> 1) * 8;
           const int qi = qt * BT + col;
           if (qi >= Tq || key >= Tk || (causal && q_offset + qi < key)) {
             x = -INFINITY;
           }
         }
-        const float p = exp2f(x - sL[col]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sD[col]);
+        s[4 * j + e] = exp2f(x);
       }
     }
-
-    // dV += P^T dO and dK += dS^T Q, both [16 keys, D]
+    wgmma_wait<0>();
+    fence_regs<32>(dp);
+    // dS^T = P^T * (dP^T - D); both re-packed in bf16 as A fragments, one
+    // k16 slice (16 queries) each
     uint32_t pa[BT / 16][4], da[BT / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
-      c_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
-    }
-    mma_a_tile<D>(acc_dv, pa, tO, lane);
-    mma_a_tile<D>(acc_dk, da, tQ, lane);
-    __syncthreads();  // this buffer (and sL, sD) is refilled next
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + r * 8;
-    if (key >= Tk) continue;
-    const long long at = (((long long)b * Tk + key) * H + h) * D + tg * 2;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + j * 8) =
-          __floats2bfloat162_rn(acc_dk[j][2 * r] * scale,
-                                acc_dk[j][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + j * 8) =
-          __floats2bfloat162_rn(acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
-    }
-  }
-}
-
-// The A fragments (rows m0 + [0, 16), k columns kk*16 + [0, 16)) of a
-// product operand held transposed in shared memory, t[k][m] with row
-// stride LDS: the four 8x8 matrices (k 0-7, m 0-7), (k 0-7, m 8-15),
-// (k 8-15, m 0-7), (k 8-15, m 8-15) transposed by ldmatrix.trans.
-__device__ __forceinline__ void a_frag_trans(uint32_t* a, const bf16* t,
-                                             int m0, int kk, int lane) {
-  ldmatrix_x4_trans(a, t + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                           + m0 + ((lane >> 3) & 1) * 8);
-}
-
-// p[0] += x, p[1] += y in device memory, p 8-byte aligned.
-__device__ __forceinline__ void atomic_add2(float* p, float x, float y) {
-#if CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
-#else
-  atomicAdd(p, x);
-  atomicAdd(p + 1, y);
-#endif
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_fused_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dcor,
-                       float* __restrict__ dq, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int H, int Tq, int Tk,
-                       Strides st, int causal, float scale_log2,
-                       float scale) {
-  typedef Layout<D> L;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + L::TILE;
-  bf16* sQ = sV + L::TILE;      // 2 buffers
-  bf16* sO = sQ + 2 * L::TILE;  // 2 buffers (dO)
-  float* sL = reinterpret_cast<float*>(sO + 2 * L::TILE);  // LSE, log2
-  float* sD = sL + BT;                                      // D
-  bf16* sS = reinterpret_cast<bf16*>(sD + BT);  // dS^T [64 keys][LDS]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int q_offset = Tk - Tq;
-
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* kb = k + b * st.kb + h * st.kh;
-  const bf16* vb = v + b * st.vb + h * st.vh;
-  const bf16* ob = dout + b * st.ob + h * st.oh;
-
-  const int n_qt = (Tq + BT - 1) / BT;
-  // the JAX kernel's start_q with its clamp at 0 (attention.py:356-362)
-  const int start_q = causal ? max(0, k0 - q_offset) / BT : 0;
-
-  load_tile<D>(sK, kb, st.kt, k0, Tk);
-  load_tile<D>(sV, vb, st.vt, k0, Tk);
-  if (start_q < n_qt) {
-    load_tile<D>(sQ, qb, st.qt, start_q * BT, Tq);
-    load_tile<D>(sO, ob, st.ot, start_q * BT, Tq);
-  }
-  cp_async_commit();
-
-  // this thread's two keys within the kv tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
-  }
-
-  for (int qt = start_q; qt < n_qt; ++qt) {
-    const int buf = (qt - start_q) & 1;
-    if (qt + 1 < n_qt) {
-      const int nq = (qt + 1) * BT;
-      load_tile<D>(sQ + (buf ^ 1) * L::TILE, qb, st.qt, nq, Tq);
-      load_tile<D>(sO + (buf ^ 1) * L::TILE, ob, st.ot, nq, Tq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    {
-      const int i = threadIdx.x & (BT - 1);
-      const int row = qt * BT + i;
-      const long long at = (long long)bh * Tq + row;
-      if (threadIdx.x < BT) {
-        sL[i] = row < Tq ? lse[at] * LOG2E : 0.f;
-      } else {
-        sD[i] = row < Tq ? dcor[at] : 0.f;
-      }
-    }
-    __syncthreads();
-    const bf16* tQ = sQ + buf * L::TILE;
-    const bf16* tO = sO + buf * L::TILE;
-
-    // S^T = K Q^T and dP^T = V dO^T, [16 keys, 64 queries]
-    float s[BT / 8][4], dp[BT / 8][4];
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t ka[4], va[4];
-      a_frag<D>(ka, sK, r0, kd, tg);
-      a_frag<D>(va, sV, r0, kd, tg);
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        const bf16* qrow = tQ + (j * 8 + g) * LD + kd * 16 + tg * 2;
-        const bf16* orow = tO + (j * 8 + g) * LD + kd * 16 + tg * 2;
-        mma16816(s[j], ka, *reinterpret_cast<const uint32_t*>(qrow),
-                 *reinterpret_cast<const uint32_t*>(qrow + 8));
-        mma16816(dp[j], va, *reinterpret_cast<const uint32_t*>(orow),
-                 *reinterpret_cast<const uint32_t*>(orow + 8));
-      }
-    }
-
-    // P^T and dS^T = P^T * (dP^T - D), LSE and D per column (query)
-    const bool masked = (causal && q_offset + qt * BT < k0 + BT - 1) ||
-                        (qt * BT + BT > Tq) || (k0 + BT > Tk);
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + tg * 2 + (e & 1);
-        float x = s[j][e] * scale_log2;
-        if (masked) {
-          const int key = k0 + r0 + (e >> 1) * 8;
-          const int qi = qt * BT + col;
-          if (qi >= Tq || key >= Tk || (causal && q_offset + qi < key)) {
-            x = -INFINITY;
+        dp[4 * j + e] = score_ds(s[4 * j + e], dp[4 * j + e], dcor[col]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+      c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, [64 keys, D]: B = dO, Q MN-major,
+    // k-steps of 16 queries (16 rows, 2048 bytes); the second 64-column
+    // half of D at BT * 128 bytes
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      Wgmma<D>::template rs<1>(acc_dv, pa[kk],
+                               desc_sw128(tO + kk * 2048, BT * 128, 1024), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      Wgmma<D>::template rs<1>(acc_dk, da[kk],
+                               desc_sw128(tQ + kk * 2048, BT * 128, 1024), 1);
+    }
+    wgmma_commit();
+
+    if constexpr (WITH_DQ) {
+      // this thread's rows of dS^T (the bf16 values dK takes) into the
+      // [BN keys, 64 queries] tile, 128-byte swizzled: row r's 16-byte
+      // chunk j at j ^ (r % 8), and r % 8 == g
+      unsigned char* rowp =
+          smem + C::OFF_S + (wg * 64 + warp * 16 + g) * 128 + 4 * tg;
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        const int c0 = ((2 * kk) ^ g) << 4;
+        const int c1 = ((2 * kk + 1) ^ g) << 4;
+        *reinterpret_cast<uint32_t*>(rowp + c0) = da[kk][0];
+        *reinterpret_cast<uint32_t*>(rowp + 8 * 128 + c0) = da[kk][1];
+        *reinterpret_cast<uint32_t*>(rowp + c1) = da[kk][2];
+        *reinterpret_cast<uint32_t*>(rowp + 8 * 128 + c1) = da[kk][3];
+      }
+      fence_proxy_async();
+      __syncthreads();  // every warpgroup's rows of dS^T are in place
+
+      // dQ[64 queries, this warpgroup's columns] = scale * dS K over the
+      // BN keys: A = dS^T MN-major, B = K MN-major, k-steps of 16 keys
+      const int qrow = qt * BT + warp * 16 + g;
+#pragma unroll
+      for (int c = 0; c < C::DQ_COLS; c += C::NC) {
+        const int col0 = wg * C::DQ_COLS + c;
+        const uint32_t kB = sK + (col0 / 64) * C::BN * 128 + (col0 % 64) * 2;
+        float acc[C::NC / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::BN / 16; ++kk) {
+          Wgmma<C::NC>::template ss<1, 1>(
+              acc, desc_sw128(sS + kk * 2048, 1024, 1024),
+              desc_sw128(kB + kk * 2048, C::BN * 128, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<C::NC / 2>(acc);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = qrow + r * 8;
+          if (row >= Tq) continue;
+          float* out =
+              dq + (((long long)b * Tq + row) * H + h) * D + col0 + tg * 2;
+#pragma unroll
+          for (int j = 0; j < C::NC / 8; ++j) {
+            atomic_add2(out + j * 8, acc[4 * j + 2 * r] * scale,
+                        acc[4 * j + 2 * r + 1] * scale);
           }
         }
-        const float p = exp2f(x - sL[col]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sD[col]);
       }
     }
-
-    // dV += P^T dO and dK += dS^T Q, both [16 keys, D]; this warp's 16
-    // rows of dS^T, rounded to bf16 as dK takes them, go to sS
-    uint32_t pa[BT / 16][4], da[BT / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
-      c_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
-      bf16* row = sS + r0 * LDS + kk * 16 + tg * 2;
-      *reinterpret_cast<uint32_t*>(row) = da[kk][0];
-      *reinterpret_cast<uint32_t*>(row + 8 * LDS) = da[kk][1];
-      *reinterpret_cast<uint32_t*>(row + 8) = da[kk][2];
-      *reinterpret_cast<uint32_t*>(row + 8 * LDS + 8) = da[kk][3];
-    }
-    mma_a_tile<D>(acc_dv, pa, tO, lane);
-    mma_a_tile<D>(acc_dk, da, tQ, lane);
-    __syncthreads();  // every warp's rows of dS^T are in sS
-
-    // dQ[16 queries, D] += scale * dS K for this warp's 16 query rows, 64
-    // columns at a time, added to device memory with atomics
-    uint32_t dsa[BT / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      a_frag_trans(dsa[kk], sS, warp * 16, kk, lane);
-    }
-    const int qrow = qt * BT + warp * 16 + g;
-#pragma unroll
-    for (int c = 0; c < D; c += 64) {
-      float acc[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      }
-      mma_a_tile<D, 64>(acc, dsa, sK + c, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = qrow + r * 8;
-        if (row >= Tq) continue;
-        float* out = dq + (((long long)b * Tq + row) * H + h) * D + c + tg * 2;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          atomic_add2(out + j * 8, acc[j][2 * r] * scale,
-                      acc[j][2 * r + 1] * scale);
-        }
-      }
-    }
-    __syncthreads();  // this buffer, sL, sD and sS are refilled next
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc_dk);
+    fence_regs<D / 2>(acc_dv);
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + r * 8;
+    const int key = key0 + r * 8;
     if (key >= Tk) continue;
     const long long at = (((long long)b * Tk + key) * H + h) * D + tg * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + j * 8) =
-          __floats2bfloat162_rn(acc_dk[j][2 * r] * scale,
-                                acc_dk[j][2 * r + 1] * scale);
+          __floats2bfloat162_rn(acc_dk[4 * j + 2 * r] * scale,
+                                acc_dk[4 * j + 2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + j * 8) =
-          __floats2bfloat162_rn(acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+          __floats2bfloat162_rn(acc_dv[4 * j + 2 * r],
+                                acc_dv[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -681,39 +635,36 @@ cudaError_t launch_dq(int device, const bf16* q, const bf16* k,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(int device, const bf16* q, const bf16* k,
-                       const bf16* v, const bf16* dout, const float* lse,
-                       const float* dcor, bf16* dk, bf16* dv, int B, int H,
-                       int Tq, int Tk, const Strides& st, int causal,
-                       float scale_log2, float scale, cudaStream_t stream) {
+// The dK/dV main loop; dq is null for the two-pass instance. Returns a
+// CUDA error, or TMAP_ERROR + the driver's error if a map was refused.
+template <int D, bool WITH_DQ>
+int launch_kv(int device, const bf16* q, const bf16* k, const bf16* v,
+              const bf16* dout, const float* lse, const float* dcor,
+              float* dq, bf16* dk, bf16* dv, int B, int H, int Tq, int Tk,
+              const Strides& st, int causal, float scale_log2, float scale,
+              cudaStream_t stream) {
+  typedef KvCfg<D> C;
   static bool done[MAX_DEVICES] = {};
-  const int bytes = Layout<D>::dkv_bytes;
-  cudaError_t err = opt_in(flash_bwd_dkv_kernel<D>, bytes, device, done);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tk + BT - 1) / BT, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, dout, lse, dcor, dk, dv, H, Tq, Tk, st, causal, scale_log2,
-      scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_fused(int device, const bf16* q, const bf16* k,
-                         const bf16* v, const bf16* dout, const float* lse,
-                         const float* dcor, float* dq, bf16* dk, bf16* dv,
-                         int B, int H, int Tq, int Tk, const Strides& st,
-                         int causal, float scale_log2, float scale,
-                         cudaStream_t stream) {
-  static bool done[MAX_DEVICES] = {};
-  const int bytes = Layout<D>::fused_bytes;
-  cudaError_t err = opt_in(flash_bwd_fused_kernel<D>, bytes, device, done);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tk + BT - 1) / BT, B * H);
-  flash_bwd_fused_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, dout, lse, dcor, dq, dk, dv, H, Tq, Tk, st, causal,
-      scale_log2, scale);
-  return cudaGetLastError();
+  constexpr int bytes = C::smem_bytes(WITH_DQ);
+  cudaError_t err =
+      opt_in(flash_bwd_kv_kernel<D, WITH_DQ>, bytes, device, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  KvMaps m;
+  int bad = encode_bthd(&m.q, q, B, Tq, H, D, st.qb, st.qt, st.qh, BT);
+  if (!bad) bad = encode_bthd(&m.o, dout, B, Tq, H, D, st.ob, st.ot, st.oh,
+                              BT);
+  if (!bad) bad = encode_bthd(&m.k, k, B, Tk, H, D, st.kb, st.kt, st.kh,
+                              C::BN);
+  if (!bad) bad = encode_bthd(&m.v, v, B, Tk, H, D, st.vb, st.vt, st.vh,
+                              C::BN);
+  const long long rows = (long long)B * H * Tq;
+  if (!bad) bad = encode_f32_1d(&m.lse, lse, rows, BT);
+  if (!bad) bad = encode_f32_1d(&m.dcor, dcor, rows, BT);
+  if (bad) return bad;
+  dim3 grid((Tk + C::BN - 1) / C::BN, B * H);
+  flash_bwd_kv_kernel<D, WITH_DQ><<<grid, C::THREADS, bytes, stream>>>(
+      m, dq, dk, dv, H, Tq, Tk, causal, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -757,60 +708,19 @@ extern "C" int flash_bwd_dq_bf16(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_bwd_dq_bf16; dk, dv [B, Tk, H, D] contiguous bf16.
-extern "C" int flash_bwd_dkv_bf16(
-    int device, const void* q, const void* k, const void* v,
-    const void* dout, const void* lse, const void* dcor, void* dk,
-    void* dv, int B, int H, int Tq, int Tk, int D, long long qsb,
-    long long qst, long long qsh, long long ksb, long long kst,
-    long long ksh, long long vsb, long long vst, long long vsh,
-    long long osb, long long ost, long long osh, int causal,
-    float scale_log2, float scale, void* stream) {
-  if (device < 0 || device >= MAX_DEVICES) {
-    return static_cast<int>(cudaErrorInvalidDevice);
-  }
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                   osb, ost, osh};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* op = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dp = static_cast<const float*>(dcor);
-  bf16* dkp = static_cast<bf16*>(dk);
-  bf16* dvp = static_cast<bf16*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return launch_dkv<64>(device, qp, kp, vp, op, lp, dp, dkp, dvp, B, H,
-                          Tq, Tk, st, causal, scale_log2, scale, s);
-  }
-  if (D == 128) {
-    return launch_dkv<128>(device, qp, kp, vp, op, lp, dp, dkp, dvp, B, H,
-                           Tq, Tk, st, causal, scale_log2, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+namespace {
 
-// As flash_bwd_dkv_bf16, plus dq [B, Tq, H, D] contiguous fp32, zero-filled
-// by the caller: the kernel adds scale * dS K into it (atomics), dk and dv
-// it writes. The single-pass backward (`flash_bwd_fused_kernel`).
-extern "C" int flash_bwd_fused_bf16(
-    int device, const void* q, const void* k, const void* v,
-    const void* dout, const void* lse, const void* dcor, void* dq,
-    void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
-    long long qsb, long long qst, long long qsh, long long ksb,
-    long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, long long osb, long long ost, long long osh, int causal,
-    float scale_log2, float scale, void* stream) {
+template <bool WITH_DQ>
+int launch_kv_bf16(int device, const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* dcor,
+                   void* dq, void* dk, void* dv, int B, int H, int Tq,
+                   int Tk, int D, const Strides& st, int causal,
+                   float scale_log2, float scale, void* stream) {
   if (device < 0 || device >= MAX_DEVICES) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                   osb, ost, osh};
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -822,12 +732,67 @@ extern "C" int flash_bwd_fused_bf16(
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return launch_fused<64>(device, qp, kp, vp, op, lp, dp, dqp, dkp, dvp,
-                            B, H, Tq, Tk, st, causal, scale_log2, scale, s);
+    return launch_kv<64, WITH_DQ>(device, qp, kp, vp, op, lp, dp, dqp, dkp,
+                                  dvp, B, H, Tq, Tk, st, causal, scale_log2,
+                                  scale, s);
   }
   if (D == 128) {
-    return launch_fused<128>(device, qp, kp, vp, op, lp, dp, dqp, dkp, dvp,
-                             B, H, Tq, Tk, st, causal, scale_log2, scale, s);
+    return launch_kv<128, WITH_DQ>(device, qp, kp, vp, op, lp, dp, dqp, dkp,
+                                   dvp, B, H, Tq, Tk, st, causal, scale_log2,
+                                   scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// As flash_bwd_dq_bf16, with lse and dcor 16-byte aligned; dk, dv
+// [B, Tk, H, D] contiguous bf16. The dK/dV main loop without its dQ stage.
+// Returns the CUDA error of the launch, or 10000 + the driver's error if
+// a TMA map of the inputs was refused.
+extern "C" int flash_bwd_dkv_bf16(
+    int device, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* dcor, void* dk,
+    void* dv, int B, int H, int Tq, int Tk, int D, long long qsb,
+    long long qst, long long qsh, long long ksb, long long kst,
+    long long ksh, long long vsb, long long vst, long long vsh,
+    long long osb, long long ost, long long osh, int causal,
+    float scale_log2, float scale, void* stream) {
+  const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                   osb, ost, osh};
+  return launch_kv_bf16<false>(device, q, k, v, dout, lse, dcor, nullptr, dk,
+                               dv, B, H, Tq, Tk, D, st, causal, scale_log2,
+                               scale, stream);
+}
+
+// As flash_bwd_dkv_bf16, plus dq [B, Tq, H, D] contiguous fp32, zero-filled
+// by the caller: the kernel adds scale * dS K into it (atomics), dk and dv
+// it writes. The single-pass backward: the same main loop with its dQ
+// stage.
+extern "C" int flash_bwd_fused_bf16(
+    int device, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* dcor, void* dq,
+    void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+    long long qsb, long long qst, long long qsh, long long ksb,
+    long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, long long osb, long long ost, long long osh, int causal,
+    float scale_log2, float scale, void* stream) {
+  const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                   osb, ost, osh};
+  return launch_kv_bf16<true>(device, q, k, v, dout, lse, dcor, dq, dk, dv,
+                              B, H, Tq, Tk, D, st, causal, scale_log2, scale,
+                              stream);
+}
+
+// The dK/dV main loop's keys per CTA at head_dim D (0 if D is not taken).
+extern "C" int flash_bwd_kv_keys(int D) {
+  return D == 64 ? KvCfg<64>::BN : D == 128 ? KvCfg<128>::BN : 0;
+}
+
+// Its dynamic shared memory per CTA in bytes, without (0) or with (1) the
+// dQ stage (0 if D is not taken).
+extern "C" int flash_bwd_kv_smem(int D, int with_dq) {
+  if (D == 64) return KvCfg<64>::smem_bytes(with_dq != 0);
+  if (D == 128) return KvCfg<128>::smem_bytes(with_dq != 0);
+  return 0;
 }

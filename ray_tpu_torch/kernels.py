@@ -67,7 +67,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
                (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 5 + [ll] * 12
                 + [i, f, f, p]),
                (lib.flash_bwd_fused_bf16, [i] + [p] * 9 + [i] * 5
-                + [ll] * 12 + [i, f, f, p])]
+                + [ll] * 12 + [i, f, f, p]),
+               (lib.flash_bwd_kv_keys, [i]),
+               (lib.flash_bwd_kv_smem, [i, i])]
     elif name == "ce_fwd":
         fns = [(lib.ce_fwd_bf16, [i, p, p, p, p, p, p, i, i, i, i, i, p]),
                (lib.ce_fwd_takes, [i, i])]
@@ -220,9 +222,10 @@ def _flash_bwd_args(kernel: str, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(do.shape)} {do.dtype}")
     for name, t in (("lse", lse), ("dcor", dcor)):
         if (t.shape != (b * h, tq) or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{kernel}: {name} must be contiguous fp32 "
-                             f"[{b * h}, {tq}] on q's device")
+                or t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{kernel}: {name} must be contiguous, 16-byte "
+                             f"aligned fp32 [{b * h}, {tq}] on q's device")
     strides = sum((_bthd_strides(t, kernel, name) for name, t in
                    (("q", q), ("k", k), ("v", v), ("dO", do))), ())
     return (b, h, tq, tk, d), strides
@@ -268,15 +271,31 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+# how flash_bwd_fused adds each CTA's dQ partial into the fp32 buffer
+FLASH_DQ_ACCUMULATION = "float2 red.global.add from registers"
+
+
+def flash_bwd_kv_config(d: int) -> Dict[str, int]:
+    """The dK/dV main loop's tile at head_dim d, as the built library
+    says: keys per CTA (64 per consumer warpgroup) and the dynamic shared
+    memory per CTA of its two instances, `flash_bwd_dkv` and
+    `flash_bwd_fused`."""
+    lib = _lib("flash_bwd")
+    return {"keys_per_cta": lib.flash_bwd_kv_keys(d),
+            "dkv_smem_bytes": lib.flash_bwd_kv_smem(d, 0),
+            "fused_smem_bytes": lib.flash_bwd_kv_smem(d, 1)}
+
+
 def flash_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor, dcor: torch.Tensor,
                     causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dQ, dK and dV in one pass on the card (the single-pass backward),
-    inputs as `flash_bwd_dq`. Returns dQ [B, Tq, H, D] fp32 (zero-filled
-    here, then summed by the kernel with atomics, so its last bits vary
-    from run to run; the caller casts it, as the JAX package does outside
-    its kernel) and dK, dV [B, Tk, H, D] bf16."""
+    """dQ, dK and dV in one pass on the card (the single-pass backward:
+    `flash_bwd_dkv`'s main loop with a dQ stage), inputs as
+    `flash_bwd_dq`. Returns dQ [B, Tq, H, D] fp32 (zero-filled here, then
+    summed by the kernel with atomics, so its last bits vary from run to
+    run; the caller casts it, as the JAX package does outside its kernel)
+    and dK, dV [B, Tk, H, D] bf16, bit-equal to `flash_bwd_dkv`'s."""
     shape, strides = _flash_bwd_args("flash_bwd_fused", q, k, v, do, lse,
                                      dcor, causal)
     dev = q.device

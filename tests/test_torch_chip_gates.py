@@ -1,8 +1,9 @@
 """The gates `chip_smoke.py` holds the flash backward kernels by, checked
 on the CPU: gradients rounded as the kernels round them (bf16 P and dS
-operands, bf16 outputs) pass, and a kernel that is wrong in most rows
-or drops one kv tile fails, at a causal length where most gradient values
-are far below the largest."""
+operands, bf16 outputs) pass, and a kernel that is wrong in most rows,
+drops one kv tile, adds one 128-key tile's dQ partial twice or leaves half
+of a 128-key tile's dK or dV unwritten fails, at a causal length where
+most gradient values are far below the largest."""
 from __future__ import annotations
 
 import pytest
@@ -12,9 +13,10 @@ import chip_smoke
 from ray_tpu_torch.ops import attention
 
 
-def _grads(t: int = 1024, h: int = 2, d: int = 64):
+def _grads(t: int = 1024, h: int = 2, d: int = 64, parts: bool = False):
     """(reference fp32 dQ, dK, dV, and the kernels' rounding of them) for
-    causal attention from a seed, layout [B, H, T, D]."""
+    causal attention from a seed, layout [B, H, T, D]; with `parts` also
+    the rounded dS, K and the scale that make dQ."""
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(1, h, t, d, generator=gen).to(bf).float()
@@ -31,6 +33,8 @@ def _grads(t: int = 1024, h: int = 2, d: int = 64):
     kern = ((dsb @ k * scale).to(bf), (dsb.transpose(-1, -2) @ q * scale
                                        ).to(bf),
             (pb.transpose(-1, -2) @ do).to(bf))
+    if parts:
+        return ref, kern, (dsb, k, scale)
     return ref, kern
 
 
@@ -44,16 +48,32 @@ def test_grad_gates_pass_kernel_rounding():
         assert held[f"{n}_rel_norm_err"] < chip_smoke.GRAD_NORM_TOL / 2
 
 
-@pytest.mark.parametrize("fault", ["scale", "dropped_tile"])
-def test_grad_gates_refuse_a_wrong_kernel(fault):
-    ref, kern = _grads()
-    dq = kern[0].clone()
+_FAULTS = [("scale", "dq"), ("dropped_tile", "dq"), ("dq_partial_twice", "dq"),
+           ("dkv_half_tile_dk", "dk"), ("dkv_half_tile_dv", "dv"),
+           ("dkv_half_tile_both", "dk")]
+
+
+@pytest.mark.parametrize("fault, grad", _FAULTS, ids=[f for f, _ in _FAULTS])
+def test_grad_gates_refuse_a_wrong_kernel(fault, grad):
+    ref, kern, (ds, k, scale) = _grads(parts=True)
+    dq, dk, dv = (g.clone() for g in kern)
     if fault == "scale":     # 5 % off everywhere
         dq = dq * 1.05
-    else:                    # one 64-query tile's dQ never written
+    elif fault == "dropped_tile":  # one 64-query tile's dQ never written
         dq[:, :, 900:964] = 0
-    with pytest.raises(AssertionError, match="dq"):
-        chip_smoke.hold_grads(fault, (dq, kern[1], kern[2]), ref)
+    elif fault == "dq_partial_twice":
+        # the dQ partial of the 128-key tile at keys 512-639 added a second
+        # time, as two warpgroups that each add the whole partial would
+        tile = slice(512, 640)
+        dq = (dq.float() + ds[..., tile] @ k[:, :, tile] * scale).to(dq.dtype)
+    else:                    # keys 576-639, the second warpgroup's 64 keys
+        # of the 128-key tile at 512, left unwritten (zero here)
+        if fault in ("dkv_half_tile_dk", "dkv_half_tile_both"):
+            dk[:, :, 576:640] = 0
+        if fault in ("dkv_half_tile_dv", "dkv_half_tile_both"):
+            dv[:, :, 576:640] = 0
+    with pytest.raises(AssertionError, match=grad):
+        chip_smoke.hold_grads(fault, (dq, dk, dv), ref)
 
 
 def test_plain_backward_matches_the_emulation_reference():

@@ -247,8 +247,9 @@ def kernel_label(mangled: str) -> str:
     if "gemm_kernel" in mangled and epi:
         tile = re.findall(r"Li(\d+)E", mangled)[:6]
         return f"ce_{epi.group(1).lower()}<{','.join(tile)}>"
-    m = re.search(r"((?:flash|ce)_\w+?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?",
-                  mangled)
+    # [a-z_]: the anonymous namespace's file hash (digits) is left out
+    m = re.search(
+        r"((?:flash|ce)_[a-z_]+?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", mangled)
     if not m:
         return mangled
     args = [m.group(2)] if m.group(2) else []
@@ -258,15 +259,14 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_lines(out: str) -> list:
-    """nvcc's `-Xptxas -v` register and spill lines, and any note that
-    wgmma products were serialized, each prefixed with the kernel (and
-    template width or tile) they describe."""
+    """nvcc's `-Xptxas -v` register and spill lines, each prefixed with
+    the kernel (and template width or tile) they describe."""
     lines, name = [], "?"
     for ln in out.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
             name = kernel_label(m.group(1))
-        elif "registers" in ln or "spill" in ln or "wgmma" in ln:
+        elif "registers" in ln or "spill" in ln:
             lines.append(f"{name}: {ln.strip()}")
     return lines
 

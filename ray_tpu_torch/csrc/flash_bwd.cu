@@ -68,6 +68,9 @@
 //   * causal with q_offset = Tk - Tq (queries aligned to the end of the kv
 //     sequence), so tq < tk is taken; any Tq, Tk: rows past the end are
 //     zero-filled by TMA, masked, and never written.
+// Times on the card against the bound, the mma.sync kernels they replace
+// and SDPA's backward: PERF.md §6 (chip_smoke.py, phases flash_bwd and
+// flash_bwd_fused).
 #include "common.cuh"
 
 using namespace port;

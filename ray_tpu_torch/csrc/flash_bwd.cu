@@ -146,11 +146,17 @@ __device__ __forceinline__ void mma_a_tile(float (*acc)[4],
 // compiler contraction differs between kernels: the dq kernel and the
 // dK/dV loop's dQ stage then take the same bf16 dS bit for bit (left to
 // the compiler, some products were fused in one kernel and not the
-// other). x = S * scale * log2(e) - LSE * log2(e) in one fma, -inf where
-// masked; P = 2^x; dS = P (dP - D).
-__device__ __forceinline__ float score_log2(float s, float scale_log2,
-                                            float lse2) {
-  return __fmaf_rn(s, scale_log2, -lse2);
+// other). x = S * scale * log2(e), rounded, -inf where masked;
+// P = 2^(x - LSE * log2(e)) with the subtraction in one fma;
+// dS = P (dP - D). Masking the scaled score before the fma, not after,
+// also keeps ptxas from hoisting the mask's predicates in front of the
+// dK/dV loop's S^T wgmma (it did so for x = fma(S, scale, -LSE2) and
+// then, and dkv ran ~20 % slower).
+__device__ __forceinline__ float score_scaled(float s, float scale_log2) {
+  return __fmul_rn(s, scale_log2);
+}
+__device__ __forceinline__ float score_p(float x, float lse) {
+  return exp2f(__fmaf_rn(-lse, LOG2E, x));
 }
 __device__ __forceinline__ float score_ds(float p, float dp, float dc) {
   return __fmul_rn(p, __fsub_rn(dp, dc));
@@ -204,12 +210,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's two rows within the q tile: r0 and r0 + 8
   const int r0 = warp * 16 + g;
   const int qpos0 = q_offset + q0 + r0;
-  float lse2[2], dc[2];
+  float lse_r[2], dc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + r * 8;
-    lse2[r] =
-        row < Tq ? __fmul_rn(lse[(long long)bh * Tq + row], LOG2E) : 0.f;
+    lse_r[r] = row < Tq ? lse[(long long)bh * Tq + row] : 0.f;
     dc[r] = row < Tq ? dcor[(long long)bh * Tq + row] : 0.f;
   }
   float acc[D / 8][4];
@@ -266,13 +271,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = score_log2(s[j][e], scale_log2, lse2[e >> 1]);
+        float x = score_scaled(s[j][e], scale_log2);
         if (masked) {
           const int key = k0 + j * 8 + tg * 2 + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
           if (key >= Tk || (causal && key > qpos)) x = -INFINITY;
         }
-        s[j][e] = score_ds(exp2f(x), dp[j][e], dc[e >> 1]);
+        s[j][e] =
+            score_ds(score_p(x, lse_r[e >> 1]), dp[j][e], dc[e >> 1]);
       }
     }
 
@@ -492,8 +498,7 @@ flash_bwd_kv_kernel(const __grid_constant__ KvMaps maps,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + tg * 2 + (e & 1);
-        float x = score_log2(s[4 * j + e], scale_log2,
-                             __fmul_rn(lse[col], LOG2E));
+        float x = score_scaled(s[4 * j + e], scale_log2);
         if (masked) {
           const int key = key0 + (e >> 1) * 8;
           const int qi = qt * BT + col;
@@ -501,7 +506,7 @@ flash_bwd_kv_kernel(const __grid_constant__ KvMaps maps,
             x = -INFINITY;
           }
         }
-        s[4 * j + e] = exp2f(x);
+        s[4 * j + e] = score_p(x, lse[col]);
       }
     }
     wgmma_wait<0>();

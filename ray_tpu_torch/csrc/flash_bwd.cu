@@ -148,10 +148,10 @@ __device__ __forceinline__ void mma_a_tile(float (*acc)[4],
 // the compiler, some products were fused in one kernel and not the
 // other). x = S * scale * log2(e), rounded, -inf where masked;
 // P = 2^(x - LSE * log2(e)) with the subtraction in one fma;
-// dS = P (dP - D). Masking the scaled score before the fma, not after,
-// also keeps ptxas from hoisting the mask's predicates in front of the
-// dK/dV loop's S^T wgmma (it did so for x = fma(S, scale, -LSE2) and
-// then, and dkv ran ~20 % slower).
+// dS = P (dP - D). The mask goes on the scaled score, before the fma:
+// where it followed x = fma(S, scale, -LSE * log2(e)), ptxas hoisted the
+// mask's predicates in front of the dK/dV loop's S^T wgmma, and dkv ran
+// ~18 % slower.
 __device__ __forceinline__ float score_scaled(float s, float scale_log2) {
   return __fmul_rn(s, scale_log2);
 }

@@ -1,9 +1,11 @@
 // Device helpers shared by the port's Hopper kernels (sm_90a): cp.async
-// copies, ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product, a
-// guard that restores the caller's CUDA device, and Hopper's own paths:
-// mbarriers, TMA tile loads (with the host-side tensor-map encoder, got
-// from the driver at run time so nothing new is linked) and warpgroup
-// products (wgmma) on 128-byte-swizzled shared-memory operands.
+// copies, ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product
+// (the CE kernels), a guard that restores the caller's CUDA device, the
+// per-device shared-memory opt-in, and Hopper's own paths, which every
+// attention kernel runs on: mbarriers, TMA tile loads (with the host-side
+// tensor-map encoder, got from the driver at run time so nothing new is
+// linked) and warpgroup products (wgmma) on 128-byte-swizzled
+// shared-memory operands.
 #pragma once
 
 #include <cuda.h>
@@ -94,6 +96,17 @@ struct DeviceGuard {
     if (prev >= 0) cudaSetDevice(prev);
   }
 };
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on `device`,
+// once per device (`done` remembers it, one flag per device).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, int device, bool* done) {
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
 
 // ---- mbarriers and TMA ----
 

@@ -13,13 +13,26 @@
 // flash_bwd_dq_kernel replaces ray_tpu/ops/attention.py:
 // _flash_bwd_dq_kernel (attention.py:197). At GPT-2 small's training shape
 // ([8, 1024, 12, 64], causal) it does 19.4 GFLOP (S, dP and dS K over the
-// 50.4 M visible (query, key) pairs) against 63.7 MB: 20 us at the bf16
-// peak. One CTA per (batch*head, 64 query rows), 4 warps of 16 rows,
-// mma.sync m16n8k16 with fp32 accumulators in registers: Q and dO staged
-// once and held as A fragments, K/V tiles of 64 keys double-buffered with
-// cp.async up to the causal diagonal, the C fragments of dS re-packed in
-// registers as the A fragments of dS K (c_to_a), K read again through
-// ldmatrix.trans.
+// 50.4 M visible (query, key) pairs) against 63.7 MB: bound by operations,
+// 20 us at the bf16 peak, which only wgmma reaches. The design, the
+// forward's Q-stationary loop (flash_fwd.cu) with a second product:
+//   * one CTA per (batch*head, q tile): at D 64 one consumer warpgroup of
+//     64 query rows, three CTAs an SM; at D 128 two warpgroups (128 rows),
+//     one CTA an SM. CTAs of the last (longest, under the causal mask) q
+//     tiles are launched first;
+//   * Q, dO and the rows' LSE and D are loaded once by TMA (each row's LSE
+//     and D then read once into registers); K and V tiles of 64 keys
+//     stream through a three-stage ring by TMA, one thread issuing the
+//     loads two tiles ahead, one CTA barrier per kv tile, up to the
+//     causal diagonal;
+//   * per kv tile each warpgroup runs S = Q K^T and dP = dO V^T by wgmma
+//     m64n64k16 (both operands K-major in shared memory), P and dS on the
+//     accumulators with the dK/dV loop's rounding (score_scaled, the mask,
+//     score_p, score_ds), so the fused dQ stays within one bf16 ulp of
+//     this kernel's; then dQ += dS K by wgmma with dS from registers (the
+//     bf16 re-pack, c_to_a) and K read MN-major through the descriptor's
+//     transpose bit;
+//   * dQ * scale is cast to bf16 once at the end, for rows < Tq.
 //
 // flash_bwd_kv_kernel<D, WITH_DQ> replaces _flash_bwd_dkv_kernel
 // (attention.py:251; WITH_DQ false: `flash_bwd_dkv`) and
@@ -77,70 +90,11 @@ using namespace port;
 
 namespace {
 
-constexpr int BT = 64;        // rows of a q tile (and of dq's kv tile)
-constexpr int THREADS = 128;  // dq: 4 warps x 16 rows
+constexpr int BT = 64;  // rows of the dK/dV loop's q tile
 
 struct Strides {  // (batch, time, head) strides in elements
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
 };
-
-template <int D>
-struct Layout {
-  static constexpr int LD = D + 8;  // bf16 row stride of a staged tile
-  static constexpr int TILE = BT * LD;
-  static constexpr int dq_bytes = 6 * TILE * 2;  // Q, dO, 2 x K, 2 x V
-};
-
-// BT x D bf16 rows (row r at base + (row0 + r) * stride) into a padded
-// shared tile with cp.async; rows at or past `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long long stride, int row0,
-                                          int valid) {
-  constexpr int PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < BT * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    const bool ok = row0 + r < valid;
-    const bf16* src = ok ? base + (long long)(row0 + r) * stride + c : base;
-    cp_async16(dst + r * Layout<D>::LD + c, src, ok);
-  }
-}
-
-// The A fragment (rows r0 and r0 + 8 of a warp's 16, k columns kd*16 +
-// [0, 16)) of a padded shared tile.
-template <int D>
-__device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile,
-                                       int r0, int kd, int tg) {
-  const bf16* base = tile + r0 * Layout<D>::LD + kd * 16 + tg * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * Layout<D>::LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * Layout<D>::LD + 8);
-}
-
-// acc[16 rows, W] += A[16 rows, 64] B where B [64, W] is W columns of a
-// padded shared tile of width D, read through ldmatrix.trans; `a` holds
-// the 4 k-steps' fragments.
-template <int D, int W = D>
-__device__ __forceinline__ void mma_a_tile(float (*acc)[4],
-                                           uint32_t (*a)[4],
-                                           const bf16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < W / 8; j += 2) {
-      // four 8x8 transposed tiles: rows kk*16 + [0,8) and [8,16) at
-      // columns j*8 (lanes 0-15) and (j+1)*8 (lanes 16-31)
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, tile + (kk * 16 + (lane & 15)) * Layout<D>::LD +
-                 (j + (lane >> 4)) * 8);
-      mma16816(acc[j], a[kk], b[0], b[1]);
-      mma16816(acc[j + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
 
 // P and dS of one score with every rounding pinned by an intrinsic, so no
 // compiler contraction differs between kernels: the dq kernel and the
@@ -162,146 +116,236 @@ __device__ __forceinline__ float score_ds(float p, float dp, float dc) {
   return __fmul_rn(p, __fsub_rn(dp, dc));
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dcor, bf16* __restrict__ dq,
-                    int H, int Tq, int Tk, Strides st, int causal,
-                    float scale_log2, float scale) {
-  typedef Layout<D> L;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + L::TILE;      // dO
-  bf16* sK = sO + L::TILE;      // 2 buffers
-  bf16* sV = sK + 2 * L::TILE;  // 2 buffers
+// ---- the dQ loop (wgmma + TMA) ----
 
-  const int bh = blockIdx.y;
+template <int D>
+struct DqCfg {
+  // consumer warpgroups of 64 query rows: at D 64 one, three CTAs an
+  // SM (on an H100 as fast as two warpgroups and two CTAs an SM at
+  // the training shapes, faster at [4, 512]); at D 128 two, one CTA
+  // an SM
+  static constexpr int NWG = D == 64 ? 1 : 2;
+  static constexpr int BQ = 64 * NWG;             // query rows per CTA
+  static constexpr int BK = 64;                   // keys per kv tile
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 1;  // CTAs per SM
+  static constexpr int STAGES = 3;                // the K / V ring
+  static constexpr int Q_BYTES = BQ * D * 2;      // Q or dO
+  static constexpr int KV_BYTES = BK * D * 2;     // a K or V tile
+  static constexpr int ROW_BYTES = BQ * 4;        // the LSE or D rows
+  // shared memory, tiles 1024-byte aligned: Q, dO, the K stages, the V
+  // stages, the LSE and D rows, then the mbarriers (Q, one a stage)
+  static constexpr int OFF_O = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_LSE = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_DCOR = OFF_LSE + ROW_BYTES;
+  static constexpr int OFF_BAR = OFF_DCOR + ROW_BYTES;
+  // + 1024 for aligning the dynamic shared memory's base
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + STAGES) + 1024;
+};
+
+// TMA maps: boxes of BQ rows of Q and dO, BK rows of K and V, 64 columns
+// of D each; BQ rows of the LSE and of D
+struct DqMaps {
+  CUtensorMap q, k, v, o, lse, dcor;
+};
+
+// One thread: the loads of kv tile `kt` into ring stage `stage`.
+template <int D>
+__device__ __forceinline__ void load_dq_kv(unsigned char* smem,
+                                           const DqMaps& m, uint64_t* full,
+                                           int stage, int kt, int b, int h) {
+  typedef DqCfg<D> C;
+  unsigned char* sk = smem + C::OFF_K + stage * C::KV_BYTES;
+  unsigned char* sv = smem + C::OFF_V + stage * C::KV_BYTES;
+  mbar_expect_tx(full, 2 * C::KV_BYTES);
+#pragma unroll
+  for (int half = 0; half < D / 64; ++half) {
+    tma_load_4d(sk + half * C::BK * 128, &m.k, full, half * 64, h,
+                kt * C::BK, b);
+    tma_load_4d(sv + half * C::BK * 128, &m.v, full, half * 64, h,
+                kt * C::BK, b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, DqCfg<D>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const __grid_constant__ DqMaps maps,
+                    bf16* __restrict__ dq, int H, int Tq, int Tk, int causal,
+                    float scale_log2, float scale) {
+  typedef DqCfg<D> C;
+  constexpr int STAGES = C::STAGES;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sO = sQ + C::OFF_O;
+  const uint32_t sK = sQ + C::OFF_K;
+  const uint32_t sV = sQ + C::OFF_V;
+  const float* sL = reinterpret_cast<const float*>(smem + C::OFF_LSE);
+  const float* sD = reinterpret_cast<const float*>(smem + C::OFF_DCOR);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // longest first
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int tg = lane & 3;
   const int q_offset = Tk - Tq;
 
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* kb = k + b * st.kb + h * st.kh;
-  const bf16* vb = v + b * st.vb + h * st.vh;
-  const bf16* ob = dout + b * st.ob + h * st.oh;
-
-  int n_tiles = (Tk + BT - 1) / BT;
-  int n_full = n_tiles;  // tiles that need no causal mask
+  // kv tiles up to the CTA's diagonal. Every warpgroup computes all of
+  // them (past a warpgroup's own diagonal P, dS and their products are 0),
+  // and whether a tile is masked depends on the CTA's rows only: control
+  // flow that differs between warpgroups around a wgmma makes ptxas
+  // serialize the products (warning C7520).
+  int n_tiles = (Tk + BK - 1) / BK;
   if (causal) {
-    const int last_q = q_offset + min(q0 + BT, Tq) - 1;
-    n_tiles = min(n_tiles, last_q / BT + 1);
-    n_full = (q_offset + q0 + 1) / BT;
+    const int last_q = q_offset + min(q0 + C::BQ, Tq) - 1;
+    n_tiles = min(n_tiles, last_q / BK + 1);
   }
 
-  load_tile<D>(sQ, qb, st.qt, q0, Tq);
-  load_tile<D>(sO, ob, st.ot, q0, Tq);
-  load_tile<D>(sK, kb, st.kt, 0, Tk);
-  load_tile<D>(sV, vb, st.vt, 0, Tk);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], 2 * C::Q_BYTES + 2 * C::ROW_BYTES);
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      tma_load_4d(smem + half * C::BQ * 128, &maps.q, &bar[0], half * 64, h,
+                  q0, b);
+      tma_load_4d(smem + C::OFF_O + half * C::BQ * 128, &maps.o, &bar[0],
+                  half * 64, h, q0, b);
+    }
+    const int row = bh * Tq + q0;
+    tma_load_1d(smem + C::OFF_LSE, &maps.lse, &bar[0], row);
+    tma_load_1d(smem + C::OFF_DCOR, &maps.dcor, &bar[0], row);
+    for (int s = 0; s < STAGES - 1 && s < n_tiles; ++s) {
+      load_dq_kv<D>(smem, maps, &bar[1 + s], s, s, b, h);
+    }
+  }
 
-  // this thread's two rows within the q tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  const int qpos0 = q_offset + q0 + r0;
-  float lse_r[2], dc[2];
+  // this warpgroup's 64 rows start at q0 + wg * 64; this thread's two are
+  // rows warp * 16 + g (+ 8) of them, rows of the S, dP and dQ
+  // accumulators
+  const int wrow = wg * 64 + warp * 16 + g;  // within the q tile
+  const int qpos0 = q_offset + q0 + wrow;
+  const uint32_t qA = sQ + wg * 64 * 128;  // this warpgroup's Q rows
+  const uint32_t oA = sO + wg * 64 * 128;  // and dO rows
+  float acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    lse_r[r] = row < Tq ? lse[(long long)bh * Tq + row] : 0.f;
-    dc[r] = row < Tq ? dcor[(long long)bh * Tq + row] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-  uint32_t qf[D / 16][4], of[D / 16][4];
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+  __syncwarp();
+  // each row's LSE and D, read once
+  const float lse_r[2] = {sL[wrow], sL[wrow + 8]};
+  const float dc[2] = {sD[wrow], sD[wrow + 8]};
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_tile<D>(sK + (buf ^ 1) * L::TILE, kb, st.kt, (kt + 1) * BT, Tk);
-      load_tile<D>(sV + (buf ^ 1) * L::TILE, vb, st.vt, (kt + 1) * BT, Tk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int stage = kt % STAGES;
+    // every warpgroup is done with the stage refilled here (it waited for
+    // its products at the end of the last tile)
     __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        a_frag<D>(qf[kd], sQ, r0, kd, tg);
-        a_frag<D>(of[kd], sO, r0, kd, tg);
-      }
+    if (threadIdx.x == 0 && kt + STAGES - 1 < n_tiles) {
+      const int next = (kt + STAGES - 1) % STAGES;
+      load_dq_kv<D>(smem, maps, &bar[1 + next], next, kt + STAGES - 1, b,
+                    h);
     }
-    const bf16* tK = sK + buf * L::TILE;
-    const bf16* tV = sV + buf * L::TILE;
-    const int k0 = kt * BT;
+    const int k0 = kt * BK;
+    mbar_wait(&bar[1 + stage], (kt / STAGES) & 1);
+    __syncwarp();
+    const uint32_t tK = sK + stage * C::KV_BYTES;
+    const uint32_t tV = sV + stage * C::KV_BYTES;
 
-    // S = Q K^T and dP = dO V^T, [16 rows, 64 keys] in 8 tiles of 8 keys
-    float s[BT / 8][4], dp[BT / 8][4];
+    // S = Q K^T and dP = dO V^T, [64 queries, 64 keys] each: A and B
+    // K-major, k-steps of 16 along D (32 bytes in a swizzled row; a new
+    // 64-column half every 4)
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const bf16* krow = tK + (j * 8 + g) * LD + tg * 2;
-      const bf16* vrow = tV + (j * 8 + g) * LD + tg * 2;
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        mma16816(s[j], qf[kd],
-                 *reinterpret_cast<const uint32_t*>(krow + kd * 16),
-                 *reinterpret_cast<const uint32_t*>(krow + kd * 16 + 8));
-        mma16816(dp[j], of[kd],
-                 *reinterpret_cast<const uint32_t*>(vrow + kd * 16),
-                 *reinterpret_cast<const uint32_t*>(vrow + kd * 16 + 8));
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qa = (kk / 4) * C::BQ * 128 + (kk % 4) * 32;
+      const uint32_t kb = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      Wgmma<64>::ss<0, 0>(s, desc_sw128(qA + qa, 16, 1024),
+                          desc_sw128(tK + kb, 16, 1024), kk > 0);
     }
-
-    // dS = P * (dP - D), P recomputed from the LSE (log2 domain)
-    const bool masked = (causal && kt >= n_full) || (k0 + BT > Tk);
+    wgmma_commit();
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qa = (kk / 4) * C::BQ * 128 + (kk % 4) * 32;
+      const uint32_t kb = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      Wgmma<64>::ss<0, 0>(dp, desc_sw128(oA + qa, 16, 1024),
+                          desc_sw128(tV + kb, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+
+    // P (log2 domain) while dP is computed, rounded as the dK/dV loop
+    // rounds it
+    const bool masked =
+        (causal && k0 + BK - 1 > q_offset + q0) || (k0 + BK > Tk);
+    wgmma_wait<1>();
+    fence_regs<32>(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = score_scaled(s[j][e], scale_log2);
+        float x = score_scaled(s[4 * j + e], scale_log2);
         if (masked) {
           const int key = k0 + j * 8 + tg * 2 + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
           if (key >= Tk || (causal && key > qpos)) x = -INFINITY;
         }
-        s[j][e] =
-            score_ds(score_p(x, lse_r[e >> 1]), dp[j][e], dc[e >> 1]);
+        s[4 * j + e] = score_p(x, lse_r[e >> 1]);
       }
     }
-
-    // dQ[16 rows, D] += dS K: dS's C fragments are the A fragments
-    uint32_t ds[BT / 16][4];
+    wgmma_wait<0>();
+    fence_regs<32>(dp);
+    // dS = P * (dP - D), re-packed in bf16 as A fragments, one k16 slice
+    // (16 keys) each
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      c_to_a(ds[kk], s[2 * kk], s[2 * kk + 1]);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[4 * j + e] = score_ds(s[4 * j + e], dp[4 * j + e], dc[e >> 1]);
+      }
     }
-    mma_a_tile<D>(acc, ds, tK, lane);
-    __syncthreads();  // this buffer is refilled two tiles from now
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+    }
+
+    // dQ += dS K, [64 queries, D]: K MN-major, k-steps of 16 keys (16
+    // rows, 2048 bytes); the second 64-column half of D at BK * 128 bytes
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      Wgmma<D>::template rs<1>(acc, da[kk],
+                               desc_sw128(tK + kk * 2048, BK * 128, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
+    const int row = q0 + wrow + r * 8;
     if (row >= Tq) continue;
     bf16* out = dq + (((long long)b * Tq + row) * H + h) * D + tg * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r] * scale,
-                                acc[j][2 * r + 1] * scale);
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
@@ -616,31 +660,36 @@ flash_bwd_kv_kernel(const __grid_constant__ KvMaps maps,
   }
 }
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes, int device, bool* done) {
-  // the shared-memory opt-in is per device; set it on first use only
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
+// The dQ loop. Returns a CUDA error, or TMAP_ERROR + the driver's error
+// if a map was refused.
 template <int D>
-cudaError_t launch_dq(int device, const bf16* q, const bf16* k,
-                      const bf16* v, const bf16* dout, const float* lse,
-                      const float* dcor, bf16* dq, int B, int H, int Tq,
-                      int Tk, const Strides& st, int causal,
-                      float scale_log2, float scale, cudaStream_t stream) {
+int launch_dq(int device, const bf16* q, const bf16* k, const bf16* v,
+              const bf16* dout, const float* lse, const float* dcor,
+              bf16* dq, int B, int H, int Tq, int Tk, const Strides& st,
+              int causal, float scale_log2, float scale,
+              cudaStream_t stream) {
+  typedef DqCfg<D> C;
   static bool done[MAX_DEVICES] = {};
-  const int bytes = Layout<D>::dq_bytes;
-  cudaError_t err = opt_in(flash_bwd_dq_kernel<D>, bytes, device, done);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BT - 1) / BT, B * H);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, dout, lse, dcor, dq, H, Tq, Tk, st, causal, scale_log2,
-      scale);
-  return cudaGetLastError();
+  const int n_qt = (Tq + C::BQ - 1) / C::BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = opt_in(flash_bwd_dq_kernel<D>, C::SMEM, device, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DqMaps m;
+  int bad = encode_bthd(&m.q, q, B, Tq, H, D, st.qb, st.qt, st.qh, C::BQ);
+  if (!bad) bad = encode_bthd(&m.o, dout, B, Tq, H, D, st.ob, st.ot, st.oh,
+                              C::BQ);
+  if (!bad) bad = encode_bthd(&m.k, k, B, Tk, H, D, st.kb, st.kt, st.kh,
+                              C::BK);
+  if (!bad) bad = encode_bthd(&m.v, v, B, Tk, H, D, st.vb, st.vt, st.vh,
+                              C::BK);
+  const long long rows = (long long)B * H * Tq;
+  if (!bad) bad = encode_f32_1d(&m.lse, lse, rows, C::BQ);
+  if (!bad) bad = encode_f32_1d(&m.dcor, dcor, rows, C::BQ);
+  if (bad) return bad;
+  dim3 grid(B * H, n_qt);
+  flash_bwd_dq_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      m, dq, H, Tq, Tk, causal, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The dK/dV main loop; dq is null for the two-pass instance. Returns a
@@ -680,8 +729,10 @@ int launch_kv(int device, const bf16* q, const bf16* k, const bf16* v,
 // q, dO [B, Tq, H, D] and k, v [B, Tk, H, D] bf16 with unit stride on D and
 // the given (batch, time, head) strides in elements; lse (natural log) and
 // dcor = rowsum(dO * O) [B*H, Tq] fp32; dq [B, Tq, H, D] contiguous bf16,
-// on CUDA device `device`. scale_log2 = sm_scale * log2(e). Returns the
-// CUDA error of the launch (0 = launched).
+// on CUDA device `device`; lse and dcor 16-byte aligned. scale_log2 =
+// sm_scale * log2(e). Returns the CUDA error of the launch (0 =
+// launched), or 10000 + the driver's error if a TMA map of the inputs was
+// refused.
 extern "C" int flash_bwd_dq_bf16(
     int device, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* dcor, void* dq, int B,
@@ -754,10 +805,9 @@ int launch_kv_bf16(int device, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// As flash_bwd_dq_bf16, with lse and dcor 16-byte aligned; dk, dv
-// [B, Tk, H, D] contiguous bf16. The dK/dV main loop without its dQ stage.
-// Returns the CUDA error of the launch, or 10000 + the driver's error if
-// a TMA map of the inputs was refused.
+// As flash_bwd_dq_bf16; dk, dv [B, Tk, H, D] contiguous bf16. The dK/dV
+// main loop without its dQ stage. Returns the CUDA error of the launch, or
+// 10000 + the driver's error if a TMA map of the inputs was refused.
 extern "C" int flash_bwd_dkv_bf16(
     int device, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* dcor, void* dk,
@@ -803,4 +853,10 @@ extern "C" int flash_bwd_kv_smem(int D, int with_dq) {
   if (D == 64) return KvCfg<64>::smem_bytes(with_dq != 0);
   if (D == 128) return KvCfg<128>::smem_bytes(with_dq != 0);
   return 0;
+}
+
+// The dQ loop's dynamic shared memory per CTA in bytes (0 if D is not
+// taken).
+extern "C" int flash_bwd_dq_smem(int D) {
+  return D == 64 ? DqCfg<64>::SMEM : D == 128 ? DqCfg<128>::SMEM : 0;
 }

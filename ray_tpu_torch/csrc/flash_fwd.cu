@@ -5,221 +5,318 @@
 // natural-log row logsumexp, without materialising the [Tq, Tk] scores in
 // device memory.
 //
-// What bounds it on an H100: at GPT-2 shapes ([4, 512, 12, 64], causal) it
-// does 1.6 GFLOP against 12.6 MB of Q/K/V/O, ~130 FLOP per byte, below the
-// card's ~295 FLOP/byte ridge: the bound is the bytes (3.8 us at
-// 3.35 TB/s), and what a simple kernel really fights is latency, so the
-// design keeps every operand either in registers or one cp.async ahead:
-//   * one CTA of 4 warps per (batch*head, 64-row q tile); each warp owns
-//     16 query rows. S = Q K^T and O += P V are mma.sync m16n8k16 bf16
-//     products with fp32 accumulators held in registers, so the score tile
-//     and the O accumulator never touch shared memory: the C fragment of S
-//     is re-packed in registers as the A fragment of P (FlashAttention-2);
-//   * Q is staged once; K/V tiles of 64 keys are double-buffered in shared
-//     memory with cp.async (tile k+1 loads while tile k computes), rows
-//     padded by 16 bytes so the fragment loads are bank-conflict free; V
-//     fragments come through ldmatrix.trans;
-//   * online softmax in the log2 domain (scale*log2(e) folded into S, exp2
-//     only); each thread holds two rows' running max and a partial row sum
-//     that the quad reduces once at the end;
+// What bounds it on an H100: at the training shapes ([8, 1024, 12, 64]
+// and [4, 2048, 12, 64], causal) it does 4 D flops per visible (query,
+// key) pair, 25.8 GFLOP at [4, 2048] against ~50 MB: bound by operations
+// (26 us at the bf16 peak), and Hopper's tensor cores reach their rate
+// only through wgmma fed from shared memory. At the scoring shape ([4,
+// 512, 12, 64]) it is bound by bytes (3.8 us at 3.35 TB/s) and, in
+// practice, by latency. The design:
+//   * one CTA per (batch*head, q tile): at D 64 one consumer warpgroup of
+//     64 query rows, three CTAs an SM, so one CTA's softmax overlaps the
+//     others' products; at D 128 two warpgroups (128 rows), one CTA an SM.
+//     CTAs of the last (longest, under the causal mask) q tiles are
+//     launched first;
+//   * the Q tile is loaded once by TMA; K and V tiles of 64 keys stream
+//     through a three-stage ring by TMA (128-byte swizzle, one mbarrier a
+//     stage): one thread issues each load a tile ahead, with one CTA
+//     barrier per kv tile and no copy instructions on the other threads;
+//   * S = Q K^T by wgmma m64n64k16 with both operands K-major in shared
+//     memory; the online softmax runs on the accumulators, its running max
+//     on the raw scores, so each P is one FFMA (scale * log2(e) and the
+//     max folded in) and one ex2; the mask only on tiles that straddle the
+//     causal diagonal or the ragged end of Tk; tiles wholly above the
+//     CTA's diagonal are never loaded;
+//   * P is re-packed to bf16 in registers (c_to_a) as the A operand of
+//     O += P V (wgmma, A from registers), V read MN-major through the
+//     descriptor's transpose bit: no operand is copied or transposed;
+//   * each warpgroup overlaps its own products with its softmax
+//     (FlashAttention-3's intra-warpgroup pipelining): S of tile j is
+//     issued together with P V of tile j - 1, and the softmax of tile j
+//     runs while that P V is still on the tensor cores. Control flow
+//     around every wgmma is the same for the whole CTA: where it differed
+//     between warpgroups, ptxas serialized the products (C7520) and the
+//     kernel ran markedly slower on an H100;
 //   * causal with q_offset = Tk - Tq (queries aligned to the end of the kv
-//     sequence): kv tiles wholly above the diagonal are never loaded, and
-//     only tiles that straddle the diagonal or the ragged end of Tk pay for
-//     the mask. Any Tq, Tk: rows and keys past the end are zero-filled
-//     (cp.async with a zero source size) and masked.
+//     sequence); any Tq, Tk: rows and keys past the end are zero-filled by
+//     TMA, masked, and never written. The epilogue writes O in bf16 and
+//     the LSE for rows < Tq.
+// Times on the card against the bound, the mma.sync kernel this replaced
+// and SDPA: PERF.md §6 (chip_smoke.py, phase flash_fwd).
 #include "common.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per kv tile
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
-
 template <int D>
-struct Layout {
-  static constexpr int LD = D + 8;  // bf16 row stride of Q/K/V tiles
-  static constexpr int TILE = BK * LD;
-  static constexpr int bytes = (BQ * LD + 4 * TILE) * 2;  // Q, 2xK, 2xV
+struct FwdCfg {
+  // consumer warpgroups of 64 query rows: at D 64 one, three CTAs an
+  // SM (on an H100 as fast as two warpgroups and two CTAs an SM at
+  // the training shapes, faster at [4, 512]); at D 128 two, one CTA
+  // an SM
+  static constexpr int NWG = D == 64 ? 1 : 2;
+  static constexpr int BQ = 64 * NWG;             // query rows per CTA
+  static constexpr int BK = 64;                   // keys per kv tile
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 1;  // CTAs per SM
+  static constexpr int STAGES = 3;                // the K / V ring
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // a K or V tile
+  // shared memory, tiles 1024-byte aligned: Q, the K stages, the V
+  // stages, then the mbarriers (Q, one a stage)
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // + 1024 for aligning the dynamic shared memory's base
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + STAGES) + 1024;
 };
 
-// rows x D bf16 (row r at base + (row0 + r) * stride) into a padded shared
-// tile with cp.async; rows at or past `valid` are zero-filled.
+// TMA maps: boxes of BQ rows of Q, BK rows of K and V, 64 columns of D
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+// One thread: the loads of kv tile `kt` into ring stage `stage`.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
-                                          long long stride, int row0,
-                                          int valid, int rows) {
-  constexpr int PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < rows * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    const bool ok = row0 + r < valid;
-    const bf16* src = ok ? base + (long long)(row0 + r) * stride + c : base;
-    cp_async16(dst + r * Layout<D>::LD + c, src, ok);
+__device__ __forceinline__ void load_kv(unsigned char* smem,
+                                        const FwdMaps& m, uint64_t* full,
+                                        int stage, int kt, int b, int h) {
+  typedef FwdCfg<D> C;
+  unsigned char* sk = smem + C::OFF_K + stage * C::KV_BYTES;
+  unsigned char* sv = smem + C::OFF_V + stage * C::KV_BYTES;
+  mbar_expect_tx(full, 2 * C::KV_BYTES);
+#pragma unroll
+  for (int half = 0; half < D / 64; ++half) {
+    tma_load_4d(sk + half * C::BK * 128, &m.k, full, half * 64, h,
+                kt * C::BK, b);
+    tma_load_4d(sv + half * C::BK * 128, &m.v, full, half * 64, h,
+                kt * C::BK, b);
+  }
+}
+
+// 2^x in one MUFU.EX2, results below 2^-126 flushed to zero (exp2f adds a
+// range fix-up of three instructions around it)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issues S = Q K^T of one kv tile, [64 queries, BK keys], into s: A (this
+// warpgroup's Q rows at qA) and B (the K tile at tK) K-major, k-steps of
+// 16 along D (32 bytes in a swizzled row; a new 64-column half every 4).
+template <int D>
+__device__ __forceinline__ void issue_qk(float* s, uint32_t qA, uint32_t tK) {
+  typedef FwdCfg<D> C;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qa = (kk / 4) * C::BQ * 128 + (kk % 4) * 32;
+    const uint32_t kb = (kk / 4) * C::BK * 128 + (kk % 4) * 32;
+    Wgmma<C::BK>::template ss<0, 0>(s, desc_sw128(qA + qa, 16, 1024),
+                                    desc_sw128(tK + kb, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Issues O += P V, [64 queries, D]: P from registers (one k16 slice of 16
+// keys each), V (the tile at tV) MN-major, k-steps of 16 keys (16 rows,
+// 2048 bytes); the second 64-column half of D at BK * 128 bytes.
+template <int D>
+__device__ __forceinline__ void issue_pv(float* acc, uint32_t (*pa)[4],
+                                         uint32_t tV) {
+  typedef FwdCfg<D> C;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk) {
+    Wgmma<D>::template rs<1>(acc, pa[kk],
+                             desc_sw128(tV + kk * 2048, C::BK * 128, 1024),
+                             1);
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one tile's raw scores s, [64 queries, BK keys]
+// (this thread: rows g and g + 8 of its warp's 16, two columns of each n8
+// block): masked where `masked` says the tile straddles the causal
+// diagonal or the end of Tk; m is the running row max of the raw scores,
+// l the partial row sum (this thread's columns). s becomes P =
+// 2^(scale_log2 * (s - m)), one FFMA and one ex2 each (scale_log2 >= 0:
+// the wrapper flips the sign of q for a negative scale), and alpha the
+// factor for O.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* alpha, bool masked,
+                                             int k0, int qpos0, int Tk,
+                                             int causal, int tg,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (masked) {
+        const int key = k0 + j * 8 + tg * 2 + (e & 1);
+        const int qpos = qpos0 + (e >> 1) * 8;
+        if (key >= Tk || (causal && key > qpos)) s[4 * j + e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  }
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // a row with nothing visible yet keeps p = 0 instead of exp2(nan)
+    const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+    alpha[r] = exp2_ftz(m[r] == -INFINITY ? -INFINITY
+                                          : (m[r] - m_use) * scale_log2);
+    neg[r] = -m_use * scale_log2;
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * j + e], scale_log2, neg[e >> 1]);
+      // masked scores stay -inf also at scale 0 (where -inf * 0 is nan)
+      if (masked && s[4 * j + e] == -INFINITY) x = -INFINITY;
+      const float p = exp2_ftz(x);
+      s[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tq, int Tk,
-                 long long qsb, long long qst, long long qsh, long long ksb,
-                 long long kst, long long ksh, long long vsb, long long vst,
-                 long long vsh, int causal, float scale_log2) {
-  typedef Layout<D> L;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;        // 2 buffers
-  bf16* sV = sK + 2 * L::TILE;    // 2 buffers
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
+flash_fwd_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tq, int Tk, int causal,
+                 float scale_log2) {
+  typedef FwdCfg<D> C;
+  constexpr int STAGES = C::STAGES;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK = sQ + C::OFF_K;
+  const uint32_t sV = sQ + C::OFF_V;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // longest first
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row group
+  const int g = lane >> 2;   // accumulator row group
   const int tg = lane & 3;   // thread in group
   const int q_offset = Tk - Tq;
 
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-
+  // this warpgroup's 64 rows start at q0 + wg * 64; this thread's two are
+  // rows warp * 16 + g (+ 8) of them, rows of the S and O accumulators
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+  const int qpos0 = q_offset + row0;
+  // kv tiles up to the CTA's diagonal. Every warpgroup computes all of
+  // them, and whether a tile is masked depends on the CTA's rows only:
+  // control flow that differs between warpgroups around a wgmma makes
+  // ptxas serialize the products (warning C7520).
   int n_tiles = (Tk + BK - 1) / BK;
-  int n_full = n_tiles;  // tiles that need no causal mask
   if (causal) {
-    const int last_q = q_offset + min(q0 + BQ, Tq) - 1;
+    const int last_q = q_offset + min(q0 + C::BQ, Tq) - 1;
     n_tiles = min(n_tiles, last_q / BK + 1);
-    n_full = (q_offset + q0 + 1) / BK;
+  }
+  auto masked = [&](int k0) {  // the tile straddles a diagonal or Tk
+    return (causal && k0 + BK - 1 > q_offset + q0) || k0 + BK > Tk;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], C::Q_BYTES);
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      tma_load_4d(smem + half * C::BQ * 128, &maps.q, &bar[0], half * 64, h,
+                  q0, b);
+    }
+    for (int s = 0; s < STAGES - 1 && s < n_tiles; ++s) {
+      load_kv<D>(smem, maps, &bar[1 + s], s, s, b, h);
+    }
   }
 
-  load_rows<D>(sQ, qb, qst, q0, Tq, BQ);
-  load_rows<D>(sK, kb, kst, 0, Tk, BK);
-  load_rows<D>(sV, vb, vst, 0, Tk, BK);
-  cp_async_commit();
-
-  // this thread's two rows within the q tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  const int qpos0 = q_offset + q0 + r0;
+  const uint32_t qA = sQ + wg * 64 * 128;  // this warpgroup's Q rows
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // partial: this thread's columns only
-  float acc_o[D / 8][4];
+  float alpha[2];
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc_o[j][0] = acc_o[j][1] = acc_o[j][2] = acc_o[j][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  mbar_wait(&bar[0], 0);
+  mbar_wait(&bar[1], 0);
+  __syncwarp();
+
+  // tile 0
+  wgmma_fence();
+  issue_qk<D>(s, qA, sK);
+  wgmma_wait<0>();
+  fence_regs<BK / 2>(s);
+  softmax_tile<BK>(s, m, l, alpha, masked(0), 0, qpos0, Tk, causal, tg,
+                   scale_log2);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
   }
-  uint32_t qf[D / 16][4];
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_rows<D>(sK + (buf ^ 1) * L::TILE, kb, kst, (kt + 1) * BK, Tk, BK);
-      load_rows<D>(sV + (buf ^ 1) * L::TILE, vb, vst, (kt + 1) * BK, Tk, BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  // Tile kt: S of tile kt is computed while P V of tile kt - 1 runs, and
+  // its softmax while P V still runs (FlashAttention-3's intra-warpgroup
+  // overlap). Tile kt - 1's V is read during iteration kt, so the stage
+  // refilled there is tile kt - 2's: loads run STAGES - 2 tiles ahead.
+  for (int kt = 1; kt < n_tiles; ++kt) {
+    // every warpgroup is done with tile kt - 2's stage
     __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const bf16* base = sQ + r0 * LD + kd * 16 + tg * 2;
-        qf[kd][0] = *reinterpret_cast<const uint32_t*>(base);
-        qf[kd][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-        qf[kd][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        qf[kd][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-      }
+    if (threadIdx.x == 0 && kt + STAGES - 2 < n_tiles) {
+      const int t = kt + STAGES - 2;
+      load_kv<D>(smem, maps, &bar[1 + t % STAGES], t % STAGES, t, b, h);
     }
-    const bf16* tK = sK + buf * L::TILE;
-    const bf16* tV = sV + buf * L::TILE;
     const int k0 = kt * BK;
-
-    // S[16 rows, 64 keys] = Q K^T, 8 column tiles of 8 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* krow = tK + (j * 8 + g) * LD + tg * 2;
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(krow + kd * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + kd * 16 + 8);
-        mma16816(s[j], qf[kd], b0, b1);
-      }
-    }
-
-    // online softmax, log2 domain
-    const bool masked = (causal && kt >= n_full) || (k0 + BK > Tk);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (masked) {
-          const int key = k0 + j * 8 + tg * 2 + (e & 1);
-          const int qpos = qpos0 + (e >> 1) * 8;
-          if (key >= Tk || (causal && key > qpos)) x = -INFINITY;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // a row with nothing visible yet keeps p = 0 instead of exp2(nan)
-      m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[r] = exp2f(m[r] - m_use[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_use[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    }
+    mbar_wait(&bar[1 + kt % STAGES], (kt / STAGES) & 1);
+    __syncwarp();
+    wgmma_fence();
+    issue_qk<D>(s, qA, sK + (kt % STAGES) * C::KV_BYTES);
+    issue_pv<D>(acc, pa, sV + ((kt - 1) % STAGES) * C::KV_BYTES);
+    wgmma_wait<1>();
+    fence_regs<BK / 2>(s);
+    softmax_tile<BK>(s, m, l, alpha, masked(k0), k0, qpos0, Tk, causal, tg,
+                     scale_log2);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      acc_o[j][0] *= alpha[0];
-      acc_o[j][1] *= alpha[0];
-      acc_o[j][2] *= alpha[1];
-      acc_o[j][3] *= alpha[1];
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
     }
-
-    // O[16 rows, D] += P V: S's C fragments are P's A fragments
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        // four 8x8 transposed tiles: keys kk*16 + [0,8) and [8,16) at
-        // columns j*8 (lanes 0-15) and (j+1)*8 (lanes 16-31)
-        const bf16* addr =
-            tV + (kk * 16 + (lane & 15)) * LD + (j + (lane >> 4)) * 8;
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, addr);
-        mma16816(acc_o[j], pa, bv[0], bv[1]);
-        mma16816(acc_o[j + 1], pa, bv[2], bv[3]);
-      }
+      c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
     }
-    __syncthreads();  // this buffer is refilled two tiles from now
   }
+  // the last tile's P V
+  wgmma_fence();
+  issue_pv<D>(acc, pa, sV + ((n_tiles - 1) % STAGES) * C::KV_BYTES);
+  wgmma_wait<0>();
+  fence_regs<D / 2>(acc);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -228,50 +325,55 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
+    const int row = row0 + r * 8;
     if (row >= Tq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     bf16* out = o + (((long long)b * Tq + row) * H + h) * D + tg * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
-          __floats2bfloat162_rn(acc_o[j][2 * r] * inv,
-                                acc_o[j][2 * r + 1] * inv);
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
     }
-    if (tg == 0) lse[(long long)bh * Tq + row] = (m[r] + log2f(l[r])) * LN2;
+    if (tg == 0) {
+      lse[(long long)bh * Tq + row] =
+          (m[r] * scale_log2 + log2f(l[r])) * LN2;
+    }
   }
 }
 
+// Returns a CUDA error, or TMAP_ERROR + the driver's error if a map was
+// refused.
 template <int D>
-cudaError_t launch(int device, const bf16* q, const bf16* k, const bf16* v,
-                   bf16* o, float* lse, int B, int H, int Tq, int Tk,
-                   long long qsb, long long qst, long long qsh,
-                   long long ksb, long long kst, long long ksh,
-                   long long vsb, long long vst, long long vsh, int causal,
-                   float scale_log2, cudaStream_t stream) {
-  // the shared-memory opt-in is per device; set it on first use only
-  static bool smem_set[MAX_DEVICES] = {};
-  const int bytes = Layout<D>::bytes;
-  if (!smem_set[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return err;
-    smem_set[device] = true;
-  }
-  dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, o, lse, H, Tq, Tk, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
-      vsh, causal, scale_log2);
-  return cudaGetLastError();
+int launch(int device, const bf16* q, const bf16* k, const bf16* v, bf16* o,
+           float* lse, int B, int H, int Tq, int Tk, long long qsb,
+           long long qst, long long qsh, long long ksb, long long kst,
+           long long ksh, long long vsb, long long vst, long long vsh,
+           int causal, float scale_log2, cudaStream_t stream) {
+  typedef FwdCfg<D> C;
+  static bool done[MAX_DEVICES] = {};
+  const int n_qt = (Tq + C::BQ - 1) / C::BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = opt_in(flash_fwd_kernel<D>, C::SMEM, device, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FwdMaps m;
+  int bad = encode_bthd(&m.q, q, B, Tq, H, D, qsb, qst, qsh, C::BQ);
+  if (!bad) bad = encode_bthd(&m.k, k, B, Tk, H, D, ksb, kst, ksh, C::BK);
+  if (!bad) bad = encode_bthd(&m.v, v, B, Tk, H, D, vsb, vst, vsh, C::BK);
+  if (bad) return bad;
+  dim3 grid(B * H, n_qt);
+  flash_fwd_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      m, o, lse, H, Tq, Tk, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B, Tq, H, D], k/v [B, Tk, H, D] bf16 with unit stride on D and the
-// given (batch, time, head) strides in elements; o [B, Tq, H, D]
-// contiguous bf16; lse [B*H, Tq] fp32, on CUDA device `device`. Returns
-// the CUDA error of the launch (0 = launched).
+// q [B, Tq, H, D], k/v [B, Tk, H, D] bf16 with unit stride on D, 16-byte
+// aligned rows and the given (batch, time, head) strides in elements; o
+// [B, Tq, H, D] contiguous bf16; lse [B*H, Tq] fp32, on CUDA device
+// `device`. Returns the CUDA error of the launch (0 = launched), or
+// 10000 + the driver's error if a TMA map of the inputs was refused.
 extern "C" int flash_fwd_bf16(int device, const void* q, const void* k,
                               const void* v, void* o, void* lse, int B,
                               int H, int Tq, int Tk, int D, long long qsb,
@@ -301,4 +403,10 @@ extern "C" int flash_fwd_bf16(int device, const void* q, const void* k,
                        scale_log2, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per CTA in bytes at head_dim D (0 if D is not
+// taken).
+extern "C" int flash_fwd_smem(int D) {
+  return D == 64 ? FwdCfg<64>::SMEM : D == 128 ? FwdCfg<128>::SMEM : 0;
 }

@@ -60,10 +60,12 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         ctypes.c_longlong
     if name == "flash_fwd":
         fns = [(lib.flash_fwd_bf16, [i, p, p, p, p, p, i, i, i, i, i]
-                + [ll] * 9 + [i, f, p])]
+                + [ll] * 9 + [i, f, p]),
+               (lib.flash_fwd_smem, [i])]
     elif name == "flash_bwd":
         fns = [(lib.flash_bwd_dq_bf16, [i] + [p] * 7 + [i] * 5 + [ll] * 12
                 + [i, f, f, p]),
+               (lib.flash_bwd_dq_smem, [i]),
                (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 5 + [ll] * 12
                 + [i, f, f, p]),
                (lib.flash_bwd_fused_bf16, [i] + [p] * 9 + [i] * 5
@@ -129,7 +131,15 @@ def _lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+# a kernel's entry point returns this plus the driver's CUresult when the
+# driver refused one of its TMA tensor maps (csrc/common.cuh)
+_TMAP_ERROR = 10000
+
+
 def _launched(name: str, err: int) -> None:
+    if err >= _TMAP_ERROR:
+        raise RuntimeError(f"{name} kernel launch failed: a TMA tensor map "
+                           f"was refused, driver error {err - _TMAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -193,10 +203,12 @@ def _flash_check(kernel: str, q: torch.Tensor, k: torch.Tensor,
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, sm_scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward on the card. q [B, Tq, H, D], k/v [B, Tk, H, D],
-    bf16 CUDA tensors, D 64 or 128. Returns O [B, Tq, H, D] bf16 and the
-    natural-log LSE [B*H, Tq] fp32."""
+    """Attention forward on the card (wgmma + TMA, `csrc/flash_fwd.cu`).
+    q [B, Tq, H, D], k/v [B, Tk, H, D], bf16 CUDA tensors, D 64 or 128.
+    Returns O [B, Tq, H, D] bf16 and the natural-log LSE [B*H, Tq] fp32."""
     b, tq, tk, h, d = _flash_check("flash_fwd", q, k, v, causal)
+    if sm_scale < 0:  # the kernel's running max takes a scale >= 0
+        q, sm_scale = -q, -sm_scale
     dev = q.device
     strides = (_bthd_strides(q, "flash_fwd", "q")
                + _bthd_strides(k, "flash_fwd", "k")
@@ -234,8 +246,9 @@ def _flash_bwd_args(kernel: str, q: torch.Tensor, k: torch.Tensor,
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, dcor: torch.Tensor,
                  causal: bool, sm_scale: float) -> torch.Tensor:
-    """dQ on the card. q, dO [B, Tq, H, D], k/v [B, Tk, H, D] bf16 CUDA
-    tensors (D 64 or 128), the forward's natural-log LSE and
+    """dQ on the card (wgmma + TMA, `csrc/flash_bwd.cu`). q, dO
+    [B, Tq, H, D], k/v [B, Tk, H, D] bf16 CUDA tensors (D 64 or 128), the
+    forward's natural-log LSE and
     dcor = rowsum(dO * O), both [B*H, Tq] fp32. Returns dQ [B, Tq, H, D]
     bf16."""
     shape, strides = _flash_bwd_args("flash_bwd_dq", q, k, v, do, lse,
@@ -273,6 +286,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # how flash_bwd_fused adds each CTA's dQ partial into the fp32 buffer
 FLASH_DQ_ACCUMULATION = "float2 red.global.add from registers"
+
+
+def flash_q_config(d: int) -> Dict[str, int]:
+    """The Q-stationary loops' dynamic shared memory per CTA at head_dim
+    d, as the built libraries say: `flash_fwd` and `flash_bwd_dq`."""
+    return {"fwd_smem_bytes": _lib("flash_fwd").flash_fwd_smem(d),
+            "dq_smem_bytes": _lib("flash_bwd").flash_bwd_dq_smem(d)}
 
 
 def flash_bwd_kv_config(d: int) -> Dict[str, int]:

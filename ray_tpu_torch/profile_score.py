@@ -8,12 +8,14 @@ single-pass attention backward).
 
 Prints one JSON line per window: host wall time per call, device busy
 time per call (the sum of the kernels' own durations from CUPTI), the
-device's idle share (1 - busy / wall), and the kernels taking the most
-device time with their launch counts. Needs one CUDA device.
+device's idle share (1 - busy / wall), the kernels taking the most
+device time with their launch counts, and the port's own kernels
+(`csrc/`) with theirs. Needs one CUDA device.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -47,13 +49,34 @@ def _window(name: str, fn, calls: int = 3, top: int = 10) -> dict:
     if not per_kernel:
         raise RuntimeError("the profiler recorded no device activity")
     busy = sum(ms for ms, _ in per_kernel.values())
-    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    port = [(k, v) for k, v in ranked if _PORT_KERNEL.search(k)]
+    ranked = ranked[:top]
     return {"window": name, "wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "launches_per_call": sum(n for _, n in per_kernel.values())
             / calls,
             "top": [{"kernel": k[:80], "ms": ms, "share": ms / busy,
-                     "launches": n / calls} for k, (ms, n) in ranked]}
+                     "launches": n / calls} for k, (ms, n) in ranked],
+            "port_kernels": [{"kernel": _port_name(k), "ms": ms,
+                              "launches": n / calls}
+                             for k, (ms, n) in port]}
+
+
+# the port's kernels (csrc/*.cu), each at file scope in an anonymous
+# namespace; PyTorch's own anonymous-namespace kernels sit under at:: or
+# carry other names
+_PORT_KERNEL = re.compile(
+    r"(?:^|\s)\(anonymous namespace\)::(?:flash_|ce_|gemm_kernel<)")
+
+
+def _port_name(kernel: str) -> str:
+    """A port kernel's name and template arguments from its demangled
+    signature: `flash_fwd_kernel<64>`, `gemm_kernel<Tile<...>, DxEpi>`."""
+    name = kernel.split("(anonymous namespace)::", 1)[1].replace(
+        "(anonymous namespace)::", "")
+    cut = name.find(">(")
+    return name[:cut + 1] if cut >= 0 else name.split("(", 1)[0]
 
 
 def main() -> None:

@@ -1,9 +1,13 @@
-"""The gates `chip_smoke.py` holds the flash backward kernels by, checked
-on the CPU: gradients rounded as the kernels round them (bf16 P and dS
-operands, bf16 outputs) pass, and a kernel that is wrong in most rows,
-drops one kv tile, adds one 128-key tile's dQ partial twice or leaves half
-of a 128-key tile's dK or dV unwritten fails, at a causal length where
-most gradient values are far below the largest."""
+"""The gates `chip_smoke.py` holds the flash kernels by, checked on the
+CPU. Backward (`hold_grads`): gradients rounded as the kernels round them
+(bf16 P and dS operands, bf16 outputs) pass, and a kernel that is wrong in
+most rows, drops one kv tile, adds one 128-key tile's dQ partial twice or
+leaves half of a 128-key tile's dK or dV unwritten fails, at a causal
+length where most gradient values are far below the largest. Forward
+(`hold_forward`): O rounded as the kernel rounds it (bf16 P operand, bf16
+output) passes at causal T 2048, and O 5 % high in the later half of the
+rows or of the columns, one 64-row q tile unwritten, one kv tile's P V
+missing, or an LSE without one kv tile fails."""
 from __future__ import annotations
 
 import pytest
@@ -90,3 +94,72 @@ def test_plain_backward_matches_the_emulation_reference():
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.transpose(1, 2), r, atol=1e-5,
                                    rtol=1e-4)
+
+
+def _forward(t: int = 2048, h: int = 2, d: int = 64):
+    """(reference fp32 O [1, H, T, D] and LSE [H, T], the kernel's rounding
+    of O, and the fp32 P and V) for causal attention from a seed."""
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(1, h, t, d, generator=gen).to(bf).float()
+               for _ in range(3))
+    s = (q @ k.transpose(-1, -2) * d ** -0.5).masked_fill(
+        ~torch.ones(t, t, dtype=torch.bool).tril(), -float("inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    kern = (p.to(bf).float() @ v).to(bf)
+    return p @ v, lse[0], kern, (s, p, v)
+
+
+def test_forward_gate_passes_kernel_rounding():
+    ref_o, ref_lse, kern, _ = _forward()
+    held = chip_smoke.hold_forward("emulated kernel", kern, ref_lse, ref_o,
+                                   ref_lse)
+    # most values are far below the largest: an atol near the typical
+    # value would not see a wrong row
+    assert held["ref_median_abs"] < 0.05 * held["ref_max_abs"]
+    assert held["rel_norm_err"] < chip_smoke.GRAD_NORM_TOL / 2
+
+
+_FWD_FAULTS = [("late_rows_5pct", "o"), ("late_cols_5pct", "o"),
+               ("unwritten_q_tile", "o"), ("missing_kv_tile", "o"),
+               ("lse_missing_kv_tile", "lse")]
+
+
+@pytest.mark.parametrize("fault, out", _FWD_FAULTS,
+                         ids=[f for f, _ in _FWD_FAULTS])
+def test_forward_gate_refuses_a_wrong_kernel(fault, out):
+    ref_o, ref_lse, kern, (s, p, v) = _forward()
+    o, lse = kern.clone(), ref_lse.clone()
+    tile = slice(512, 576)  # one 64-key kv tile
+    if fault == "late_rows_5pct":    # queries in the second half of T
+        o[:, :, o.shape[2] // 2:] *= 1.05
+    elif fault == "late_cols_5pct":  # the second half of head_dim
+        o[..., o.shape[3] // 2:] *= 1.05
+    elif fault == "unwritten_q_tile":
+        o[:, :, 900:964] = 0
+    elif fault == "missing_kv_tile":  # its P V never added, LSE right
+        p = p.clone()
+        p[..., tile] = 0
+        o = (p.to(torch.bfloat16).float() @ v).to(torch.bfloat16)
+    else:                             # its keys left out of the LSE
+        s = s.clone()
+        s[..., tile] = -float("inf")
+        lse = torch.logsumexp(s, -1)[0]
+    with pytest.raises(AssertionError, match=f" {out}: "):
+        chip_smoke.hold_forward(fault, o, lse, ref_o, ref_lse)
+
+
+def test_forward_gate_old_allclose_misses_late_rows():
+    """The fault the forward gate was tightened for: O 5 % high in the
+    later half of the rows passes the bf16 allclose that held the forward
+    before, and fails `hold_forward` by its relative norm alone."""
+    ref_o, ref_lse, kern, _ = _forward()
+    o = kern.float()
+    o[:, :, o.shape[2] // 2:] *= 1.05
+    assert torch.allclose(o, ref_o, atol=chip_smoke.BF16_TOL,
+                          rtol=chip_smoke.BF16_TOL)
+    assert torch.allclose(o, ref_o, rtol=chip_smoke.GRAD_TOL,
+                          atol=chip_smoke.GRAD_ATOL_FRAC
+                          * float(ref_o.abs().max()))
+    assert chip_smoke.norm_err(o, ref_o) > chip_smoke.GRAD_NORM_TOL

@@ -145,6 +145,23 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
                                 "ce_dw": 0}
 
 
+@pytest.mark.parametrize("err, what", [
+    (1, "CUDA error 1"),
+    (10001, "a TMA tensor map was refused, driver error 1")])
+def test_launch_errors_raise_and_are_not_counted(monkeypatch, err, what):
+    """A wrapper raises on the code its kernel's entry point returned: a
+    CUDA error, or 10000 + the driver's error where a TMA tensor map of
+    the inputs was refused. Only a launch counts."""
+    from ray_tpu_torch import kernels
+
+    monkeypatch.setitem(kernels.LAUNCHES, "flash_fwd", 0)
+    with pytest.raises(RuntimeError, match=what):
+        kernels._launched("flash_fwd", err)
+    assert kernels.LAUNCHES["flash_fwd"] == 0
+    kernels._launched("flash_fwd", 0)
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+
+
 class _CudaLike:
     """What `kernels.flash_takes` reads of a tensor, as a CUDA tensor
     would show it (this host has no card to make one on)."""

@@ -365,14 +365,20 @@ def phase_build(kernels) -> None:
         ln for ln in ptxas if ln.startswith("ce_fwd")
         and re.search(r"[1-9]\d* bytes spill", ln)]
     check(not ce, f"ce_fwd: ptxas warnings or spills: {ce} {warnings}")
+    ce_tile = kernels.ce_fwd_config()
+    check((ce_tile["rows"], ce_tile["cols"]) == (kernels.CE_FWD_ROWS,
+                                                 kernels.CE_FWD_COLS),
+          f"ce_fwd's tile {ce_tile} is not the partition's")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(logs), "ptxas": ptxas,
           "ptxas_warnings": warnings,
-          # dynamic shared memory per CTA of each attention kernel (ptxas
-          # counts only static), and the dK/dV main loop's keys per CTA
+          # dynamic shared memory per CTA of each attention kernel and of
+          # ce_fwd (ptxas counts only static), the dK/dV main loop's keys
+          # per CTA and ce_fwd's tile
           "flash_q": {d: kernels.flash_q_config(d) for d in (64, 128)},
           "flash_bwd_kv": {d: kernels.flash_bwd_kv_config(d)
-                           for d in (64, 128)}})
+                           for d in (64, 128)},
+          "ce_fwd": ce_tile})
 
 
 def qkv(gen, b, tq, tk, h, d) -> list:
@@ -829,10 +835,7 @@ def phase_ce_bwd(kernels, fused_ce, gen) -> list:
     dev = torch.device("cuda")
 
     def inputs(n, d, v, vocab):
-        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
-        w = (torch.randn(v, d, generator=gen, device=dev) * 0.02
-             ).to(torch.bfloat16)
-        t = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+        x, w, t = ce_inputs(gen, n, d, v, vocab, 0.02)
         g = torch.rand(n, generator=gen, device=dev) / n
         loss, lse = kernels.ce_fwd(x, w, t, vocab)
         torch.cuda.synchronize()

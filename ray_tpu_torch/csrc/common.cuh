@@ -1,11 +1,12 @@
 // Device helpers shared by the port's Hopper kernels (sm_90a): cp.async
 // copies, ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product
-// (the CE kernels), a guard that restores the caller's CUDA device, the
-// per-device shared-memory opt-in, and Hopper's own paths, which every
-// attention kernel runs on: mbarriers, TMA tile loads (with the host-side
-// tensor-map encoder, got from the driver at run time so nothing new is
-// linked) and warpgroup products (wgmma) on 128-byte-swizzled
-// shared-memory operands.
+// (the CE backward), a guard that restores the caller's CUDA device, the
+// per-device shared-memory opt-in, and Hopper's own paths, which the
+// attention kernels and the CE forward run on: mbarriers, TMA tile loads
+// (with the host-side tensor-map encoders, got from the driver at run
+// time so nothing new is linked), warpgroup products (wgmma) on
+// 128-byte-swizzled shared-memory operands and the register moves
+// between warpgroups (setmaxnreg).
 #pragma once
 
 #include <cuda.h>
@@ -129,6 +130,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       "r"(bytes)
       : "memory");
 }
+// one arrival, no transactions
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 // waits until the barrier's phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -157,6 +164,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0) {
   asm volatile(
@@ -164,6 +180,18 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// Moves this warpgroup's register budget to R a thread (a multiple of 8
+// in [24, 256]); every warp of the warpgroup executes it. A producer
+// warpgroup gives registers back, the consumers take them.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // orders this thread's shared-memory stores before later reads by the
@@ -317,6 +345,58 @@ struct Wgmma<128> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+        "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+        "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+        "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+        "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+        "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+        "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+        "%121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
 // ---- host: TMA tensor maps ----
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -367,6 +447,25 @@ inline int encode_bthd(CUtensorMap* map, const void* base, int B, int T,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
+}
+
+// A map of bf16 [rows, cols] (row stride `ld` elements, unit stride on
+// cols) whose box is `box_rows` rows of 64 columns (one 128-byte swizzled
+// row each), 128-byte swizzle; rows and columns past the end read as zero.
+inline int encode_2d(CUtensorMap* map, const void* base, long long rows,
+                     long long cols, long long ld, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return TMAP_ERROR;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -73,8 +73,8 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
                (lib.flash_bwd_kv_keys, [i]),
                (lib.flash_bwd_kv_smem, [i, i])]
     elif name == "ce_fwd":
-        fns = [(lib.ce_fwd_bf16, [i, p, p, p, p, p, p, i, i, i, i, i, p]),
-               (lib.ce_fwd_takes, [i, i])]
+        fns = [(lib.ce_fwd_bf16, [i] + [p] * 6 + [i] * 6 + [p]),
+               (lib.ce_fwd_takes, [i, i]), (lib.ce_fwd_config, [i])]
     else:
         fns = [(lib.ce_probs_bf16, [i, p, p, p, p] + [i] * 6 + [p]),
                (lib.ce_dx_bf16, [i, p, p, p] + [i] * 7 + [p]),
@@ -345,8 +345,8 @@ def ce_fwd_supported(d: int, dtype: torch.dtype,
                      device: torch.device) -> bool:
     """Whether ce_fwd takes rows of width d in this dtype on this CUDA
     device: bf16, and what `ce_fwd_takes` in csrc/ce_fwd.cu says of d (a
-    multiple of 16, the x tile within the device's shared memory). Builds
-    the kernel on first use."""
+    multiple of 16, and the ring within the device's shared memory).
+    Builds the kernel on first use."""
     return dtype == torch.bfloat16 and _takes("ce_fwd", "ce_fwd_takes", d,
                                               device)
 
@@ -361,18 +361,40 @@ def ce_bwd_supported(d: int, dtype: torch.dtype,
                                               device)
 
 
-def _ce_splits(n: int, v: int, device: torch.device) -> int:
-    """Vocab splits per 64-row tile: enough CTAs to cover the SMs once
-    (a CTA's 170 KB of shared memory at d = 768 keeps one per SM)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms // ((n + 63) // 64), (v + 255) // 256))
+# ce_fwd's tile (csrc/ce_fwd.cu BM, BV): rows of x per CTA, vocab columns
+# per tile
+CE_FWD_ROWS = 128
+CE_FWD_COLS = 256
+
+
+def ce_fwd_config() -> Dict[str, int]:
+    """ce_fwd's tile as the built library says: dynamic shared memory per
+    CTA, rows of x per CTA, vocab columns per tile."""
+    lib = _lib("ce_fwd")
+    return {"smem_bytes": lib.ce_fwd_config(0), "rows": lib.ce_fwd_config(1),
+            "cols": lib.ce_fwd_config(2)}
+
+
+def ce_fwd_partition(n: int, v: int, sms: int) -> Tuple[int, int]:
+    """ce_fwd's grid over N rows and V vocab columns on a card of `sms`
+    SMs: (splits, tiles_per_split). Each 128-row tile gets `splits` CTAs
+    (one CTA fits an SM), and split s walks the vocab tiles [s *
+    tiles_per_split, (s + 1) * tiles_per_split) of the ceil(V / 256), the
+    last range cut at the end: as many CTAs as fill the SMs once, every
+    split non-empty (128 CTAs at N 2048 and at N 8192 on 132 SMs)."""
+    row_tiles = -(-n // CE_FWD_ROWS)
+    vocab_tiles = -(-v // CE_FWD_COLS)
+    splits = max(1, min(sms // row_tiles, vocab_tiles))
+    per = -(-vocab_tiles // splits)
+    return -(-vocab_tiles // per), per
 
 
 def ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
            vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row CE of x @ w.T on the card. x [N, d], w [V, d] contiguous
-    bf16 CUDA tensors (rows >= vocab_size masked), targets [N] int64.
-    Returns (loss [N], lse [N]) fp32."""
+    """Per-row CE of x @ w.T on the card (wgmma + TMA,
+    `csrc/ce_fwd.cu`). x [N, d], w [V, d] contiguous bf16 CUDA tensors
+    (rows >= vocab_size masked), targets [N] int64. Returns (loss [N],
+    lse [N]) fp32."""
     dev = x.device
     if not (x.is_cuda and w.device == dev and targets.device == dev):
         raise ValueError("ce_fwd: x, w, targets must be CUDA tensors on "
@@ -383,8 +405,8 @@ def ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     n, d = x.shape
     v = w.shape[0]
     if w.dtype != x.dtype or not ce_fwd_supported(d, x.dtype, dev):
-        raise ValueError(f"ce_fwd: needs bf16 and d % 16 == 0 within "
-                         f"shared memory, got {x.dtype}/{w.dtype}, d={d}")
+        raise ValueError(f"ce_fwd: needs bf16 and d a multiple of 16, got "
+                         f"{x.dtype}/{w.dtype}, d={d}")
     if targets.dtype != torch.int64 or targets.shape != (n,):
         raise ValueError(f"ce_fwd: targets must be int64 [{n}]")
     if not (x.is_contiguous() and w.is_contiguous()
@@ -394,17 +416,18 @@ def ce_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
         raise ValueError("ce_fwd: x and w must be 16-byte aligned")
     if n == 0 or not 0 < vocab_size <= v:
         raise ValueError(f"ce_fwd: n={n}, vocab_size={vocab_size}, V={v}")
-    splits = _ce_splits(n, v, dev)
+    splits, per = ce_fwd_partition(
+        n, v, torch.cuda.get_device_properties(dev).multi_processor_count)
     loss = torch.empty(n, dtype=torch.float32, device=dev)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     # per-split (max, sum-exp, target logit) of every row, merged by the
     # kernel's second pass
-    part = torch.empty(3 * 4 * splits * n, dtype=torch.float32, device=dev)
+    part = torch.empty(3 * splits * n, dtype=torch.float32, device=dev)
     lib = _lib("ce_fwd")
     err = lib.ce_fwd_bf16(dev.index, x.data_ptr(), w.data_ptr(),
                           targets.data_ptr(), loss.data_ptr(),
                           lse.data_ptr(), part.data_ptr(), n, d, v,
-                          vocab_size, splits,
+                          vocab_size, splits, per,
                           torch.cuda.current_stream(dev).cuda_stream)
     _launched("ce_fwd", err)
     return loss, lse

@@ -7,14 +7,21 @@ length where most gradient values are far below the largest. Forward
 (`hold_forward`): O rounded as the kernel rounds it (bf16 P operand, bf16
 output) passes at causal T 2048, and O 5 % high in the later half of the
 rows or of the columns, one 64-row q tile unwritten, one kv tile's P V
-missing, or an LSE without one kv tile fails."""
+missing, or an LSE without one kv tile fails. The CE forward
+(`hold_ce_forward`, CE_FWD_TOL): the logits summed in 64-deep k-chunks as
+the kernel sums them pass at GPT-2's vocabulary, and a sum-exp without
+the ragged last vocab tile or without one 64-column slice, or a tile
+without one d chunk, fails; the bound it replaced passed the first two.
+And the parse of nvcc's output that puts ptxas's warnings in the build
+line."""
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from ray_tpu_torch.ops import attention
+from ray_tpu_torch.ops import attention, fused_ce
 
 
 def _grads(t: int = 1024, h: int = 2, d: int = 64, parts: bool = False):
@@ -163,3 +170,104 @@ def test_forward_gate_old_allclose_misses_late_rows():
                           atol=chip_smoke.GRAD_ATOL_FRAC
                           * float(ref_o.abs().max()))
     assert chip_smoke.norm_err(o, ref_o) > chip_smoke.GRAD_NORM_TOL
+
+
+# chip_smoke.py's bound for ce_fwd's loss and LSE before CE_FWD_TOL
+_OLD_CE_TOL = 2e-3
+_CE_FAULTS = ["ragged_tail", "column_slice", "d_chunk"]
+
+
+def _ce_forward(fault: str = ""):
+    """(the kernel's loss and LSE as emulated, the plain forward's) at
+    GPT-2's vocabulary (V 50304, 50257 live, so the last 256-column tile
+    holds 81 live columns) and d 128, x ~ N(0, 1) and w ~ 0.02 N(0, 1) in
+    bf16 as phase_ce makes them. The emulation sums the logits in k-chunks
+    of 64 in fp32, as the kernel's ring does. `fault`: the sum-exp without
+    the ragged last tile, or without one 64-column slice of a tile; or one
+    tile's logits without one d chunk (the tile holding row 0's target:
+    a dropped d chunk shows only in the loss of rows whose target lies
+    in that tile)."""
+    rng = np.random.default_rng(0)
+    n, d, v, vocab = 256, 128, 50304, 50257
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
+                         ).to(bf)
+    w = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32)
+                         * 0.02).to(bf)
+    t = torch.from_numpy(rng.integers(0, vocab, size=n))
+    logits = torch.zeros(n, v)
+    for k in range(0, d, 64):
+        chunk = x[:, k:k + 64].float() @ w[:, k:k + 64].float().T
+        if fault == "d_chunk" and k == 64:
+            tile = int(t[0]) // 256 * 256
+            chunk[:, tile:tile + 256] = 0
+        logits += chunk
+    logits[:, vocab:] = -float("inf")
+    tgt = logits.gather(1, t[:, None])[:, 0]
+    if fault == "ragged_tail":
+        logits[:, v // 256 * 256:] = -float("inf")
+    elif fault == "column_slice":
+        logits[:, 100 * 256 + 64:100 * 256 + 128] = -float("inf")
+    lse = torch.logsumexp(logits, dim=-1)
+    return (lse - tgt, lse), fused_ce._ce_reference(x, w, t, vocab)
+
+
+def test_ce_forward_gate_passes_kernel_summation():
+    (loss, lse), (ref_loss, ref_lse) = _ce_forward()
+    held = chip_smoke.hold_ce_forward("emulated kernel", loss, lse,
+                                      ref_loss, ref_lse)
+    assert max(held.values()) < chip_smoke.CE_FWD_TOL / 10
+
+
+@pytest.mark.parametrize("fault", _CE_FAULTS)
+def test_ce_forward_gate_refuses_a_wrong_kernel(fault):
+    (loss, lse), ref = _ce_forward(fault)
+    with pytest.raises(AssertionError, match="loss err"):
+        chip_smoke.hold_ce_forward(fault, loss, lse, *ref)
+
+
+@pytest.mark.parametrize("fault", _CE_FAULTS[:2])
+def test_ce_forward_old_bound_passed_dropped_columns(fault):
+    """The faults the CE forward's bound was tightened for: a sum-exp
+    without the ragged last tile or one 64-column slice moves every
+    row's LSE by less than the old bound of 2e-3."""
+    (loss, lse), (ref_loss, ref_lse) = _ce_forward(fault)
+    lse_err = chip_smoke.max_err(lse, ref_lse)
+    assert chip_smoke.CE_FWD_TOL < lse_err <= _OLD_CE_TOL
+    assert chip_smoke.max_err(loss, ref_loss) <= _OLD_CE_TOL
+
+
+# nvcc -Xptxas -v output as an H100 build printed it for a flash_fwd
+# variant whose wgmma sat in a branch that differed between warpgroups
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__12db9c2d_12_\
+flash_fwd_cu_48fe48b516flash_fwd_kernelILi64EEEvNS_7FwdMapsEP13__nv_bfloat16\
+Pfiiiif' for 'sm_90a'
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to program dependence on compiler-inserted \
+WG.AR in divergent path in the function '_ZN45_GLOBAL__N__12db9c2d_12_\
+flash_fwd_cu_48fe48b516flash_fwd_kernelILi128EEEvNS_7FwdMapsEP13__nv_\
+bfloat16Pfiiiif'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__12db9c2d_12_\
+flash_fwd_cu_48fe48b516flash_fwd_kernelILi64EEEvNS_7FwdMapsEP13__nv_\
+bfloat16Pfiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 106 registers, used 1 barriers
+"""
+
+
+def test_ptxas_warnings_are_parsed_per_kernel():
+    """The serialization note is put under the kernel it names, not the
+    entry compiled last; register and spill lines are no warnings, and
+    stay in the register lines."""
+    got = chip_smoke.ptxas_warnings(_PTXAS_LOG)
+    assert list(got) == ["flash_fwd_kernel<128>"]
+    assert len(got["flash_fwd_kernel<128>"]) == 1
+    assert got["flash_fwd_kernel<128>"][0].startswith(
+        "ptxas info    : (C7520) Potential Performance Loss: wgmma")
+    assert chip_smoke.ptxas_warnings("ptxas info    : Used 106 registers"
+                                     ", used 1 barriers") == {}
+    lines = chip_smoke.ptxas_lines(_PTXAS_LOG)
+    assert "flash_fwd_kernel<64>: ptxas info    : Used 106 registers, " \
+        "used 1 barriers" in lines

@@ -93,6 +93,28 @@ def test_linear_cross_entropy_matches_jax(n, d, v, vocab):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,vocab", [(640, 600), (384, 384)])
+def test_linear_cross_entropy_matches_jax_kernel(v, vocab, dtype):
+    """The port's CE forward on the CPU against the JAX Pallas forward
+    kernel itself (`_ce_fwd_pallas` in interpret mode, blocks of 128
+    rows and 128 vocab columns), padded and unpadded vocab, fp32 and bf16
+    inputs (both sum the products in fp32)."""
+    rng = np.random.default_rng(7)
+    n, d = 256, 128
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    w = rng.standard_normal((v, d), dtype=np.float32) * 0.1
+    t = rng.integers(0, vocab, size=n)
+    (jx, tx), (jw, tw) = _pair(x, dtype), _pair(w, dtype)
+    want_loss, want_lse = jce._ce_fwd_pallas(
+        jx, jw, jnp.asarray(t, jnp.int32), vocab, 128, 128, interpret=True)
+    loss, lse = tce.linear_cross_entropy(tx, tw, torch.from_numpy(t), vocab)
+    np.testing.assert_allclose(loss.numpy(), _f32(want_loss), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), _f32(want_lse), atol=1e-4,
+                               rtol=1e-4)
+
+
 def test_fused_ce_gate_keeps_cpu_on_the_chunked_path():
     assert not tce.fused_ce_supported(2048, 768, 50304, torch.device("cpu"),
                                       torch.bfloat16)
@@ -404,6 +426,33 @@ def test_ce_chunk_width(n, v):
         assert vc == 128
     if (n, v) == (8192, 50304):
         assert vc == 8192 and -(-v // vc) == 7
+
+
+@pytest.mark.parametrize("n", [100, 2048, 8192])
+@pytest.mark.parametrize("v", [640, 50304])
+def test_ce_fwd_partition(n, v):
+    """ce_fwd's grid on an H100's 132 SMs covers each 256-column vocab
+    tile of each 128-row tile exactly once, the ragged last tile too,
+    with no empty split and no more CTAs than SMs; GPT-2's LM head at
+    both its N runs 128 CTAs."""
+    from ray_tpu_torch import kernels
+
+    sms = 132
+    splits, per = kernels.ce_fwd_partition(n, v, sms)
+    row_tiles = -(-n // kernels.CE_FWD_ROWS)
+    vocab_tiles = -(-v // kernels.CE_FWD_COLS)
+    covered = np.zeros((row_tiles, vocab_tiles), dtype=int)
+    for r in range(row_tiles):        # the kernel's grid: (row tile,
+        for s in range(splits):       # split), tiles [s per, (s+1) per)
+            tiles = range(s * per, min(vocab_tiles, (s + 1) * per))
+            assert len(tiles) > 0
+            covered[r, list(tiles)] += 1
+    assert (covered == 1).all()
+    last = (vocab_tiles - 1) * kernels.CE_FWD_COLS
+    assert last < v <= last + kernels.CE_FWD_COLS
+    assert row_tiles * splits <= max(sms, row_tiles)
+    if v == 50304 and n in (2048, 8192):
+        assert row_tiles * splits == 128
 
 
 def test_linear_cross_entropy_grad_matches_autograd():

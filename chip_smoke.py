@@ -23,7 +23,12 @@ chunks a step), held on three shapes (`ce_bwd`). Inputs the attention
 kernels refuse run the plain route on the card (`plain_route`: Llama tiny
 in bf16, GPT-2 tiny in fp32, causal tq > tk, no kernel launched, each
 such call counted in `ops.attention.PLAIN_CALLS`, which the main paths
-must leave at 0). Every
+must leave at 0). The paged KV prefix cache: its device ops against the
+CPU's (`kv_ops`), and serving with it (`serve_paged`, both models in
+fp32: 8 requests sharing a 256-token system prompt, with and without
+the cache, a weight swap, a cancel, an 8-block pool; `serve_paged_int8`:
+GPT-2 small bf16 on the int8 pool). `dq_seeds` holds flash_bwd_dq over
+16 seeds and shapes against emulations of its bf16 rounding. Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -113,7 +118,14 @@ SERVE_LP_TOL = LOGITS_TOL
 SERVE_GREEDY_TOL = 2 * LOGITS_TOL
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds
+    since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -352,19 +364,26 @@ def ptxas_warnings(out: str) -> dict:
     return found
 
 
-def phase_build(kernels) -> None:
-    t0 = time.perf_counter()
-    logs = kernels.build()
+def gate_ptxas(logs: dict):
+    """nvcc's output of every kernel source (`kernels.build()`'s logs):
+    the register and spill lines and the warnings by kernel. Fails if any
+    kernel has a warning or ptxas's performance note (`(C7520)` wgmma
+    serialized, `(C7512)` register pressure) or a line that shows a
+    spill."""
     ptxas = [ln for out in logs.values() for ln in ptxas_lines(out)]
     warnings = {}
     for out in logs.values():
         warnings.update(ptxas_warnings(out))
-    # ce_fwd's main loop must build without spills and without its wgmma
-    # serialized (checked where this run compiled it)
-    ce = [k for k in warnings if k.startswith("ce_fwd")] + [
-        ln for ln in ptxas if ln.startswith("ce_fwd")
-        and re.search(r"[1-9]\d* bytes spill", ln)]
-    check(not ce, f"ce_fwd: ptxas warnings or spills: {ce} {warnings}")
+    faults = [f"{k}: {ln}" for k, lines in warnings.items() for ln in lines]
+    faults += [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill", ln)]
+    check(not faults, f"ptxas warnings or spills: {faults}")
+    return ptxas, warnings
+
+
+def phase_build(kernels) -> None:
+    t0 = time.perf_counter()
+    logs = kernels.build()
+    ptxas, warnings = gate_ptxas(logs)
     ce_tile = kernels.ce_fwd_config()
     check((ce_tile["rows"], ce_tile["cols"]) == (kernels.CE_FWD_ROWS,
                                                  kernels.CE_FWD_COLS),
@@ -642,6 +661,127 @@ def phase_flash_bwd(kernels, attention, gen) -> list:
                                 main_case["dv_max_abs_err"]),
              "ms": dkv_ms, "bound_ms": dkv_bound[0],
              "bound_by": dkv_bound[1]}]
+
+
+LOG2E = 1.4426950408889634  # the kernels' float constant
+
+
+def dq_reference_and_emulation(attention, q, k, v, o, lse, do,
+                               scale: float):
+    """Causal dQ three ways, from the forward's O and LSE:
+    - the plain backward's (`_flash_bwd_reference`: P and dS = P (dP - D)
+      in fp32, dQ = scale dS K in fp32, rounded to bf16);
+    - an emulation of flash_bwd_dq's rounding: the same with dS rounded
+      to bf16 before the product, as the kernel feeds it to its tensor
+      cores (the emulation tests/test_torch_chip_gates.py applies);
+    - the same emulation in the kernel's own forms, S and dP summed in
+      float64 and P = 2^(S scale log2(e) - LSE log2(e)): its distance
+      from the first emulation is what summation order and the exp form
+      alone move dQ, through dS elements that round to the other bf16
+      neighbour."""
+    b, t, h, _ = q.shape
+    lse4 = lse.reshape(b, h, t, 1)
+    dcor = attention.softmax_correction(o, do).reshape(b, h, t, 1)
+    kf = k.float()
+
+    def dq_of(ds):
+        return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+
+    p = torch.exp(attention._masked_logits(q, k, True, scale) - lse4)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float()) - dcor)
+    del p
+    ref, emu = dq_of(ds), dq_of(ds.to(torch.bfloat16).float())
+    del ds
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()).float()
+    x = (s * (scale * LOG2E)).masked_fill(
+        ~torch.ones(t, t, dtype=torch.bool, device=q.device).tril(),
+        -math.inf)
+    del s
+    p = torch.exp2((x.double() - lse4.double()
+                    * torch.tensor(LOG2E, dtype=torch.float32).item()
+                    ).float())
+    del x
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double()).float()
+    ds = (p * (dp - dcor)).to(torch.bfloat16).float()
+    del p, dp
+    return ref, emu, dq_of(ds)
+
+
+def allowance_used(got, ref) -> float:
+    """The largest |got - ref| over hold_grads' allowance at that element,
+    atol GRAD_ATOL_FRAC * max|ref| + rtol GRAD_TOL * |ref|: above 1 the
+    allclose fails."""
+    got, ref = got.float(), ref.float()
+    allow = GRAD_ATOL_FRAC * ref.abs().max() + GRAD_TOL * ref.abs()
+    return float(((got - ref).abs() / allow).max())
+
+
+def hold_dq_rounding(label: str, dq, emu, emu_exact) -> dict:
+    """flash_bwd_dq's dQ against the emulations of its rounding
+    (`dq_reference_and_emulation`): no farther, in relative norm, from the
+    float64-summed emulation than the fp32 emulation is, twice over (two
+    emulations that differ in summation order alone set the scale; a
+    wrong scale, tile or mask is far outside it)."""
+    floor = norm_err(emu, emu_exact)
+    out = {"floor_rel_norm": floor,
+           "vs_emulation_rel_norm": norm_err(dq, emu),
+           "vs_exact_emulation_rel_norm": norm_err(dq, emu_exact),
+           "vs_emulation_max_abs_err": max_err(dq, emu)}
+    check(out["vs_exact_emulation_rel_norm"] <= 2 * max(floor, 1e-6),
+          f"{label}: dQ {out['vs_exact_emulation_rel_norm']} from the "
+          f"emulation of its rounding, two emulations {floor} apart")
+    return out
+
+
+DQ_SEED_SHAPES = [(8, 1024, 12, 64), (4, 2048, 12, 64)]
+DQ_SEEDS = range(8)
+
+
+def phase_dq_seeds(kernels, attention) -> None:
+    """flash_bwd_dq's dQ over seeds 0-7 at both causal training shapes,
+    from the forward kernel's O and LSE: against the plain backward's dQ
+    by hold_grads' allowance and relative norm (reported, not gated: the
+    question is whether a miss is the kernel's or the bf16 rounding of
+    dS, which the emulation shares), and against the emulations of its
+    rounding by `hold_dq_rounding`."""
+    cases = []
+    for b, t, h, d in DQ_SEED_SHAPES:
+        for seed in DQ_SEEDS:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            q, k, v = qkv(gen, b, t, t, h, d)
+            do = torch.randn(b, t, h, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            scale = d ** -0.5
+            o, lse = kernels.flash_fwd(q, k, v, True, scale)
+            dq = kernels.flash_bwd_dq(q, k, v, do, lse,
+                                      attention.softmax_correction(o, do),
+                                      True, scale)
+            ref, emu, emu_exact = dq_reference_and_emulation(
+                attention, q, k, v, o, lse, do, scale)
+            held = hold_dq_rounding(f"flash_bwd_dq {(b, t, h, d)} seed "
+                                    f"{seed}", dq, emu, emu_exact)
+            cases.append({"shape": [b, t, h, d], "seed": seed,
+                          "ref_max_abs": float(ref.float().abs().max()),
+                          "kernel_allowance_used": allowance_used(dq, ref),
+                          "kernel_rel_norm_err": norm_err(dq, ref),
+                          "kernel_max_abs_err": max_err(dq, ref),
+                          "emulation_allowance_used":
+                              allowance_used(emu, ref),
+                          "emulation_rel_norm_err": norm_err(emu, ref),
+                          "exact_emulation_allowance_used":
+                              allowance_used(emu_exact, ref),
+                          **held})
+            del q, k, v, do, o, lse, dq, ref, emu, emu_exact
+    worst = max(cases, key=lambda c: c["kernel_allowance_used"])
+    emit({"phase": "dq_seeds", "tol": GRAD_TOL,
+          "atol_of_max_ref": GRAD_ATOL_FRAC,
+          "kernel_over_allowance": sum(c["kernel_allowance_used"] > 1
+                                       for c in cases),
+          "emulation_over_allowance": sum(c["emulation_allowance_used"] > 1
+                                          for c in cases),
+          "exact_emulation_over_allowance": sum(
+              c["exact_emulation_allowance_used"] > 1 for c in cases),
+          "worst": worst, "cases": cases})
 
 
 def gqa_qkv(gen, b, t, h, kv_heads, d) -> list:
@@ -1419,6 +1559,7 @@ def summarize(timer) -> dict:
 
 SERVE_LENGTHS = [8, 40, 77, 120, 160, 200]
 SERVE_NEW = 32
+PAGED_NEW = 32
 
 
 def serve_prompts(cfg) -> list:
@@ -1427,12 +1568,14 @@ def serve_prompts(cfg) -> list:
             for n in SERVE_LENGTHS]
 
 
-def run_engine(engine_mod, params, cfg, prompts):
-    """ContinuousBatchingEngine(max_batch=4) answering `prompts`, each
-    submitted from a thread of its own. Returns each stream's tokens and
-    per-token logprobs, the wall seconds and each time to first token."""
+def run_engine(engine_mod, params, cfg, prompts, **engine_kw):
+    """ContinuousBatchingEngine(max_batch=4, **engine_kw) answering
+    `prompts`, each submitted from a thread of its own. Returns each
+    stream's tokens and per-token logprobs, the wall seconds and each
+    time to first token."""
     new = SERVE_NEW
-    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4)
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4,
+                                              **engine_kw)
     results = [None] * len(prompts)
     scores = [None] * len(prompts)
     ttft = [None] * len(prompts)
@@ -1486,9 +1629,10 @@ def generated(generate_mod, params, cfg, prompts) -> list:
 
 
 def phase_serve_fp32(model: str, cfg, params, engine_mod,
-                     generate_mod) -> None:
+                     generate_mod):
     """A model at fp32, where the oracle is token identity with
-    generate() at batch 1 while the engine decodes at batch 4."""
+    generate() at batch 1 while the engine decodes at batch 4. Returns
+    the prompts and generate()'s streams."""
     prompts = serve_prompts(cfg)
     results, _, wall, ttft = run_engine(engine_mod, params, cfg, prompts)
     want = generated(generate_mod, params, cfg, prompts)
@@ -1498,6 +1642,7 @@ def phase_serve_fp32(model: str, cfg, params, engine_mod,
           f"from generate()")
     emit({**serve_line(model, "float32", prompts, wall, ttft),
           "streams_equal_generate": len(prompts)})
+    return prompts, want
 
 
 def phase_serve_bf16(model: str, forward, engine_mod, generate_mod, params,
@@ -1533,6 +1678,408 @@ def phase_serve_bf16(model: str, forward, engine_mod, generate_mod, params,
                                         zip(results, want))})
 
 
+# GPT-2 small's KV block, [layers, block tokens, heads, head_dim]
+KV_OPS_BLOCK = (12, 16, 12, 64)
+
+
+def phase_kv_ops(kvcache) -> None:
+    """Each device op of the paged KV cache on the card against the same
+    op on CPU tensors, at GPT-2 small's block shape in fp32 and bf16: the
+    fp ops (write, copy-on-write, gather, extract) bit for bit, the int8
+    ops (quantize, write, copy-on-write, verbatim write, dequantizing
+    gather) byte for byte in the blocks and their scales."""
+    layers, bs, heads, hd = KV_OPS_BLOCK
+    n = 8
+    pool_shape, scale_shape = ((layers, n, bs, heads, hd),
+                               (layers, n, 1, heads, hd))
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(31)
+        pools = [torch.randn(pool_shape, generator=gen).to(dtype)
+                 for _ in range(2)]
+        blks = [torch.randn((layers, 3, bs, heads, hd), generator=gen)
+                .to(dtype) for _ in range(2)]
+        blks[0][:, :, :, 0, :8] = 0       # channels whose amax is 0
+        window = [torch.randn((layers, 64, heads, hd), generator=gen)
+                  .to(dtype) for _ in range(2)]
+        qpools = [torch.randint(-127, 128, pool_shape, generator=gen,
+                                dtype=torch.int8) for _ in range(2)]
+        qpools += [torch.rand(scale_shape, generator=gen) * 0.05
+                   for _ in range(2)]
+        rows = torch.cat([torch.arange(0, 16), torch.arange(32, 48)])
+
+        def ops(dev):
+            def on(ts):
+                return [t.to(dev).clone() for t in ts]
+
+            def idx(*v):
+                return torch.tensor(v, device=dev)
+
+            pk, pv = on(pools)
+            bk, bv = on(blks)
+            out = {}
+            kvcache._write_block(pk, pv, idx(5, 1, 6), bk, bv)
+            out["write_block"] = [pk.clone(), pv.clone()]
+            kvcache._cow_extend_block(pk, pv, idx(2), idx(5), bk[:, 1:2],
+                                      bv[:, 1:2], 7)
+            out["cow_extend_block"] = [pk.clone(), pv.clone()]
+            out["gather_prefix"] = list(kvcache._gather_prefix(
+                pk, pv, idx(2, 5, 1), 40))
+            out["extract_block"] = list(kvcache._extract_block(
+                *on(window), rows.to(dev), bs))
+            out["quantize"] = list(kvcache._quantize(bk))
+            q = on(qpools)
+            kvcache._write_block_q(*q, idx(5, 1, 6), bk, bv)
+            out["write_block_q"] = [t.clone() for t in q]
+            kvcache._cow_extend_block_q(*q, idx(2), idx(5), bk[:, 1:2],
+                                        bv[:, 1:2], 7)
+            out["cow_extend_block_q"] = [t.clone() for t in q]
+            kvcache._write_block_qraw(*q, idx(7, 0),
+                                      *[t[:, 1:3].clone() for t in q])
+            out["write_block_qraw"] = [t.clone() for t in q]
+            out["gather_prefix_q"] = list(kvcache._gather_prefix_q(
+                *q, idx(2, 5, 7), 40, dtype))
+            return out
+
+        cpu, card = ops("cpu"), ops("cuda")
+        torch.cuda.synchronize()
+        for name, want in cpu.items():
+            got = [t.cpu() for t in card[name]]
+            same = all(g.dtype == w.dtype and g.shape == w.shape
+                       and torch.equal(g, w) for g, w in zip(got, want))
+            check(same, f"kv op {name} ({dtype}) on the card differs from "
+                  f"the CPU")
+            results.setdefault(name, []).append(str(dtype))
+    emit({"phase": "kv_ops", "block": list(KV_OPS_BLOCK), "pool_blocks": n,
+          "bit_equal_to_cpu": results})
+
+
+# the paged serving traffic: one system prompt of 256 tokens (16 full
+# blocks of 16) and a distinct tail per request; request 1's tail begins
+# with the whole of request 0's 8-token tail, so its prefill widens
+# request 0's cached partial block (copy-on-write)
+PAGED_SYSTEM = 256
+PAGED_TAILS = [8, 24, 40, 64, 17, 33, 50, 12]
+
+
+def paged_prompts(cfg, seed: int) -> list:
+    gen = torch.Generator().manual_seed(seed)
+    system = torch.randint(0, cfg.vocab_size, (PAGED_SYSTEM,), generator=gen)
+    tails = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+             for n in PAGED_TAILS]
+    tails[1][:PAGED_TAILS[0]] = tails[0]
+    return [torch.cat([system, t]).tolist() for t in tails]
+
+
+def run_paged(eng, prompts, new: int):
+    """Submit `prompts` in order, each once a slot is free and after the
+    one before it has its first token (so admission follows the list);
+    a thread drains each stream. Returns each stream's tokens, its cache
+    outcome and reused tokens, and its time to first token (seconds,
+    from submit)."""
+    n = len(prompts)
+    results, outcomes, ttft, errors, threads = [None] * n, [], [], [], []
+
+    def drain(i, first, stream):
+        try:
+            results[i] = [first] + list(stream)
+        except Exception as err:  # noqa: BLE001 — re-raised below
+            errors.append(err)
+
+    for i, p in enumerate(prompts):
+        deadline = time.monotonic() + 300
+        while eng.free_slots == 0:
+            check(time.monotonic() < deadline, "no slot freed")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        stream = eng.stream(p, new, timeout_s=300.0)
+        first = next(stream)
+        ttft.append(time.perf_counter() - t0)
+        outcomes.append((stream.cache_outcome, stream.reused_tokens))
+        th = threading.Thread(target=drain, args=(i, first, stream))
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(timeout=600)
+    check(not errors, f"paged serve errors: {errors!r}")
+    check(all(r is not None and len(r) == new for r in results),
+          "paged serve: a stream did not finish")
+    return results, outcomes, ttft
+
+
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def launches_of(fn):
+    """(fn's result, its host launches: the CUDA runtime calls that put a
+    kernel, a copy or a fill on the card, as torch.profiler records them
+    on the host, and the device operations CUPTI saw)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    host = device = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            device += 1
+        elif ev.name.startswith(_LAUNCH_CALLS):
+            host += 1
+    return out, {"launches": host, "device_ops": device}
+
+
+def _untraced(fn):
+    return fn(), None
+
+
+def replay_admissions(engine_mod, kvcache, params, cfg, prompts) -> dict:
+    """The paged admissions of `prompts` in order, on a pool of their own
+    (the engine's default size), each beside the same prompt prefilled
+    whole: the largest |logit| difference of the first token, cached
+    against uncached; the launches of each step of the first three
+    admissions (a miss, the copy-on-write, a hit), traced; and the host
+    time of the later admissions, cached and whole, untraced."""
+    probe = engine_mod._model_fns(cfg)[1](cfg, 1, max_len=1, device="cuda")
+    empty = torch.zeros((cfg.num_layers, 0) + probe[0]["k"].shape[2:],
+                        dtype=probe[0]["k"].dtype, device="cuda")
+    bs, blocks = kvcache.resolve_pool_config(cfg, slots=4)
+    kv = kvcache.PagedKVCache(cfg, block_size=bs, num_blocks=blocks,
+                              device="cuda")
+    slab = [torch.zeros((cfg.num_layers, 1, cfg.max_seq_len)
+                        + empty.shape[2:], dtype=empty.dtype, device="cuda")
+            for _ in range(2)]
+
+    def cached(toks, trace):
+        m = kv.lookup(toks, len(toks) - 1)
+        (pk, pv), gather = trace(lambda: kv.gather(m))
+        suffix = torch.from_numpy(toks[m.tokens:])[None].cuda()
+        (logits, ck, cv), prefill = trace(
+            lambda: engine_mod._prefill_paged(params, suffix, cfg, pk, pv))
+        table, commit = trace(lambda: kv.commit(toks, ck, cv, m))
+        _, splice = trace(lambda: engine_mod._splice_slot(
+            *slab, ck, cv, 0, len(toks)))
+        steps = {"gather": gather, "prefill": prefill, "commit": commit,
+                 "splice": splice}
+        return m, logits, table, steps
+
+    def whole(toks):
+        logits, ck, cv = engine_mod._prefill_paged(
+            params, torch.from_numpy(toks)[None].cuda(), cfg, empty, empty)
+        engine_mod._splice_slot(*slab, ck, cv, 0, len(toks))
+        return logits
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    v = cfg.vocab_size
+    gap, counts, tables, ms_cached, ms_whole = 0.0, {}, [], [], []
+    for i, p in enumerate(prompts):
+        toks = torch.tensor(p).numpy()
+        if i < 3:
+            m, logits, table, steps = cached(toks, launches_of)
+            counts[f"{m.outcome}_{i}"] = {"reused_tokens": m.tokens,
+                                          **steps}
+            full, whole_counts = launches_of(lambda: whole(toks))
+            counts[f"{m.outcome}_{i}"]["whole_prefill"] = whole_counts
+        else:
+            (m, logits, table, _), ms = host_ms(lambda: cached(toks,
+                                                               _untraced))
+            full, ms_full = host_ms(lambda: whole(toks))
+            ms_cached.append(ms)
+            ms_whole.append(ms_full)
+        tables.append(table)
+        gap = max(gap, max_err(logits[:, :v], full[:, :v]))
+    st = kv.stats()
+    for table in tables:
+        kv.release(table)
+    return {"first_token_logit_max_abs_diff": gap,
+            "replay_cow_copies": st["cow_copies"],
+            "launches_per_admission": counts,
+            "admission_ms_cached_median": statistics.median(ms_cached),
+            "admission_ms_whole_prefill_median": statistics.median(ms_whole),
+            "admission_ms_cached": ms_cached,
+            "admission_ms_whole_prefill": ms_whole}
+
+
+def phase_serve_paged(model: str, cfg, params, engine_mod, generate_mod,
+                      kvcache, tree, distinct) -> None:
+    """The paged prefix cache under shared-prefix traffic, fp32, max_batch
+    4, PAGED_NEW tokens a request: every stream equals batch-1
+    generate(); hits, reuse, a copy-on-write and no pin left; the median
+    time to first token with the cache and without it; the cached first
+    token's logits against an uncached prefill's, and the device
+    operations of an admission. Then, on the same engine, a weight swap
+    (a pre-swap prompt misses and follows the new weights) and a cancel
+    (the slot is admitted again); and an engine with an 8-block pool
+    serving `distinct` = (prompts, their generate() streams)."""
+    prompts = paged_prompts(cfg, 41)
+    want = [generate_mod.generate(params, cfg, [p],
+                                  max_new_tokens=PAGED_NEW)[0].tolist()
+            for p in prompts]
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4)
+    try:
+        results, outcomes, ttft = run_paged(eng, prompts, PAGED_NEW)
+        mismatched = [i for i, (r, w) in enumerate(zip(results, want))
+                      if r != w]
+        check(not mismatched, f"serve_paged {model}: streams {mismatched} "
+              f"differ from generate()")
+        st = eng.kv_stats()
+        check(st["hits"] + st["partial_hits"] >= len(prompts) - 1
+              and st["reused_tokens"] > 0 and st["cow_copies"] >= 1
+              and st["pinned_blocks"] == 0,
+              f"serve_paged {model}: cache counters {st}")
+        # a weight swap between requests: no stale prefix matches
+        scaled = tree.tree_map(lambda x: x * 1.25, params)
+        check(eng.update_params(scaled, version=2).wait(60.0),
+              "weight swap never applied")
+        swapped = eng.stream(prompts[2], PAGED_NEW, timeout_s=300.0)
+        swapped_toks = list(swapped)
+        check(swapped.cache_outcome == "miss"
+              and swapped_toks == generate_mod.generate(
+                  scaled, cfg, [prompts[2]],
+                  max_new_tokens=PAGED_NEW)[0].tolist(),
+              f"serve_paged {model}: after the swap {swapped.cache_outcome}"
+              f", stream differs from generate() under the new weights")
+        del scaled
+        # a cancel: the slot frees at a tick boundary and admits again
+        long = eng.stream(prompts[3], 4 * PAGED_NEW, timeout_s=300.0)
+        it = iter(long)
+        next(it)
+        check(eng.cancel_slot(long, reason="deadline"), "cancel refused")
+        rest = list(it)
+        deadline = time.monotonic() + 60
+        while eng.free_slots < 4:
+            check(time.monotonic() < deadline, "cancelled slot never freed")
+            time.sleep(0.001)
+        again = eng.generate(prompts[4], 4, timeout_s=300.0)
+        after = eng.kv_stats()
+        check(eng.cancelled == 1 and len(rest) < 4 * PAGED_NEW - 1
+              and len(again) == 4 and after["pinned_blocks"] == 0
+              and after["invalidations"] == 1,
+              f"serve_paged {model}: cancel {after}")
+    finally:
+        eng.stop()
+    # the same requests without the cache
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4,
+                                              prefix_cache=False)
+    try:
+        plain_results, _, plain_ttft = run_paged(eng, prompts, PAGED_NEW)
+        plain_st = eng.kv_stats()
+    finally:
+        eng.stop()
+    check(plain_results == want,
+          f"serve_paged {model}: uncached streams differ from generate()")
+    replay = replay_admissions(engine_mod, kvcache, params, cfg, prompts)
+    # an exhausted pool: distinct prompts, 8 blocks
+    d_prompts, d_want = distinct
+    d_results, _, _, _ = run_engine(engine_mod, params, cfg, d_prompts,
+                                    kv_pool_blocks=8)
+    check(d_results == d_want,
+          f"serve_paged {model}: an 8-block pool changed a stream")
+    emit({"phase": "serve_paged", "model": model, "dtype": "float32",
+          "max_batch": 4, "requests": len(prompts),
+          "system_tokens": PAGED_SYSTEM, "tails": PAGED_TAILS,
+          "new_tokens": PAGED_NEW, "streams_equal_generate": len(prompts),
+          "outcomes": outcomes,
+          "ttft_median_ms": statistics.median(ttft) * 1e3,
+          "ttft_ms": [x * 1e3 for x in ttft],
+          "ttft_median_ms_no_cache": statistics.median(plain_ttft) * 1e3,
+          "ttft_ms_no_cache": [x * 1e3 for x in plain_ttft],
+          "prefilled_tokens": st["prefilled_tokens"],
+          "reused_tokens": st["reused_tokens"],
+          "prefilled_tokens_no_cache": plain_st["prefilled_tokens"],
+          "kv_stats": {k: st[k] for k in (
+              "lookups", "hits", "partial_hits", "misses", "cow_copies",
+              "inserted_blocks", "evictions", "num_blocks", "pool_bytes",
+              "pinned_blocks", "spliced_tokens", "prefill_calls")},
+          **replay,
+          "swap_outcome": swapped.cache_outcome,
+          "cancelled": 1, "cancelled_stream_tokens": 1 + len(rest),
+          "exhausted_pool": {"kv_pool_blocks": 8,
+                             "requests": len(d_prompts),
+                             "streams_equal_generate": len(d_prompts)}})
+
+
+def phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
+                           kvcache) -> None:
+    """GPT-2 small in bf16 with the int8 pool (`kv_int8=True`) under the
+    shared-prefix traffic: its first stream (a miss: no gather) equals an
+    fp-pool engine's; the hits reuse dequantized blocks; a hit's
+    dequantized prefix lies within 0.05 of the exact rows and its
+    first-token logits within 0.05 relative (the JAX package's contract,
+    tests/test_speculate.py); the pool reports capacity factor 2."""
+    prompts = paged_prompts(cfg, 43)
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4)
+    try:
+        fp_first = eng.generate(prompts[0], PAGED_NEW, timeout_s=300.0)
+    finally:
+        eng.stop()
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4,
+                                              kv_int8=True)
+    try:
+        results, outcomes, ttft = run_paged(eng, prompts, PAGED_NEW)
+        st = eng.kv_stats()
+    finally:
+        eng.stop()
+    check(results[0] == fp_first,
+          "serve_paged_int8: the miss stream differs from the fp pool's")
+    check(st["hits"] + st["partial_hits"] >= len(prompts) - 1
+          and st["capacity_factor"] == 2 and st["int8"]
+          and st["pinned_blocks"] == 0,
+          f"serve_paged_int8: cache counters {st}")
+    # the tolerance contract on one hit: the system prompt committed,
+    # then request 2 gathered back out of the int8 pool
+    probe = engine_mod._model_fns(cfg)[1](cfg, 1, max_len=1, device="cuda")
+    empty = torch.zeros((cfg.num_layers, 0) + probe[0]["k"].shape[2:],
+                        dtype=probe[0]["k"].dtype, device="cuda")
+    kv = kvcache.PagedKVCache(cfg, block_size=16, num_blocks=64, int8=True,
+                              device="cuda")
+    full = torch.tensor(prompts[2])[None].cuda()
+    ref_logits, ck, cv = engine_mod._prefill_paged(params, full, cfg, empty,
+                                                   empty)
+    system = full[0, :PAGED_SYSTEM].cpu().numpy()
+    kv.commit(system, ck, cv, kv.lookup(system, PAGED_SYSTEM - 1))
+    m = kv.lookup(full[0].cpu().numpy(), full.shape[1] - 1)
+    gk, gv = kv.gather(m)
+    ref_k = ck[:, :m.tokens].float()
+    kv_err = float((gk.float() - ref_k).abs().max() / ref_k.abs().max())
+    got, _, _ = engine_mod._prefill_paged(params, full[:, m.tokens:], cfg,
+                                          gk, gv)
+    live = slice(0, cfg.vocab_size)
+    ref = ref_logits[0, live].float()
+    logit_err = float((got[0, live].float() - ref).abs().max()
+                      / ref.abs().max())
+    check(m.tokens == PAGED_SYSTEM and kv_err < 0.05 and logit_err < 0.05,
+          f"serve_paged_int8: {m.tokens} tokens matched, prefix err "
+          f"{kv_err}, logits err {logit_err}")
+    emit({"phase": "serve_paged_int8", "model": "gpt2-small",
+          "dtype": "bfloat16", "max_batch": 4, "requests": len(prompts),
+          "miss_stream_equals_fp_pool": True, "outcomes": outcomes,
+          "ttft_median_ms": statistics.median(ttft) * 1e3,
+          "prefix_max_rel_err": kv_err, "first_logits_max_rel_err": logit_err,
+          "tol": 0.05, "capacity_factor": st["capacity_factor"],
+          "num_blocks": st["num_blocks"], "pool_bytes": st["pool_bytes"],
+          "hits": st["hits"], "partial_hits": st["partial_hits"],
+          "reused_tokens": st["reused_tokens"],
+          "cow_copies": st["cow_copies"]})
+
+
+def check_no_kernel(kernels, path: str) -> dict:
+    """Fails if `path` launched a kernel or an attention call took the
+    plain route since reset_counts(): the cached prefill and decode attend
+    in plain PyTorch, as the JAX package's do with einsums."""
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()), f"{path} launched {launches}")
+    check_no_plain_route(path)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1546,7 +2093,7 @@ def main() -> int:
     from ray_tpu_torch import kernels, tree
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.models import generate as generate_mod
-    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.models import gpt2, kvcache, llama
     from ray_tpu_torch.ops import attention, fused_ce
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1559,6 +2106,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         phase_build(kernels)
+        phase_kv_ops(kvcache)
         rows = [phase_flash(kernels, attention, gen),
                 phase_ce(kernels, fused_ce, gen)]
         # the GPT-2 scoring and serving path: every count from 0, read
@@ -1567,9 +2115,10 @@ def main() -> int:
         params, cpu_params, cfg, tok_d, tgt_d = phase_score(kernels, gpt2,
                                                             tree)
         scfg = gpt2.GPT2Config(dtype=torch.float32)
-        phase_serve_fp32("gpt2-small", scfg, gpt2.gpt2_init(
-            scfg, torch.Generator().manual_seed(2), device="cuda"),
-            engine_mod, generate_mod)
+        sparams = gpt2.gpt2_init(scfg, torch.Generator().manual_seed(2),
+                                 device="cuda")
+        distinct = phase_serve_fp32("gpt2-small", scfg, sparams, engine_mod,
+                                    generate_mod)
         phase_serve_bf16("gpt2-small", gpt2.gpt2_forward, engine_mod,
                          generate_mod, params, cpu_params, cfg)
         launches = dict(kernels.LAUNCHES)
@@ -1579,15 +2128,24 @@ def main() -> int:
         check_no_plain_route("the GPT-2 scoring and serving path")
         phase_score_timing("gpt2-small", gpt2.gpt2_forward, gpt2.gpt2_loss,
                            params, cfg, tok_d, tgt_d)
-        del params, cpu_params
+        # the GPT-2 paged serving path, counted from 0: plain PyTorch on
+        # the card, as the JAX package's cached path has no kernel
+        reset_counts(kernels)
+        phase_serve_paged("gpt2-small", scfg, sparams, engine_mod,
+                          generate_mod, kvcache, tree, distinct)
+        phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
+                               kvcache)
+        check_no_kernel(kernels, "the GPT-2 paged serving path")
+        del params, cpu_params, sparams
         # the Llama scoring and serving path, counted from 0 the same way
         reset_counts(kernels)
         params, cpu_params, cfg, tok_d, tgt_d = phase_llama_score(
             kernels, llama, tree)
         lcfg = llama.LlamaConfig(dtype=torch.float32)
-        phase_serve_fp32("llama-small", lcfg, llama.llama_init(
-            lcfg, torch.Generator().manual_seed(12), device="cuda"),
-            engine_mod, generate_mod)
+        lparams = llama.llama_init(lcfg, torch.Generator().manual_seed(12),
+                                   device="cuda")
+        distinct = phase_serve_fp32("llama-small", lcfg, lparams,
+                                    engine_mod, generate_mod)
         phase_serve_bf16("llama-small", llama.llama_forward, engine_mod,
                          generate_mod, params, cpu_params, cfg)
         launches = dict(kernels.LAUNCHES)
@@ -1597,9 +2155,15 @@ def main() -> int:
         phase_score_timing("llama-small", llama.llama_forward,
                            llama.llama_loss, params, cfg, tok_d, tgt_d)
         del params, cpu_params
+        reset_counts(kernels)
+        phase_serve_paged("llama-small", lcfg, lparams, engine_mod,
+                          generate_mod, kvcache, tree, distinct)
+        check_no_kernel(kernels, "the Llama paged serving path")
+        del lparams
     # training needs autograd, so it runs outside inference mode and on
     # parameters of its own
     rows += phase_flash_bwd(kernels, attention, gen)
+    phase_dq_seeds(kernels, attention)
     rows += phase_ce_bwd(kernels, fused_ce, gen)
     fused_row = phase_flash_bwd_fused(kernels, attention, gen)
     phase_train_check(gpt2, tree)

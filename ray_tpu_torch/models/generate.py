@@ -3,11 +3,12 @@ ray_tpu/models/generate.py: the GPT-2 and Llama families).
 
 Prefill is one forward over the prompt into a fresh max_seq_len cache;
 decoding is a Python loop of one-token forwards (JAX's `lax.scan`), the
-cache updated in place where JAX donates it.
+cache updated in place where JAX donates it. `stream_generate` yields
+each step's tokens as they land, for a caller that streams them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -78,3 +79,40 @@ def generate(params: Any, config: Any, prompt: Any, *,
         done_before[:, 1:] = hit[:, :-1]
         out = out.masked_fill(done_before, eos_token)
     return out
+
+
+@torch.inference_mode()
+def stream_generate(params: Any, config: Any, prompt: Any, *,
+                    max_new_tokens: int, temperature: float = 0.0,
+                    top_k: int = 0,
+                    generator: Optional[torch.Generator] = None,
+                    eos_token: Optional[int] = None
+                    ) -> Iterator[torch.Tensor]:
+    """Yield one [B] int64 token batch per decode step, on the parameters'
+    device: the tokens `generate()` returns, column by column, from the
+    same `generator`. With eos_token, a sequence that has emitted EOS
+    yields EOS from then on, and the stream ends once every sequence
+    has."""
+    device = tree_device(params)
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    b, t0 = prompt.shape
+    if t0 + max_new_tokens > config.max_seq_len:
+        raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+    fwd, init_cache, _ = _model_fns(config)
+    cache = init_cache(config, b, device=device)
+    logits, cache = fwd(params, prompt, config, cache, 0)
+    tok = _sample(logits[:, -1], config.vocab_size, temperature, top_k,
+                  generator)
+    done = torch.zeros(b, dtype=torch.bool, device=device)
+    for pos in range(t0, t0 + max_new_tokens):
+        out = tok
+        if eos_token is not None:
+            out = tok.masked_fill(done, eos_token)
+            done = done | (tok == eos_token)
+        yield out
+        if pos + 1 == t0 + max_new_tokens or (
+                eos_token is not None and bool(done.all())):
+            return
+        logits, cache = fwd(params, tok[:, None], config, cache, pos)
+        tok = _sample(logits[:, -1], config.vocab_size, temperature, top_k,
+                      generator)

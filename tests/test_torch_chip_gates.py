@@ -271,3 +271,63 @@ def test_ptxas_warnings_are_parsed_per_kernel():
     lines = chip_smoke.ptxas_lines(_PTXAS_LOG)
     assert "flash_fwd_kernel<64>: ptxas info    : Used 106 registers, " \
         "used 1 barriers" in lines
+
+
+def test_ptxas_gate_refuses_a_warning_of_any_kernel():
+    """The build phase's gate covers every kernel, not only ce_fwd: a
+    captured serialization note of flash_fwd, or a spill of the dK/dV
+    loop, fails the build; register lines alone pass."""
+    with pytest.raises(AssertionError, match=r"flash_fwd_kernel<128>: .*C7520"):
+        chip_smoke.gate_ptxas({"flash_fwd": _PTXAS_LOG})
+    spill = _PTXAS_LOG.replace("(C7520)", "(C0000)").replace(
+        "Potential Performance Loss", "info").replace(
+        "0 bytes spill stores", "16 bytes spill stores").replace(
+        "flash_fwd_kernelILi64EE", "flash_bwd_kv_kernelILi64ELb1EE")
+    clean = "\n".join(ln for ln in spill.splitlines()
+                      if "C0000" not in ln and "WG.AR" not in ln)
+    with pytest.raises(AssertionError, match=r"flash_bwd_kv_kernel<64, "
+                       r"fused>: .*16 bytes spill"):
+        chip_smoke.gate_ptxas({"flash_bwd": clean})
+    ok = clean.replace("16 bytes spill", "0 bytes spill")
+    ptxas, warnings = chip_smoke.gate_ptxas({"flash_bwd": ok})
+    assert warnings == {} and len(ptxas) == 2
+
+
+def test_dq_sweep_reference_and_emulation():
+    """`dq_reference_and_emulation`, which the dq_seeds phase holds
+    flash_bwd_dq against: its reference is the plain backward's dQ bit for
+    bit, its emulation the kernel rounding `_grads` emulates, and its
+    float64-summed emulation in the kernel's exp2 form lies far closer to
+    the emulation than either to the reference. `hold_dq_rounding` passes
+    either emulation and refuses a 5 % scale or a dropped tile; the
+    allowance `allowance_used` reports exceeds 1 exactly where hold_grads'
+    allclose fails."""
+    ref, kern, _ = _grads(t=256, parts=True)
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(1, 2, 256, 64, generator=gen).to(bf)
+                   .transpose(1, 2) for _ in range(4))
+    scale = 64 ** -0.5
+    o, lse = attention._flash_fwd(q, k, v, True, scale)
+    o = o.to(bf)
+    got_ref, emu, exact = chip_smoke.dq_reference_and_emulation(
+        attention, q, k, v, o, lse, do, scale)
+    plain = attention._flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    assert torch.equal(got_ref, plain[0])
+    torch.testing.assert_close(emu.transpose(1, 2).float(), kern[0].float(),
+                               atol=2 ** -6, rtol=2 ** -7)
+    floor = chip_smoke.norm_err(emu, exact)
+    assert floor < chip_smoke.norm_err(emu, got_ref) / 10
+    for dq in (emu, exact):
+        chip_smoke.hold_dq_rounding("emulation", dq, emu, exact)
+    faults = {"scale": exact.float() * 1.05, "tile": exact.clone()}
+    faults["tile"][:, 128:192] = 0
+    for name, dq in faults.items():
+        with pytest.raises(AssertionError, match="emulation of its round"):
+            chip_smoke.hold_dq_rounding(name, dq, emu, exact)
+    assert chip_smoke.allowance_used(emu, got_ref) < 1
+    chip_smoke.hold_grads("emulated dq", (emu, plain[1], plain[2]), plain)
+    wrong = emu.float() * 1.05
+    assert chip_smoke.allowance_used(wrong, got_ref) > 1
+    with pytest.raises(AssertionError, match="dq"):
+        chip_smoke.hold_grads("5 % dq", (wrong, plain[1], plain[2]), plain)

@@ -136,7 +136,7 @@ def test_loop_failure_reaches_every_caller(params, monkeypatch):
         raise ValueError("prefill exploded")
 
     _, tp = params
-    monkeypatch.setattr(engine_mod, "_prefill", boom)
+    monkeypatch.setattr(engine_mod, "_prefill_paged", boom)
     monkeypatch.setattr("threading.excepthook", lambda args: None)
     eng = ContinuousBatchingEngine(tp, TCFG, max_batch=1)
     try:

@@ -27,7 +27,13 @@ must leave at 0). The paged KV prefix cache: its device ops against the
 CPU's (`kv_ops`), and serving with it (`serve_paged`, both models in
 fp32: 8 requests sharing a 256-token system prompt, with and without
 the cache, a weight swap, a cancel, an 8-block pool; `serve_paged_int8`:
-GPT-2 small bf16 on the int8 pool). `dq_seeds` holds flash_bwd_dq over
+GPT-2 small bf16 on the int8 pool). Speculative decoding, multi-tenant
+LoRA and adoption, with no kernel launched (`serve_spec`, both models
+in fp32: the paged traffic twice with `speculate_k=4`, scripted drafts,
+a request filling the window; `serve_lora`, both models: two tenants
+and base in one batch, speculated too, a hot swap; `serve_adopt`, GPT-2
+small: prefilled KV adopted with no prefill): every stream equals
+generate(). `dq_seeds` holds flash_bwd_dq over
 16 seeds and shapes against emulations of its bf16 rounding. Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
@@ -44,6 +50,7 @@ data-sheet peaks (989 TFLOP/s dense bf16, 3.35 TB/s HBM3).
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import json
 import math
@@ -55,6 +62,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12
@@ -1834,6 +1842,16 @@ def _untraced(fn):
     return fn(), None
 
 
+def host_ms(fn):
+    """(fn's result, the host milliseconds it took, the card's work
+    included: a synchronise on each side)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def replay_admissions(engine_mod, kvcache, params, cfg, prompts) -> dict:
     """The paged admissions of `prompts` in order, on a pool of their own
     (the engine's default size), each beside the same prompt prefilled
@@ -1870,13 +1888,6 @@ def replay_admissions(engine_mod, kvcache, params, cfg, prompts) -> dict:
         engine_mod._splice_slot(*slab, ck, cv, 0, len(toks))
         return logits
 
-    def host_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     v = cfg.vocab_size
     gap, counts, tables, ms_cached, ms_whole = 0.0, {}, [], [], []
     for i, p in enumerate(prompts):
@@ -1908,7 +1919,7 @@ def replay_admissions(engine_mod, kvcache, params, cfg, prompts) -> dict:
 
 
 def phase_serve_paged(model: str, cfg, params, engine_mod, generate_mod,
-                      kvcache, tree, distinct) -> None:
+                      kvcache, tree, distinct):
     """The paged prefix cache under shared-prefix traffic, fp32, max_batch
     4, PAGED_NEW tokens a request: every stream equals batch-1
     generate(); hits, reuse, a copy-on-write and no pin left; the median
@@ -1917,7 +1928,8 @@ def phase_serve_paged(model: str, cfg, params, engine_mod, generate_mod,
     operations of an admission. Then, on the same engine, a weight swap
     (a pre-swap prompt misses and follows the new weights) and a cancel
     (the slot is admitted again); and an engine with an 8-block pool
-    serving `distinct` = (prompts, their generate() streams)."""
+    serving `distinct` = (prompts, their generate() streams). Returns the
+    paged prompts and their generate() streams."""
     prompts = paged_prompts(cfg, 41)
     want = [generate_mod.generate(params, cfg, [p],
                                   max_new_tokens=PAGED_NEW)[0].tolist()
@@ -2004,6 +2016,7 @@ def phase_serve_paged(model: str, cfg, params, engine_mod, generate_mod,
           "exhausted_pool": {"kv_pool_blocks": 8,
                              "requests": len(d_prompts),
                              "streams_equal_generate": len(d_prompts)}})
+    return prompts, want
 
 
 def phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
@@ -2070,6 +2083,433 @@ def phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
           "cow_copies": st["cow_copies"]})
 
 
+# speculative decoding: drafts per slot; the boundary request fills the
+# window (prompt + new tokens = max_seq_len)
+SPEC_K = 4
+SPEC_BOUNDARY = {"gpt2-small": (1000, 24), "llama-small": (2000, 48)}
+SPEC_REPEATS = 3
+_SPEC_KEYS = ("spec_proposed", "spec_accepted", "spec_verify_ticks",
+              "spec_emitted_tokens")
+
+
+def spec_counts(eng, before=None) -> dict:
+    """The engine's speculation counters since `before` (a dict this
+    function returned), with their acceptance rate and tokens per verify
+    step."""
+    st = eng.speculation_stats()
+    d = {k: st[k] - (before or {}).get(k, 0) for k in _SPEC_KEYS}
+    d["acceptance_rate"] = (d["spec_accepted"] / d["spec_proposed"]
+                            if d["spec_proposed"] else 0.0)
+    d["tokens_per_verify"] = (d["spec_emitted_tokens"]
+                              / d["spec_verify_ticks"]
+                              if d["spec_verify_ticks"] else 0.0)
+    return d
+
+
+def scripted_source(chain, corrupt_at=None):
+    """Drafts replaying the true greedy `chain` (full acceptance), one
+    position corrupted (partial), as tests/test_speculate.py scripts."""
+    def src(ctx, k):
+        if chain[:len(ctx)] != ctx:
+            return []
+        out = list(chain[len(ctx):len(ctx) + k])
+        if corrupt_at is not None and len(out) > corrupt_at:
+            out[corrupt_at] = (out[corrupt_at] + 1) % 50
+        return out
+    return src
+
+
+def stream_gap(engine_mod, params, cfg, prompt, got, want) -> dict:
+    """Where a speculated stream first leaves generate()'s: the stream
+    index, the top-2 margin of the plain step's logits for it, and the
+    largest |difference| between the logits a verify step (the position
+    in its last column) and a plain one-token step give there."""
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = list(prompt) + list(want)
+    pos = len(prompt) + i - 1   # the position whose logits pick token i
+    probe = engine_mod._model_fns(cfg)[1](cfg, 1, max_len=1, device="cuda")
+    empty = torch.zeros((cfg.num_layers, 0) + probe[0]["k"].shape[2:],
+                        dtype=probe[0]["k"].dtype, device="cuda")
+    decode = engine_mod._model_fns(cfg)[2]
+
+    def logits_at(base: int):
+        _, ck, cv = engine_mod._prefill_paged(
+            params, torch.tensor([seq[:base]], device="cuda"), cfg, empty,
+            empty)
+        cache = [{"k": k[None], "v": v[None]} for k, v in zip(ck, cv)]
+        toks = torch.tensor([seq[base:pos + 1]], device="cuda")
+        out, _ = decode(params, toks, cfg, cache,
+                        torch.tensor([base], device="cuda"))
+        return out[0, -1, :cfg.vocab_size].float()
+
+    out = {"first_diff_index": i, "got": got[i], "want": want[i]}
+    if i == 0:
+        return out  # the prefill's token: no step of the loop chose it
+    plain = logits_at(pos)
+    verify = logits_at(max(len(prompt), pos - SPEC_K))
+    top = plain.topk(2).values
+    out.update(top2_margin=float(top[0] - top[1]),
+               verify_vs_plain_max_abs=max_err(verify, plain))
+    return out
+
+
+def check_streams(phase: str, engine_mod, params, cfg, jobs, got,
+                  want) -> None:
+    """Fails when a stream differs from its reference, after printing
+    where the first one left it (`stream_gap`)."""
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        i = bad[0]
+        emit({"phase": f"{phase}_stream_differs", "streams": bad,
+              **stream_gap(engine_mod, params, cfg, jobs[i], got[i],
+                           want[i])})
+    check(not bad, f"{phase}: streams {bad} differ from generate()")
+
+
+def step_cost(fn) -> dict:
+    """One decode step's host launches and its host time (median of 10,
+    the results copied to the host as the engine does)."""
+    fn()
+    _, counts = launches_of(fn)
+    ms = [host_ms(fn)[1] for _ in range(10)]
+    return {**counts, "host_ms_median": statistics.median(ms)}
+
+
+def tick_costs(engine_mod, params, cfg) -> dict:
+    """A plain step (tokens [4]) and a verify step (tokens [4, k+1]) of
+    four slots, each its host launches and time."""
+    cache = engine_mod._model_fns(cfg)[1](cfg, 4, device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    pos = torch.tensor([300, 301, 302, 303], device="cuda")
+    out = {}
+    for name, shape in (("plain_tick", (4,)),
+                        ("verify_tick", (4, SPEC_K + 1))):
+        tok = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
+
+        def step():
+            nxt, lp = engine_mod._tick(params, cfg, cache, tok, pos)
+            return nxt.cpu(), lp.cpu()
+
+        out[name] = step_cost(step)
+    return out
+
+
+def phase_serve_spec(model: str, cfg, params, engine_mod, generate_mod,
+                     paged) -> None:
+    """Speculative decoding (`speculate_k` 4), fp32, max_batch 4, on the
+    serve_paged traffic (`paged` = its prompts and generate() streams):
+    round A the 8 requests on an empty engine, round B the same again,
+    drafted from the output memory; SPEC_REPEATS times each, a swap to the
+    same weights emptying the cache and the memory before each repeat,
+    beside a speculate_k=0 engine doing the same. Every stream equals
+    generate()'s. Then scripted drafts (full, partial and zero
+    acceptance), and a request filling the window (SPEC_BOUNDARY) beside
+    two longer ones, every step a verify step: its own padded columns and
+    then its idle slot at max_seq_len - 1 run past the window."""
+    prompts, want = paged
+    Engine = engine_mod.ContinuousBatchingEngine
+    spec = Engine(params, cfg, max_batch=4, speculate_k=SPEC_K)
+    plain = Engine(params, cfg, max_batch=4)
+    rates = {r: {"speculate": [], "plain": []} for r in "AB"}
+    counts = {r: [] for r in "AB"}
+    try:
+        for rep in range(SPEC_REPEATS):
+            for eng in (spec, plain):
+                check(eng.update_params(params, version=rep).wait(60.0),
+                      "serve_spec: a weight swap never applied")
+            for rnd in "AB":
+                for name, eng in (("speculate", spec), ("plain", plain)):
+                    before = spec_counts(spec)
+                    t0 = time.perf_counter()
+                    got, _, _ = run_paged(eng, prompts, PAGED_NEW)
+                    wall = time.perf_counter() - t0
+                    check_streams(f"serve_spec {model} round {rnd} {name}",
+                                  engine_mod, params, cfg, prompts, got,
+                                  want)
+                    rates[rnd][name].append(len(prompts) * PAGED_NEW / wall)
+                    if name == "speculate":
+                        counts[rnd].append(spec_counts(spec, before))
+        pinned = spec.kv_stats()["pinned_blocks"]
+    finally:
+        spec.stop()
+        plain.stop()
+    check(pinned == 0, f"serve_spec {model}: {pinned} blocks left pinned")
+    check(all(c["spec_accepted"] > 0 for c in counts["B"]),
+          f"serve_spec {model}: round B accepted no draft {counts['B']}")
+    # the acceptance spectrum on request 0
+    chain = prompts[0] + want[0]
+    scripted = {}
+    for mode, src in (("full", scripted_source(chain)),
+                      ("partial", scripted_source(chain, corrupt_at=2)),
+                      ("zero", lambda ctx, k: [0] * k)):
+        eng = Engine(params, cfg, max_batch=4, speculate_k=SPEC_K,
+                     draft_source=src)
+        try:
+            got = eng.generate(prompts[0], PAGED_NEW, timeout_s=300.0)
+            scripted[mode] = spec_counts(eng)
+        finally:
+            eng.stop()
+        check_streams(f"serve_spec {model} {mode} drafts", engine_mod,
+                      params, cfg, prompts[:1], [got], want[:1])
+    rate = {m: c["acceptance_rate"] for m, c in scripted.items()}
+    check(rate["full"] == 1.0 and 0.0 < rate["partial"] < 1.0
+          and rate["zero"] == 0.0,
+          f"serve_spec {model}: scripted acceptance {rate}")
+    # the end of the window
+    plen, new = SPEC_BOUNDARY[model]
+    check(plen + new == cfg.max_seq_len, "the boundary must fill the window")
+    gen = torch.Generator().manual_seed(47)
+    edge = torch.randint(0, cfg.vocab_size, (plen,), generator=gen).tolist()
+    jobs = [(edge, new), (prompts[1], new + 16), (prompts[2], new + 16)]
+    refs = [generate_mod.generate(params, cfg, [p], max_new_tokens=n)[0]
+            .tolist() for p, n in jobs]
+    eng = Engine(params, cfg, max_batch=4, speculate_k=SPEC_K,
+                 draft_source=lambda ctx, k: [0] * k)
+    try:
+        streams = []
+        for p, n in jobs:  # admitted in this order, one a tick
+            streams.append(eng.stream(p, n, timeout_s=300.0))
+            first = next(streams[-1])
+            streams[-1] = (first, streams[-1])
+        got = [[first] + list(s) for first, s in streams]
+        edge_pos = int(eng._pos.max())
+        boundary = spec_counts(eng)
+        alive = eng._thread.is_alive()
+    finally:
+        eng.stop()
+    check(alive, f"serve_spec {model}: the loop died at the window's end")
+    check_streams(f"serve_spec {model} boundary", engine_mod, params, cfg,
+                  [p for p, _ in jobs], got, refs)
+    check(edge_pos == cfg.max_seq_len - 1
+          and boundary["spec_verify_ticks"] >= new + 15,
+          f"serve_spec {model}: boundary slot at {edge_pos}, {boundary}")
+    emit({"phase": "serve_spec", "model": model, "dtype": "float32",
+          "speculate_k": SPEC_K, "max_batch": 4, "requests": len(prompts),
+          "new_tokens": PAGED_NEW, "repeats": SPEC_REPEATS,
+          "streams_equal_generate": True,
+          "rounds": {r: {
+              "spec": counts[r],
+              "acceptance_rate": [c["acceptance_rate"] for c in counts[r]],
+              "tokens_per_verify": [c["tokens_per_verify"]
+                                    for c in counts[r]],
+              "spec_verify_ticks": [c["spec_verify_ticks"]
+                                    for c in counts[r]],
+              "decode_tokens_per_s_speculate": statistics.median(
+                  rates[r]["speculate"]),
+              "decode_tokens_per_s_plain": statistics.median(
+                  rates[r]["plain"]),
+              "decode_tokens_per_s_all": rates[r]} for r in "AB"},
+          "scripted": scripted,
+          "boundary": {"prompt_tokens": plen, "new_tokens": new,
+                       "idle_slot_position": edge_pos, **boundary},
+          **tick_costs(engine_mod, params, cfg)})
+
+
+LORA_RANK = 8
+# 2 x the JAX package's default adapter: a delta near 0.7 of a weight's
+# own spread, so every tenant's stream leaves base's (at scale 1 and rank
+# 3-4 the tiny models' streams often do not move)
+LORA_SCALE = 2.0
+# a tenant slot's logits against the plain decode on merged weights:
+# the same function summed in another order, in fp32
+LORA_LOGITS_TOL = 1e-3
+
+
+def run_jobs(eng, jobs, new: int) -> list:
+    """(prompt, adapter) jobs submitted together from threads of their
+    own; each stream's tokens."""
+    with cf.ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [pool.submit(eng.generate, p, new, timeout_s=300.0,
+                            adapter_id=t) for p, t in jobs]
+        return [f.result(timeout=600) for f in futs]
+
+
+def phase_serve_lora(model: str, cfg, params, engine_mod, lora_mod,
+                     generate_mod, serve) -> None:
+    """Multi-tenant LoRA, fp32, max_batch 4, an AdapterPool with its
+    defaults (8 rows, rank 8) and two tenants (rank LORA_RANK, scale
+    LORA_SCALE): the `serve` prompts 0 and 1 (`serve` = the prompts and
+    their generate() streams), each as tenant 0, tenant 1 and base, all
+    six at once. Mixed streams equal the sequential ones, base equals
+    generate(), each tenant's stream differs from base and from the
+    other's; speculated (k 4) mixed batches, twice, equal them; a tenant
+    slot's logits lie within LORA_LOGITS_TOL of the plain decode on
+    `merge_lora_params` weights and a base slot's equal the decode
+    without adapters; a hot swap of tenant 0 mid-decode leaves the others'
+    streams as they were."""
+    prompts, want = serve
+    adapters = {f"t{i}": lora_mod.make_lora_adapter(
+        cfg, LORA_RANK, seed=40 + i, scale=LORA_SCALE) for i in range(2)}
+    jobs = [(p, t) for p in prompts[:2] for t in ("t0", "t1", None)]
+    Engine = engine_mod.ContinuousBatchingEngine
+
+    def pool():
+        return lora_mod.AdapterPool(cfg, source=lora_mod.LocalAdapterSource(
+            dict(adapters)), device="cuda")
+
+    eng = Engine(params, cfg, max_batch=4, lora_pool=pool())
+    try:
+        mixed = run_jobs(eng, jobs, SERVE_NEW)
+        seq = [eng.generate(p, SERVE_NEW, timeout_s=300.0, adapter_id=t)
+               for p, t in jobs]
+        # a hot swap of t0 while t1 and base decode
+        live = [eng.stream(p, SERVE_NEW, timeout_s=300.0, adapter_id=t)
+                for p, t in jobs[1:3]]
+        firsts = [next(s) for s in live]
+        eng.lora_pool.source.publish("t0", lora_mod.make_lora_adapter(
+            cfg, LORA_RANK, seed=77, scale=LORA_SCALE))
+        swapped = eng.lora_pool.refresh("t0")
+        during = [[f] + list(s) for f, s in zip(firsts, live)]
+        version = eng.lora_pool.resident_version("t0")
+        pool_stats = eng.lora_pool.stats()
+    finally:
+        eng.stop()
+    check(mixed == seq, f"serve_lora {model}: mixed streams differ from "
+          f"the sequential ones")
+    check_streams(f"serve_lora {model} base", engine_mod, params, cfg,
+                  prompts[:2], [mixed[2], mixed[5]], want[:2])
+    for i in (0, 3):
+        check(len({tuple(x) for x in mixed[i:i + 3]}) == 3,
+              f"serve_lora {model}: a tenant's stream equals base's or the "
+              f"other tenant's (prompt {i // 3})")
+    check(swapped and version == 2 and during == mixed[1:3],
+          f"serve_lora {model}: the hot swap of t0 changed another stream")
+    check(pool_stats["pinned"] == 0, f"serve_lora {model}: pins left")
+    spec = Engine(params, cfg, max_batch=4, lora_pool=pool(),
+                  speculate_k=SPEC_K)
+    try:
+        spec_runs = [run_jobs(spec, jobs, SERVE_NEW) for _ in range(2)]
+        spec_st = spec.speculation_stats()
+    finally:
+        spec.stop()
+    check(all(r == mixed for r in spec_runs),
+          f"serve_lora {model}: speculated mixed streams differ")
+    # the LoRA step against merged weights, and its cost
+    p = pool()
+    rows = np.asarray([p.acquire("t0"), p.acquire("t1"), 0, 0])
+    decode = engine_mod._model_fns(cfg)[2]
+    gen = torch.Generator().manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (4, SPEC_K + 1),
+                        generator=gen).cuda()
+    pos = torch.tensor([10, 20, 30, 40], device="cuda")
+
+    def fresh():
+        return engine_mod._model_fns(cfg)[1](cfg, 4, device="cuda")
+
+    got, _ = p.dispatch_tick(
+        lambda la: decode(params, tok, cfg, fresh(), pos, la), rows)
+    base, _ = decode(params, tok, cfg, fresh(), pos)
+    errs = []
+    for slot in (0, 1):
+        merged = generate_mod.merge_lora_params(
+            params, cfg, p.adapter_slice(int(rows[slot])))
+        ref, _ = decode(merged, tok, cfg, fresh(), pos)
+        errs.append(max_err(got[slot, :, :cfg.vocab_size],
+                            ref[slot, :, :cfg.vocab_size]))
+    check(max(errs) <= LORA_LOGITS_TOL,
+          f"serve_lora {model}: tenant logits {errs} off the merged decode")
+    check(torch.equal(got[2:], base[2:]),
+          f"serve_lora {model}: a base slot's logits moved under LoRA")
+    cache = fresh()
+    costs = {
+        "lora_tick": step_cost(lambda: [x.cpu() for x in p.dispatch_tick(
+            lambda la: engine_mod._tick(params, cfg, cache, tok[:, 0], pos,
+                                        la), rows)]),
+        "base_tick": step_cost(lambda: [x.cpu() for x in engine_mod._tick(
+            params, cfg, cache, tok[:, 0], pos)])}
+    emit({"phase": "serve_lora", "model": model, "dtype": "float32",
+          "max_batch": 4, "pool_slots": p.slots, "rank_max": p.rank_max,
+          "tenants": 2, "rank": LORA_RANK, "scale": LORA_SCALE,
+          "requests": len(jobs), "new_tokens": SERVE_NEW,
+          "mixed_equal_sequential": True, "base_equal_generate": 2,
+          "tenants_differ": True, "hot_swap_left_others_unchanged": True,
+          "speculated_mixed_equal": len(spec_runs),
+          "speculated": {k: spec_st[k] for k in (
+              "spec_proposed", "spec_accepted", "spec_verify_ticks",
+              "acceptance_rate", "tokens_per_verify")},
+          "tenant_logits_vs_merged_max_abs": errs,
+          "logits_tol": LORA_LOGITS_TOL, "pool": {k: pool_stats[k] for k in (
+              "acquires", "hits", "misses", "swaps", "page_in_bytes")},
+          **costs})
+
+
+def phase_serve_adopt(cfg, params, engine_mod, kvcache, paged) -> None:
+    """Adoption, GPT-2 small fp32: the serve_paged prompts 0-3 prefilled
+    by `_prefill_with_cache` on a cache of their own, their KV rows and
+    first tokens adopted by a `prefix_cache=False` engine. Streams equal
+    generate(); no prefill runs there; every prompt token is spliced; a
+    wrong dtype or row count raises on the caller's thread and the engine
+    then serves the next adoption. The host time of an adoption (the
+    splice) beside a prefill admission's (prefill and splice)."""
+    prompts, want = (x[:4] for x in paged)
+    probe = engine_mod._model_fns(cfg)[1](cfg, 1, max_len=1, device="cuda")
+    empty = torch.zeros((cfg.num_layers, 0) + probe[0]["k"].shape[2:],
+                        dtype=probe[0]["k"].dtype, device="cuda")
+    bs, blocks = kvcache.resolve_pool_config(cfg, slots=4)
+    kv = kvcache.PagedKVCache(cfg, block_size=bs, num_blocks=blocks,
+                              device="cuda")
+    fills = []
+    for p in prompts:
+        ck, cv, table, first, score, outcome, _, _ = \
+            engine_mod._prefill_with_cache(params, cfg, kv, np.asarray([p]),
+                                           empty)
+        kv.release(table)
+        fills.append((ck[:, :len(p)], cv[:, :len(p)], first, score,
+                      outcome))
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=4,
+                                              prefix_cache=False)
+    try:
+        streams = [eng.adopt_prefill(len(p), f, ck, cv, PAGED_NEW, score=s,
+                                     cache_outcome=o, timeout_s=300.0)
+                   for p, (ck, cv, f, s, o) in zip(prompts, fills)]
+        got = [list(s) for s in streams]
+        st = eng.kv_stats()
+        ck, cv, f, s, _ = fills[0]
+        refused = 0
+        for bad in ((ck.to(torch.bfloat16), cv.to(torch.bfloat16)),
+                    (ck[:, :-1], cv[:, :-1])):
+            try:
+                eng.adopt_prefill(len(prompts[0]), f, *bad, PAGED_NEW)
+            except ValueError:
+                refused += 1
+        again = list(eng.adopt_prefill(len(prompts[0]), f, ck, cv,
+                                       PAGED_NEW, timeout_s=300.0))
+    finally:
+        eng.stop()
+    check_streams("serve_adopt", engine_mod, params, cfg, prompts, got, want)
+    check(st["prefill_calls"] == 0 and st["adopted"] == len(prompts)
+          and st["spliced_tokens"] == sum(len(p) for p in prompts),
+          f"serve_adopt: counters {st}")
+    check(refused == 2 and again == want[0],
+          f"serve_adopt: {refused} of 2 bad layouts refused, the next "
+          f"adoption {'right' if again == want[0] else 'wrong'}")
+    slab = [torch.zeros((cfg.num_layers, 1, cfg.max_seq_len)
+                        + empty.shape[2:], dtype=empty.dtype, device="cuda")
+            for _ in range(2)]
+    adopt_ms, prefill_ms = [], []
+    for p, (ck, cv, _, _, _) in zip(prompts, fills):
+        adopt_ms.append(host_ms(lambda: engine_mod._splice_slot(
+            *slab, ck, cv, 0, len(p)))[1])
+
+        def admit():
+            out = engine_mod._prefill_with_cache(
+                params, cfg, None, np.asarray([p]), empty)
+            engine_mod._splice_slot(*slab, out[0], out[1], 0, len(p))
+
+        prefill_ms.append(host_ms(admit)[1])
+    emit({"phase": "serve_adopt", "model": "gpt2-small", "dtype": "float32",
+          "max_batch": 4, "adopted": st["adopted"],
+          "prefill_calls": st["prefill_calls"],
+          "spliced_tokens": st["spliced_tokens"],
+          "prompt_tokens": [len(p) for p in prompts],
+          "outcomes_at_prefill": [f[4] for f in fills],
+          "streams_equal_generate": len(prompts), "refused_layouts": refused,
+          "adoption_host_ms": adopt_ms,
+          "adoption_host_ms_median": statistics.median(adopt_ms),
+          "prefill_admission_host_ms": prefill_ms,
+          "prefill_admission_host_ms_median": statistics.median(prefill_ms)})
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -2095,6 +2535,7 @@ def main() -> int:
     from ray_tpu_torch.models import generate as generate_mod
     from ray_tpu_torch.models import gpt2, kvcache, llama
     from ray_tpu_torch.ops import attention, fused_ce
+    from ray_tpu_torch.serve import lora as lora_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2131,11 +2572,20 @@ def main() -> int:
         # the GPT-2 paged serving path, counted from 0: plain PyTorch on
         # the card, as the JAX package's cached path has no kernel
         reset_counts(kernels)
-        phase_serve_paged("gpt2-small", scfg, sparams, engine_mod,
-                          generate_mod, kvcache, tree, distinct)
+        paged = phase_serve_paged("gpt2-small", scfg, sparams, engine_mod,
+                                  generate_mod, kvcache, tree, distinct)
         phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
                                kvcache)
         check_no_kernel(kernels, "the GPT-2 paged serving path")
+        # speculation, LoRA and adoption, counted from 0: no kernel
+        reset_counts(kernels)
+        phase_serve_spec("gpt2-small", scfg, sparams, engine_mod,
+                         generate_mod, paged)
+        phase_serve_lora("gpt2-small", scfg, sparams, engine_mod, lora_mod,
+                         generate_mod, distinct)
+        phase_serve_adopt(scfg, sparams, engine_mod, kvcache, paged)
+        check_no_kernel(kernels, "the GPT-2 speculation, LoRA and adoption "
+                        "paths")
         del params, cpu_params, sparams
         # the Llama scoring and serving path, counted from 0 the same way
         reset_counts(kernels)
@@ -2156,9 +2606,15 @@ def main() -> int:
                            llama.llama_loss, params, cfg, tok_d, tgt_d)
         del params, cpu_params
         reset_counts(kernels)
-        phase_serve_paged("llama-small", lcfg, lparams, engine_mod,
-                          generate_mod, kvcache, tree, distinct)
+        paged = phase_serve_paged("llama-small", lcfg, lparams, engine_mod,
+                                  generate_mod, kvcache, tree, distinct)
         check_no_kernel(kernels, "the Llama paged serving path")
+        reset_counts(kernels)
+        phase_serve_spec("llama-small", lcfg, lparams, engine_mod,
+                         generate_mod, paged)
+        phase_serve_lora("llama-small", lcfg, lparams, engine_mod, lora_mod,
+                         generate_mod, distinct)
+        check_no_kernel(kernels, "the Llama speculation and LoRA paths")
         del lparams
     # training needs autograd, so it runs outside inference mode and on
     # parameters of its own

@@ -13,15 +13,21 @@ from ..device import resolve_device
 from ..tree import tree_map
 
 
-def _leaf(arr: Any, device: torch.device,
-          dtype: Optional[torch.dtype]) -> torch.Tensor:
+def numpy_tensor(arr: Any) -> torch.Tensor:
+    """A numpy array (or anything `np.asarray` takes) as a CPU tensor of
+    the same dtype, on a copy of its memory."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         # numpy's bfloat16 comes from ml_dtypes, which torch cannot read:
         # carry the raw bits over and reinterpret them
-        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _leaf(arr: Any, device: torch.device,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    t = numpy_tensor(arr)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

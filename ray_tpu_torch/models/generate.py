@@ -5,6 +5,8 @@ Prefill is one forward over the prompt into a fresh max_seq_len cache;
 decoding is a Python loop of one-token forwards (JAX's `lax.scan`), the
 cache updated in place where JAX donates it. `stream_generate` yields
 each step's tokens as they land, for a caller that streams them.
+`lora_targets` and `merge_lora_params` are the LoRA helpers the serving
+engine and `serve.lora` share.
 """
 from __future__ import annotations
 
@@ -28,6 +30,39 @@ def _model_fns(config) -> Tuple[Callable, Callable, Callable]:
     if isinstance(config, GPT2Config):
         return gpt2_forward_cached, gpt2_init_kv_cache, gpt2_decode
     raise TypeError(f"no generation support for {type(config).__name__}")
+
+
+def lora_targets(config) -> Tuple[Tuple[str, int, int], ...]:
+    """The LoRA-target leaves of a model family, ``((leaf name, in_dim,
+    out_dim), ...)``, each an entry of every block's ``["attn"]``: the
+    one table the adapter pool's layout, the decode gather and the
+    prefill merge all read."""
+    if isinstance(config, LlamaConfig):
+        kv_dim = config.num_kv_heads * config.head_dim
+        return (("wq", config.d_model, config.d_model),
+                ("wv", config.d_model, kv_dim))
+    if isinstance(config, GPT2Config):
+        return (("qkv", config.d_model, 3 * config.d_model),)
+    raise TypeError(f"no LoRA support for {type(config).__name__}")
+
+
+def merge_lora_params(params: Any, config: Any, lora: Any) -> Any:
+    """The base parameters with one adapter folded into the target leaves,
+    ``W + scale * (A_l @ B_l)`` per block, the product summed in fp32 and
+    rounded once to W's dtype. `lora` is one adapter's slice
+    ``{"scale": scalar, "targets": {name: {"a": [L, in, r], "b": [L, r,
+    out]}}}`` (`serve.lora.AdapterPool.adapter_slice`). The prefill of a
+    single-tenant request runs on it; the base tree is not changed."""
+    lora_targets(config)  # validates the family
+    blocks = []
+    for li, p in enumerate(params["blocks"]):
+        attn = dict(p["attn"])
+        for name, ab in lora["targets"].items():
+            w = attn[name]
+            delta = ab["a"][li].float() @ ab["b"][li].float()
+            attn[name] = w + (delta * lora["scale"]).to(w.dtype)
+        blocks.append({**p, "attn": attn})
+    return {**params, "blocks": blocks}
 
 
 def _sample(logits: torch.Tensor, vocab_size: int, temperature: float,

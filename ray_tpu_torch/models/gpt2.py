@@ -21,7 +21,10 @@ for the JAX package.
 `jax.checkpoint` in the JAX package): the backward recomputes one block
 at a time. Differences from the JAX package: the KV cache is updated in
 place (where JAX returns a new buffer and donates the old one), and
-there is no sharding constraint or LoRA here yet.
+there is no sharding constraint here yet. The ragged decode takes the
+mixed-tenant LoRA adapters of the serving engine (`lora=`, the layout of
+`serve.lora.AdapterPool`) on the fused qkv projection, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -34,9 +37,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import cached_attention, flash_attention
+from ..ops.attention import (DecodeRows, cached_attention, decode_rows,
+                             flash_attention, write_rows)
 from ..ops.fused_ce import fused_ce_supported, linear_cross_entropy
-from ..ops.layers import fp32_logits, layer_norm
+from ..ops.layers import fp32_logits, layer_norm, lora_delta
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -137,13 +141,20 @@ def _mlp_res(x: torch.Tensor, p: Params) -> torch.Tensor:
     return x + h @ p["mlp"]["proj"] + p["mlp"]["proj_b"]
 
 
-def _qkv(x: torch.Tensor, p: Params, config: GPT2Config
+def _qkv(x: torch.Tensor, p: Params, config: GPT2Config,
+         lora: Optional[Dict[str, Any]] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-head q, k, v [B, t, H, hd] — views into one fused product."""
+    """Per-head q, k, v [B, t, H, hd] — views into one fused product, with
+    the per-slot LoRA delta added before the bias when `lora` is given."""
     c = config
     b, t, _ = x.shape
     h = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    qkv = h @ p["attn"]["qkv"] + p["attn"]["qkv_b"]
+    if lora is None:
+        qkv = h @ p["attn"]["qkv"] + p["attn"]["qkv_b"]
+    else:
+        qkv = (h @ p["attn"]["qkv"] + lora_delta(h, *lora["qkv"],
+                                                 lora["scale"])
+               + p["attn"]["qkv_b"])
     q, k, v = qkv.split(c.d_model, dim=-1)
     shape = (b, t, c.num_heads, c.head_dim)
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
@@ -207,36 +218,48 @@ def _block_cached(x: torch.Tensor, p: Params, config: GPT2Config,
 
 
 def _block_decode(x: torch.Tensor, p: Params, config: GPT2Config,
-                  cache: Params, pos_vec: torch.Tensor
+                  cache: Params, rows: DecodeRows,
+                  lora: Optional[Dict[str, Any]] = None
                   ) -> Tuple[torch.Tensor, Params]:
-    """Ragged-batch decode with per-slot base positions pos_vec [B]
-    (continuous batching); x [B, t, D]. The cache is written in place."""
-    b, t = x.shape[0], x.shape[1]
-    q, k, v = _qkv(x, p, config)
-    rows = torch.arange(b, device=x.device)[:, None]
-    positions = pos_vec[:, None] + torch.arange(t, device=x.device)[None]
-    cache["k"][rows, positions] = k
-    cache["v"][rows, positions] = v
-    a = cached_attention(q, cache["k"], cache["v"], positions)
+    """Ragged-batch decode (continuous batching): slot b's token j sits
+    where `rows` says and attends the rows at or before it; x [B, t, D].
+    The cache is written in place, a write past the window dropped.
+    `lora`: this layer's per-slot adapters for the fused qkv projection,
+    ``{"qkv": (a [B, D, r], b [B, r, 3D]), "scale": [B]}``."""
+    q, k, v = _qkv(x, p, config, lora)
+    write_rows(cache["k"], rows, k)
+    write_rows(cache["v"], rows, v)
+    a = cached_attention(q, cache["k"], cache["v"], rows.positions)
     return _mlp_res(_attn_proj_res(x, a, p), p), cache
 
 
 def gpt2_decode(params: Params, tokens: torch.Tensor, config: GPT2Config,
-                cache: List[Params], pos_vec: torch.Tensor
+                cache: List[Params], pos_vec: torch.Tensor,
+                lora: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, List[Params]]:
     """One decode step for a ragged batch: tokens [B] at per-slot
     positions pos_vec [B] -> logits [B, padded_vocab] fp32 ([B, q]
-    tokens give [B, q, padded_vocab]). The cache is updated in place and
-    returned."""
+    tokens, the verify form, give [B, q, padded_vocab]). The cache is
+    updated in place and returned; a position past the learned table
+    reads its last row and a write past the window is dropped, as in
+    JAX. `lora`: the adapter-pool stacks and per-slot rows, ``{"idx":
+    [B], "scale": [P], "qkv": (a [P, L, D, r], b [P, L, r, 3D])}``."""
     ragged = tokens.dim() == 1
     if ragged:
-        x = params["wte"][tokens[:, None]] + params["wpe"][pos_vec][:, None]
-    else:
-        positions = pos_vec[:, None] + torch.arange(
-            tokens.shape[1], device=tokens.device)[None]
-        x = params["wte"][tokens] + params["wpe"][positions]
-    for p, blk in zip(params["blocks"], cache):
-        x, _ = _block_decode(x, p, config, blk, pos_vec)
+        tokens = tokens[:, None]
+    rows = decode_rows(pos_vec, tokens.shape[1], cache[0]["k"].shape[1])
+    wpe = params["wpe"]
+    x = params["wte"][tokens] + wpe[rows.positions.clamp(
+        max=wpe.shape[0] - 1)]
+    sel = None
+    if lora is not None:
+        idx = lora["idx"]
+        sel = (lora["qkv"][0][idx], lora["qkv"][1][idx])
+        scale = lora["scale"][idx]
+    for li, (p, blk) in enumerate(zip(params["blocks"], cache)):
+        lora_l = None if sel is None else {
+            "qkv": (sel[0][:, li], sel[1][:, li]), "scale": scale}
+        x, _ = _block_decode(x, p, config, blk, rows, lora_l)
     x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     if ragged:
         x = x[:, 0]

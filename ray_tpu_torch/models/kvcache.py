@@ -32,10 +32,13 @@ The port reads no environment knob: the JAX package's
 ``RAY_TPU_KV_BLOCK_SIZE`` / ``RAY_TPU_KV_POOL_BLOCKS`` / ``RAY_TPU_KV_INT8``
 defaults are the arguments' defaults here.
 
+`propose` drafts tokens for speculative decoding off the index's exact
+token chains: a forward index (chain digest -> the full blocks extending
+it) is kept beside the prefix index.
+
 Not ported yet: the host-RAM arena and object-store tiers
-(``attach_arena``, ``export_prefix``, ``import_prefix``), the draft
-proposer (``propose``) and the Prometheus metrics; ``stats()`` carries
-the same numbers.
+(``attach_arena``, ``export_prefix``, ``import_prefix``) and the
+Prometheus metrics; ``stats()`` carries the same numbers.
 """
 from __future__ import annotations
 
@@ -232,7 +235,8 @@ class PrefixMatch:
 
 class _Block:
     __slots__ = ("bid", "tokens", "filled", "ref", "last_used",
-                 "children", "index_key", "parent_bid", "ns")
+                 "children", "index_key", "parent_bid", "parent_digest",
+                 "ns")
 
     def __init__(self, bid: int):
         self.bid = bid
@@ -246,6 +250,8 @@ class _Block:
         # release)
         self.index_key: Optional[tuple] = None
         self.parent_bid: Optional[int] = None
+        # the chain digest this block extends (the forward index's key)
+        self.parent_digest: Optional[bytes] = None
         # the cache namespace it was committed under
         self.ns: Optional[str] = None
 
@@ -287,6 +293,10 @@ class PagedKVCache:
         self._free: List[int] = list(range(self.num_blocks - 1, -1, -1))
         self._full_index: Dict[bytes, int] = {}
         self._partial_index: Dict[bytes, Dict[Tuple[int, ...], int]] = {}
+        # the draft proposer's forward index: chain digest -> {tokens:
+        # bid} of the full blocks extending it (partial tails are already
+        # indexed forward by _partial_index)
+        self._children: Dict[bytes, Dict[Tuple[int, ...], int]] = {}
         self._tick = itertools.count(1)
         self._events: List[Dict[str, Any]] = []
         self._stats: Dict[str, int] = {
@@ -384,6 +394,57 @@ class PagedKVCache:
                 evicted += 1
         return evicted
 
+    # ----------------------------------------------------------- propose
+
+    def propose(self, tokens, k: int,
+                namespace: Optional[str] = None) -> List[int]:
+        """Draft up to `k` tokens continuing `tokens` off the index's exact
+        token chains (prompt-lookup speculative decoding): walk the chain
+        of the context's block-aligned prefix, then follow the full blocks
+        (and last a partial tail) whose tokens extend the rest of it.
+        Returns [] when no cached chain extends the context. Nothing is
+        pinned: a wrong draft is rejected by the verify step."""
+        tokens = np.asarray(tokens).reshape(-1)
+        bs = self.block_size
+        n = len(tokens)
+        out: List[int] = []
+        with self._lock:
+            digest = _ns_root(namespace)
+            matched = 0
+            while matched + bs <= n:
+                blk = tuple(int(t) for t in tokens[matched:matched + bs])
+                nxt = _chain(digest, blk)
+                bid = self._full_index.get(nxt)
+                if bid is None or self._blocks[bid].tokens != blk:
+                    break
+                digest = nxt
+                matched += bs
+            rem = tuple(int(t) for t in tokens[matched:])
+            if len(rem) >= bs:
+                return []  # the context left every cached chain
+            while len(out) < k:
+                step = next(((toks, bid) for toks, bid
+                             in self._children.get(digest, {}).items()
+                             if toks[:len(rem)] == rem
+                             and len(toks) > len(rem)), None)
+                if step is None:
+                    break
+                toks, bid = step
+                out.extend(toks[len(rem):])
+                key = self._blocks[bid].index_key
+                if key is None or key[0] != "full":
+                    break
+                digest, rem = key[1], ()
+            if len(out) < k:
+                # the longest partial tail extending what is left
+                best: Tuple[int, ...] = ()
+                for toks in self._partial_index.get(digest, {}):
+                    if toks[:len(rem)] == rem and len(toks) > len(rem) \
+                            and len(toks) > len(best):
+                        best = toks
+                out.extend(best[len(rem):])
+        return out[:k]
+
     # ------------------------------------------------------------ commit
 
     def note_prefilled(self, n_tokens: int) -> None:
@@ -439,7 +500,7 @@ class PagedKVCache:
                 else:
                     writes.append((bid, i * bs))
                 self._insert_locked(bid, ("full", nxt), blk, bs, parent,
-                                    now, namespace)
+                                    now, namespace, digest)
                 table.append(bid)
                 parent, digest = bid, nxt
             if tail and not exhausted:
@@ -479,7 +540,7 @@ class PagedKVCache:
         else:
             writes.append((bid, n_full * bs))
         self._insert_locked(bid, ("partial", digest, tail_toks), tail_toks,
-                            tail, parent, now, namespace)
+                            tail, parent, now, namespace, digest)
         table.append(bid)
 
     def _device_index(self, bids, starts):
@@ -519,7 +580,8 @@ class PagedKVCache:
     def _insert_locked(self, bid: int, index_key: tuple,
                        blk_tokens: Tuple[int, ...], filled: int,
                        parent: Optional[int], now: int,
-                       ns: Optional[str] = None) -> None:
+                       ns: Optional[str] = None,
+                       parent_digest: Optional[bytes] = None) -> None:
         b = _Block(bid)
         b.tokens = blk_tokens
         b.filled = filled
@@ -527,10 +589,14 @@ class PagedKVCache:
         b.last_used = now
         b.index_key = index_key
         b.parent_bid = parent
+        b.parent_digest = parent_digest
         b.ns = ns
         self._blocks[bid] = b
         if index_key[0] == "full":
             self._full_index[index_key[1]] = bid
+            if parent_digest is not None:
+                self._children.setdefault(parent_digest,
+                                          {})[blk_tokens] = bid
         else:
             self._partial_index.setdefault(index_key[1],
                                            {})[index_key[2]] = bid
@@ -574,6 +640,12 @@ class PagedKVCache:
             return
         if key[0] == "full":
             self._full_index.pop(key[1], None)
+            if b.parent_digest is not None:
+                kids = self._children.get(b.parent_digest)
+                if kids is not None:
+                    kids.pop(b.tokens, None)
+                    if not kids:
+                        del self._children[b.parent_digest]
         else:
             by_tok = self._partial_index.get(key[1])
             if by_tok is not None:

@@ -24,7 +24,9 @@ does with einsums.
 `remat=True` checkpoints the whole forward (`jax.checkpoint` of
 `llama_forward` in the JAX package). Differences from the JAX package:
 the KV cache is updated in place (where JAX returns a new buffer), and
-there is no partition-spec tree or LoRA here yet.
+there is no partition-spec tree here yet. The ragged decode takes the
+mixed-tenant LoRA adapters of the serving engine (`lora=`, the layout of
+`serve.lora.AdapterPool`), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -36,9 +38,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import cached_attention, flash_attention
-from ..ops.layers import fp32_logits, rms_norm
-from ..ops.rope import apply_rope, rope_table
+from ..ops.attention import (DecodeRows, cached_attention, decode_rows,
+                             flash_attention, write_rows)
+from ..ops.layers import fp32_logits, lora_delta, rms_norm
+from ..ops.rope import apply_rope, rope_table, rotate
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -231,24 +234,20 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int = 0,
             for _ in range(c.num_layers)]
 
 
-def _no_lora(lora: Any) -> None:
-    if lora is not None:
-        raise NotImplementedError("LoRA is not ported yet")
-
-
 def llama_block_cached(x: torch.Tensor, p: Params, cos: torch.Tensor,
                        sin: torch.Tensor, config: LlamaConfig,
                        cache: Params, pos: int
                        ) -> Tuple[torch.Tensor, Params]:
     """Cache-path block (prefill and decode): tokens land at [pos, pos+t)
-    of the cache, in place, and attend everything written so far."""
+    of the cache, in place, and attend everything written so far. cos and
+    sin are the RoPE rows of those positions ([1, t, 1, hd/2])."""
     c = config
     b, t, _ = x.shape
     h = rms_norm(x, p["attn_norm"]["scale"])
     q, k, v = _qkv(h, p, c)
     positions = (pos + torch.arange(t, device=x.device))[None].expand(b, t)
-    q = apply_rope(q, cos, sin, positions)
-    k = apply_rope(k, cos, sin, positions)
+    q = rotate(q, cos, sin)
+    k = rotate(k, cos, sin)
     cache["k"][:, pos:pos + t] = k
     cache["v"][:, pos:pos + t] = v
     a = cached_attention(q, cache["k"], cache["v"], positions)
@@ -263,6 +262,8 @@ def llama_forward_cached(params: Params, tokens: torch.Tensor,
     padded_vocab] fp32, cache updated in place). pos=0 with the whole
     prompt is prefill; T=1 afterwards is decode."""
     cos, sin = _rope(config, tokens.device)
+    rows = slice(pos, pos + tokens.shape[1])
+    cos, sin = cos[rows][None, :, None], sin[rows][None, :, None]
     x = params["tok_emb"][tokens]
     for p, blk in zip(params["blocks"], cache):
         x, _ = llama_block_cached(x, p, cos, sin, config, blk, pos)
@@ -272,42 +273,78 @@ def llama_forward_cached(params: Params, tokens: torch.Tensor,
 
 def llama_block_decode(x: torch.Tensor, p: Params, cos: torch.Tensor,
                        sin: torch.Tensor, config: LlamaConfig,
-                       cache: Params, pos_vec: torch.Tensor,
-                       lora: Any = None) -> Tuple[torch.Tensor, Params]:
-    """Ragged-batch decode with per-slot base positions pos_vec [B]
-    (continuous batching): slot b's token j lands at pos_vec[b] + j and
-    attends the rows at or before it. x [B, t, D]; t == 1 is one tick,
-    t == k + 1 the speculative verify form. The cache is written in
-    place."""
-    _no_lora(lora)
+                       cache: Params, rows: DecodeRows,
+                       lora: Optional[Dict[str, Any]] = None
+                       ) -> Tuple[torch.Tensor, Params]:
+    """Ragged-batch decode (continuous batching): slot b's token j sits
+    where `rows` says (base position pos_vec[b] + j) and attends the rows
+    at or before it. x [B, t, D]; t == 1 is one tick, t == k + 1 the
+    speculative verify form. cos and sin are the RoPE rows of the step's
+    positions ([B, t, 1, hd/2]). The cache is written in place; a write
+    past the window is dropped and a position past it reads the last
+    table row, as in JAX.
+
+    `lora` (the mixed-tenant decode): this layer's per-slot adapters,
+    ``{"wq": (a [B, D, r], b [B, r, D]), "wv": (a, b), "scale": [B]}``,
+    added to the wq and wv projections; a slot on the null adapter adds
+    an exact zero."""
     c = config
     b, t = x.shape[0], x.shape[1]
     h = rms_norm(x, p["attn_norm"]["scale"])
-    q, k, v = _qkv(h, p, c)
-    positions = pos_vec[:, None] + torch.arange(t, device=x.device)[None]
-    q = apply_rope(q, cos, sin, positions)
-    k = apply_rope(k, cos, sin, positions)
-    rows = torch.arange(b, device=x.device)[:, None]
-    cache["k"][rows, positions] = k.to(cache["k"].dtype)
-    cache["v"][rows, positions] = v.to(cache["v"].dtype)
-    a = cached_attention(q, cache["k"], cache["v"], positions)
+    if lora is None:
+        q, k, v = _qkv(h, p, c)
+    else:
+        q = _mm(h, p["attn"]["wq"]) + lora_delta(h, *lora["wq"],
+                                                 lora["scale"])
+        k = _mm(h, p["attn"]["wk"])
+        v = _mm(h, p["attn"]["wv"]) + lora_delta(h, *lora["wv"],
+                                                 lora["scale"])
+        q = q.reshape(b, t, c.num_heads, c.head_dim)
+        k = k.reshape(b, t, c.num_kv_heads, c.head_dim)
+        v = v.reshape(b, t, c.num_kv_heads, c.head_dim)
+    q = rotate(q, cos, sin)
+    k = rotate(k, cos, sin)
+    write_rows(cache["k"], rows, k)
+    write_rows(cache["v"], rows, v)
+    a = cached_attention(q, cache["k"], cache["v"], rows.positions)
     x = x + _mm(a, p["attn"]["wo"])
     return _mlp_res(x, p), cache
 
 
 def llama_decode(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                  cache: List[Params], pos_vec: torch.Tensor,
-                 lora: Any = None) -> Tuple[torch.Tensor, List[Params]]:
+                 lora: Optional[Dict[str, Any]] = None
+                 ) -> Tuple[torch.Tensor, List[Params]]:
     """One decode step for a ragged batch: tokens [B] at per-slot
     positions pos_vec [B] -> logits [B, padded_vocab] fp32; tokens [B, q]
-    (the verify form) give [B, q, padded_vocab]. The cache is updated in
-    place and returned."""
-    _no_lora(lora)
+    (the verify form) give [B, q, padded_vocab], row j what a sequential
+    decode would give after tokens[:, :j+1]. The cache is updated in
+    place and returned.
+
+    `lora`: the adapter-pool stacks and per-slot rows, ``{"idx": [B],
+    "scale": [P], "wq": (a [P, L, D, r], b [P, L, r, D]), "wv": (...)}``
+    (`serve.lora.AdapterPool.dispatch_tick`); each slot's adapter is
+    gathered once, then every layer adds its low-rank delta."""
     cos, sin = _rope(config, tokens.device)
     ragged = tokens.dim() == 1
-    x = params["tok_emb"][tokens[:, None] if ragged else tokens]
-    for p, blk in zip(params["blocks"], cache):
-        x, _ = llama_block_decode(x, p, cos, sin, config, blk, pos_vec)
+    if ragged:
+        tokens = tokens[:, None]
+    rows = decode_rows(pos_vec, tokens.shape[1], cache[0]["k"].shape[1])
+    # a position past the table reads its last row (JAX's clamped gather)
+    read = rows.positions.clamp(max=cos.shape[0] - 1)
+    cos, sin = cos[read][:, :, None, :], sin[read][:, :, None, :]
+    x = params["tok_emb"][tokens]
+    sel = None
+    if lora is not None:
+        idx = lora["idx"]
+        sel = {n: (lora[n][0][idx], lora[n][1][idx]) for n in ("wq", "wv")}
+        scale = lora["scale"][idx]
+    for li, (p, blk) in enumerate(zip(params["blocks"], cache)):
+        lora_l = None if sel is None else {
+            n: (a[:, li], b[:, li]) for n, (a, b) in sel.items()}
+        if lora_l is not None:
+            lora_l["scale"] = scale
+        x, _ = llama_block_decode(x, p, cos, sin, config, blk, rows, lora_l)
     x = rms_norm(x, params["norm_f"]["scale"])
     if ragged:
         x = x[:, 0]

@@ -19,11 +19,13 @@ Layout [B, T, H, D]; a causal mask is aligned to the END of the kv
 sequence (query i sees keys j <= i + tk - tq), as in the JAX reference,
 so a causal query row that sees no key (tq > tk) gets the mean of V.
 `cached_attention` is the serving path's attention over a KV cache,
-plain PyTorch as the JAX package's einsums are.
+plain PyTorch as the JAX package's einsums are; `decode_rows` and
+`write_rows` place a ragged decode step's tokens in that cache with the
+JAX package's semantics at the end of the window.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -194,3 +196,43 @@ def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     a = torch.einsum("bkrts,bskd->btkrd",
                      probs.reshape(b, kv_heads, rep, t, -1), cv.to(q.dtype))
     return a.reshape(b, t, h * hd)
+
+
+class DecodeRows(NamedTuple):
+    """Where the tokens of one ragged decode step sit in a cache window of
+    S rows: slot b's token j at position pos_vec[b] + j. Built once per
+    step by `decode_rows` and shared by every layer."""
+    rows: torch.Tensor       # [B, 1] batch index
+    positions: torch.Tensor  # [B, t] as given: the attention mask's
+    write: torch.Tensor      # [B, t] the cache row each K/V row goes to
+    keep: torch.Tensor       # [B, t, 1, 1] the write lands in the window
+    spare: torch.Tensor      # [B, 1] where a dropped write goes
+
+
+def decode_rows(pos_vec: torch.Tensor, t: int, window: int) -> DecodeRows:
+    """The placement of a step's t tokens per slot at base positions
+    pos_vec [B]. JAX drops an out-of-range scatter (and clamps an
+    out-of-range gather, which the callers' table lookups do), and a
+    speculative verify step runs past the window (an idle slot keeps the
+    position its last request ended at): `write_rows` drops a write past
+    row S-1. A dropped write is sent to a spare row that no write of the
+    slot lands on (the row before the slot's first position, or S-1 when
+    that position lies past the window) carrying that row's own content,
+    so duplicate indices all carry one value, with no host sync."""
+    if t > window:
+        raise ValueError(f"{t} tokens per slot exceed the cache window "
+                         f"of {window} rows")
+    positions = pos_vec[:, None] + torch.arange(t, device=pos_vec.device)
+    keep = positions < window
+    spare = (positions[:, :1] - 1).clamp(0, window - 1)
+    return DecodeRows(
+        rows=torch.arange(pos_vec.shape[0], device=pos_vec.device)[:, None],
+        positions=positions, write=torch.where(keep, positions, spare),
+        keep=keep[:, :, None, None], spare=spare)
+
+
+def write_rows(buf: torch.Tensor, r: DecodeRows, val: torch.Tensor) -> None:
+    """buf [B, S, H, hd][slot b, position] = val [B, t, H, hd] in place,
+    each write past the window dropped (see `decode_rows`)."""
+    old = buf[r.rows, r.spare]
+    buf[r.rows, r.write] = torch.where(r.keep, val.to(buf.dtype), old)

@@ -1,5 +1,6 @@
-"""Normalization layers (port of ray_tpu/ops/layers.py) and the fp32
-LM-head product both model families share.
+"""Normalization layers and the per-slot LoRA delta (port of
+ray_tpu/ops/layers.py), and the fp32 LM-head product both model families
+share.
 
 fp32 statistics whatever the input dtype, output cast back. Plain
 PyTorch: the JAX side has no kernel here on purpose, and neither does
@@ -40,3 +41,17 @@ def fp32_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         out_dtype=torch.float32)
         return flat.reshape(*x.shape[:-1], w.shape[1])
     return x.float() @ w.float()
+
+
+def lora_delta(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """Per-slot LoRA contribution for a ragged decode batch, `scale *
+    (h @ A) @ B` with a different adapter per batch row. h [B, t, d],
+    a [B, d, r], b [B, r, o], scale [B] -> [B, t, o] in h's dtype. Both
+    products are summed in fp32 and z = h @ A stays fp32 into the second,
+    as JAX's `preferred_element_type=f32` einsums do (a product of bf16
+    values is exact in fp32, so widening first is the same math). A row
+    on the null adapter (A = B = 0, scale 0) adds an exact zero."""
+    z = torch.bmm(h.float(), a.float())
+    d = torch.bmm(z, b.float())
+    return (d * scale.float()[:, None, None]).to(h.dtype)

@@ -29,14 +29,21 @@ def rope_table(head_dim: int, max_seq_len: int, theta: float = 10000.0,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotate q or k. x [B, T, H, hd]; cos/sin [>= T, hd/2]; positions
-    [B, T] ints (arange when None; decode-time offsets otherwise)."""
+    [B, T] ints (arange when None; decode-time offsets otherwise). A
+    position past the table reads its last row, as JAX's clamped gather
+    does."""
     t = x.shape[1]
     if positions is None:
-        c = cos[:t][None, :, None, :]  # [1, T, 1, hd/2]
-        s = sin[:t][None, :, None, :]
-    else:
-        c = cos[positions][:, :, None, :]  # [B, T, 1, hd/2]
-        s = sin[positions][:, :, None, :]
+        return rotate(x, cos[:t][None, :, None, :], sin[:t][None, :, None, :])
+    positions = positions.clamp(max=cos.shape[0] - 1)
+    return rotate(x, cos[positions][:, :, None, :],
+                  sin[positions][:, :, None, :])
+
+
+def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+           ) -> torch.Tensor:
+    """x [B, T, H, hd] rotated by the table rows already looked up for
+    its positions, c and s broadcastable to [B, T, 1, hd/2]."""
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                      dim=-1).to(x.dtype)

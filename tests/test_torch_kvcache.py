@@ -499,12 +499,17 @@ def test_cached_engine_matches_uncached_and_jax(model):
     common = set(st) & set(jst) - {"engine_id", "prefill_programs"}
     assert {k: st[k] for k in common} == {k: jst[k] for k in common}
     assert st["prefill_programs"] == -1
-    # the keys this slice ports; the rest come with speculation,
-    # adoption and LoRA
+    # every key the JAX engine reports, speculation, adoption and LoRA
+    # among them
     assert {"admitted", "prefill_admitted", "prefill_calls",
             "spliced_tokens", "cancelled", "cancelled_by_reason",
             "max_prefills_admitted_per_tick", "kv_int8", "hit_rate",
-            "token_reuse_rate", "pool_bytes"} <= common
+            "token_reuse_rate", "pool_bytes", "adopted",
+            "max_adoptions_per_tick", "max_adoptions_admitted_per_tick",
+            "lora", "speculate_k", "spec_proposed", "spec_accepted",
+            "spec_verify_ticks", "spec_emitted_tokens", "acceptance_rate",
+            "tokens_per_verify"} <= common
+    assert set(jst) - set(st) == set()
 
 
 @pytest.mark.parametrize("suffix", [1, 2, 5, 9])

@@ -31,6 +31,7 @@ import torch
 from ray_tpu.models import llama as jllama
 from ray_tpu.models.engine import ContinuousBatchingEngine as JEngine
 from ray_tpu.models.generate import generate as jgenerate
+from ray_tpu.models.generate import lora_targets as jlora_targets
 from ray_tpu.observability import flops as jflops
 from ray_tpu.ops import attention as jattn
 from ray_tpu.ops import rope as jrope
@@ -262,9 +263,31 @@ def test_cached_prefill_and_decode_match_jax(params):
             for name in ("k", "v"):
                 np.testing.assert_allclose(tb[name].numpy(),
                                            np.asarray(jb[name]), **TOL)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tllama.llama_decode(tp, torch.from_numpy(tok), TCFG, tcache,
-                            torch.from_numpy(pos), lora={})
+        # the mixed-tenant form: slot 0 on pool row 2, slot 1 on the null
+        # row, the verify form again (rank 4, pool of 3 rows)
+        rng = np.random.default_rng(5)
+        jlora = {"idx": jnp.asarray([2, 0], jnp.int32),
+                 "scale": jnp.asarray([0.0, 2.0, 3.0], jnp.float32)}
+        for name, d_in, d_out in jlora_targets(JCFG):
+            ab = [rng.standard_normal((3, JCFG.num_layers) + shape)
+                  .astype(np.float32) * 0.05
+                  for shape in ((d_in, 4), (4, d_out))]
+            for x in ab:
+                x[0] = 0.0
+            jlora[name] = tuple(jnp.asarray(x) for x in ab)
+        tlora = tree_map(lambda x: torch.from_numpy(np.array(x)), jlora)
+        verify = _tokens(13, (b, 3))
+        jl, jcache = jllama.llama_decode(
+            jp, jnp.asarray(verify, jnp.int32), JCFG, jcache,
+            jnp.asarray(pos + 5, jnp.int32), jlora)
+        tl, tcache = tllama.llama_decode(
+            tp, torch.from_numpy(verify), TCFG, tcache,
+            torch.from_numpy(pos + 5), lora=tlora)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        for jb, tb in zip(jcache, tcache):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(tb[name].numpy(),
+                                           np.asarray(jb[name]), **TOL)
 
 
 PROMPTS = [[7, 3, 9], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], [42]]

@@ -17,7 +17,10 @@ SwiGLU), the main path of the third slice: scoring (`llama_score`),
 serving in fp32 and bf16, then training with the single-pass attention
 backward (Llama's only trained route): gradients against fp32 on the CPU
 (`llama_train_check`) and `TrainStep` + `adamw` at tokens [4, 2048]
-(`llama_train`). The GPT-2 loss's backward is the chunked CE backward
+(`llama_train`). The mesh form of both steps (`mesh_train`): one NCCL
+rank, `parallel.make_mesh`, the models' partition specs, the same
+weights and batches, each loss against the one-device step's. The GPT-2
+loss's backward is the chunked CE backward
 (`kernels.ce_bwd`: ce_probs, ce_dx and ce_dw per vocabulary chunk, 7
 chunks a step), held on three shapes (`ce_bwd`). Inputs the attention
 kernels refuse run the plain route on the card (`plain_route`: Llama tiny
@@ -1466,11 +1469,14 @@ def train_launches_per_step(kernels, cfg, tokens: int) -> dict:
 
 
 def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
-              b: int, t: int, seed: int, per_step: dict) -> dict:
+              b: int, t: int, seed: int, per_step: dict, mesh=None,
+              param_specs=None):
     """TrainStep + adamw(3e-4, weight_decay=0.1), bf16, one fixed batch of
-    tokens [b, t]: a warm-up step and TRAIN_STEPS timed ones. Launches are
-    counted from 0 over all of them and must be `per_step` times the
-    steps; returns the counts."""
+    tokens [b, t]: a warm-up step and TRAIN_STEPS timed ones, then one
+    more step traced for its host launches. Launches are counted from 0
+    over the warm-up and timed steps and must be `per_step` times the
+    steps. With `mesh`, the mesh form of TrainStep on `param_specs`.
+    Returns the counts and the phase's line, not yet emitted."""
     from ray_tpu_torch.observability import flops
     from ray_tpu_torch.observability.step_timer import StepTimer
     from ray_tpu_torch.train.optim import adamw
@@ -1482,7 +1488,8 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
     fpt = flops.train_flops_per_token(cfg, t)
     timer = StepTimer()
     step = TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
-                     flops_per_token=fpt, device="cuda", timer=timer)
+                     flops_per_token=fpt, device="cuda", timer=timer,
+                     mesh=mesh, param_specs=param_specs)
     state = step.init_state(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1512,44 +1519,142 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
     med = statistics.median(times)
     peak = flops.device_peak_flops(0)
     flops_per_step = fpt * b * t
-    emit({"phase": phase, "model": model, "dtype": "bfloat16",
-          "tokens": [b, t], "optimizer": "adamw(3e-4, weight_decay=0.1)",
-          "steps_timed": TRAIN_STEPS, "losses": losses,
-          "launches_per_step": {k: n / steps for k, n in launches.items()},
-          "plain_attention_calls": plain, "step_ms": med, "step_ms_min": min(times),
-          "step_ms_max": max(times), "tokens_per_s": b * t / med * 1e3,
-          "flops_per_step": flops_per_step, "peak_flops": peak,
-          "mfu": flops.mfu(flops_per_step, med / 1e3, peak),
-          "step_timer": summarize(timer),
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
-    return launches
+    _, host = launches_of(lambda: step(state, batch))
+    return launches, {
+        "phase": phase, "model": model, "dtype": "bfloat16",
+        "tokens": [b, t], "optimizer": "adamw(3e-4, weight_decay=0.1)",
+        "steps_timed": TRAIN_STEPS, "losses": losses,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "plain_attention_calls": plain, "step_ms": med,
+        "step_ms_min": min(times), "step_ms_max": max(times),
+        "tokens_per_s": b * t / med * 1e3,
+        "flops_per_step": flops_per_step, "peak_flops": peak,
+        "mfu": flops.mfu(flops_per_step, med / 1e3, peak),
+        "step_timer": summarize(timer),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "host_launches_per_step": host["launches"],
+        "device_ops_per_step": host["device_ops"]}
 
 
-def phase_train(kernels, gpt2) -> dict:
-    """The GPT-2 training path: GPT-2 small at tokens [8, 1024], the
-    two-pass attention backward and the CE kernels."""
+def gpt2_train_args(kernels, gpt2) -> tuple:
+    """GPT-2 small at tokens [8, 1024] from fixed seeds: the two-pass
+    attention backward and the CE kernels."""
     cfg = gpt2.GPT2Config.small()
     params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(6),
                             device="cuda")
-    return train_run(
-        kernels, "train", "gpt2-small",
-        lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"], cfg),
-        cfg, params, 8, 1024, 7,
-        train_launches_per_step(kernels, cfg, 8 * 1024))
+    return ("gpt2-small",
+            lambda p, bt: gpt2.gpt2_loss(p, bt["tokens"], bt["targets"],
+                                         cfg),
+            cfg, params, 8, 1024, 7,
+            train_launches_per_step(kernels, cfg, 8 * 1024))
 
 
-def phase_llama_train(kernels, llama) -> dict:
-    """The Llama training path, the main path of the third slice: Llama
-    small at tokens [4, 2048], its attention backward the single-pass
-    kernel, its loss log-softmax over the full fp32 logits (no CE
-    kernel)."""
+def llama_train_args(llama) -> tuple:
+    """Llama small at tokens [4, 2048] from fixed seeds: its attention
+    backward the single-pass kernel, its loss log-softmax over the full
+    fp32 logits (no CE kernel)."""
     cfg = llama.LlamaConfig.small()
     params = llama.llama_init(cfg, torch.Generator().manual_seed(16),
                               device="cuda")
-    return train_run(
-        kernels, "llama_train", "llama-small",
-        lambda p, bt: llama.llama_loss(p, bt["tokens"], bt["targets"], cfg),
-        cfg, params, 4, 2048, 17, LLAMA_TRAIN_LAUNCHES_PER_STEP)
+    return ("llama-small",
+            lambda p, bt: llama.llama_loss(p, bt["tokens"], bt["targets"],
+                                           cfg),
+            cfg, params, 4, 2048, 17, LLAMA_TRAIN_LAUNCHES_PER_STEP)
+
+
+def phase_train(kernels, gpt2):
+    """The GPT-2 training path (one device); returns the launch counts
+    and the phase's line."""
+    launches, line = train_run(kernels, "train",
+                               *gpt2_train_args(kernels, gpt2))
+    emit(line)
+    return launches, line
+
+
+def phase_llama_train(kernels, llama):
+    """The Llama training path (one device), the main path of the third
+    slice; returns the launch counts and the phase's line."""
+    launches, line = train_run(kernels, "llama_train",
+                               *llama_train_args(llama))
+    emit(line)
+    return launches, line
+
+
+# the mesh step on one NCCL rank against the one-device step, on the same
+# weights and batch: the same kernels on the same tensors (at world 1
+# every block is the whole parameter). GPT-2's kernels are deterministic,
+# so its losses should be equal bit for bit (they were on an H100 80GB
+# HBM3 at 700 W, PERF.md). Llama's single-pass backward sums dQ with
+# atomics, so its one-device step differs from itself run to run; over
+# 11 AdamW steps on bf16 weights that noise grew to 1.4e-2 in the loss on
+# that card (8e-5 after one update), while the loss falls ~0.23 a step.
+# The phase also reruns the one-device step and prints that spread.
+MESH_LOSS_TOL = {"gpt2-small": 1e-3, "llama-small": 5e-2}
+
+
+def phase_mesh_train(kernels, gpt2, llama, one_device: dict) -> list:
+    """The mesh TrainStep on one NCCL rank (a file:// store, world 1),
+    `make_mesh(MeshConfig())`, the models' partition specs: GPT-2 small
+    [8, 1024] and Llama small [4, 2048] on the weights and batches of
+    `train` and `llama_train`. Every loss within MESH_LOSS_TOL of the
+    one-device step's, the same kernel launches a step, no plain route;
+    beside it the one-device step run again, for its own spread. The
+    process group is destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    tmp = tempfile.mkdtemp(prefix="mesh-train-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        lines = []
+        # a step updates its parameters in place: fresh ones each run
+        for make_args, specs in (
+                (lambda: gpt2_train_args(kernels, gpt2),
+                 gpt2.gpt2_partition_specs(gpt2.GPT2Config.small())),
+                (lambda: llama_train_args(llama),
+                 llama.llama_partition_specs(llama.LlamaConfig.small()))):
+            _, again = train_run(kernels, "train_repeat", *make_args())
+            launches, line = train_run(kernels, "mesh_train", *make_args(),
+                                       mesh=mesh, param_specs=specs)
+            ref = one_device[line["model"]]
+            tol = MESH_LOSS_TOL[line["model"]]
+            diffs = [abs(a - r) for a, r in zip(line["losses"],
+                                                ref["losses"])]
+            check(max(diffs) <= tol,
+                  f"mesh_train {line['model']}: losses {line['losses']} "
+                  f"against one-device {ref['losses']}")
+            check(line["launches_per_step"] == ref["launches_per_step"],
+                  f"mesh_train {line['model']}: launches "
+                  f"{line['launches_per_step']} against one-device "
+                  f"{ref['launches_per_step']}")
+            line.update({
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                "backend": dist.get_backend(),
+                "loss_tol": tol,
+                "loss_max_abs_diff": max(diffs),
+                "losses_bit_equal": line["losses"] == ref["losses"],
+                "one_device_repeat_loss_max_abs_diff": max(
+                    abs(a - r) for a, r in zip(again["losses"],
+                                               ref["losses"])),
+                "one_device_repeat_step_ms": again["step_ms"],
+                "one_device_step_ms": ref["step_ms"],
+                "one_device_step_ms_min": ref["step_ms_min"],
+                "one_device_step_ms_max": ref["step_ms_max"],
+                "one_device_host_launches_per_step":
+                    ref["host_launches_per_step"],
+                "one_device_max_memory_allocated_bytes":
+                    ref["max_memory_allocated_bytes"]})
+            emit(line)
+            lines.append(line)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
 
 
 def summarize(timer) -> dict:
@@ -2627,12 +2732,15 @@ def main() -> int:
     phase_plain_route(kernels, attention, gpt2, llama, tree)
     # the training paths, each counted from 0: GPT-2's reaches seven of
     # the kernels, Llama's the single-pass backward
-    launches = phase_train(kernels, gpt2)
+    launches, gpt2_line = phase_train(kernels, gpt2)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    fused_row["launches"] = phase_llama_train(kernels, llama)[
-        "flash_bwd_fused"]
+    launches, llama_line = phase_llama_train(kernels, llama)
+    fused_row["launches"] = launches["flash_bwd_fused"]
     rows.insert(4, fused_row)
+    # the mesh form of the same steps, counted from 0 the same way
+    phase_mesh_train(kernels, gpt2, llama, {"gpt2-small": gpt2_line,
+                                            "llama-small": llama_line})
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

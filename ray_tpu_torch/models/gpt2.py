@@ -41,6 +41,7 @@ from ..ops.attention import (DecodeRows, cached_attention, decode_rows,
                              flash_attention, write_rows)
 from ..ops.fused_ce import fused_ce_supported, linear_cross_entropy
 from ..ops.layers import fp32_logits, layer_norm, lora_delta
+from ..parallel.mesh import P
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -323,3 +324,34 @@ def gpt2_loss(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
                            c.vocab_size, use_reentrant=False)
                 for i in range(n_chunks))
     return total / (b * t)
+
+
+def gpt2_partition_specs(config: GPT2Config) -> Params:
+    """Partition-spec tree for the params (the JAX package's): Megatron's
+    tp layout with fsdp on the other matmul dimension, the vocabulary
+    split over both model axes. With tp=1/fsdp=1 every spec collapses to
+    replicated, so one tree serves all mesh shapes. The mesh
+    `TrainStep` stores parameters by it and computes on gathered
+    weights."""
+    block = {
+        "ln_1": {"scale": P(), "bias": P()},
+        "attn": {
+            "qkv": P("fsdp", "tp"),     # column-parallel
+            "qkv_b": P("tp"),
+            "proj": P("tp", "fsdp"),    # row-parallel
+            "proj_b": P(),
+        },
+        "ln_2": {"scale": P(), "bias": P()},
+        "mlp": {
+            "fc": P("fsdp", "tp"),      # column-parallel
+            "fc_b": P("tp"),
+            "proj": P("tp", "fsdp"),    # row-parallel
+            "proj_b": P(),
+        },
+    }
+    return {
+        "wte": P(("tp", "fsdp"), None),
+        "wpe": P(None, "fsdp"),
+        "ln_f": {"scale": P(), "bias": P()},
+        "blocks": [block for _ in range(config.num_layers)],
+    }

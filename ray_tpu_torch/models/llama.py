@@ -42,6 +42,7 @@ from ..ops.attention import (DecodeRows, cached_attention, decode_rows,
                              flash_attention, write_rows)
 from ..ops.layers import fp32_logits, lora_delta, rms_norm
 from ..ops.rope import apply_rope, rope_table, rotate
+from ..parallel.mesh import P
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -349,3 +350,24 @@ def llama_decode(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     if ragged:
         x = x[:, 0]
     return fp32_logits(x, params["lm_head"]), cache
+
+
+def llama_partition_specs(config: LlamaConfig) -> Params:
+    """Partition-spec tree for the params (the JAX package's): Megatron
+    layout, q/k/v and gate/up column-parallel on tp, wo/down
+    row-parallel, embeddings 2D-sharded. Collapses to replicated when the
+    mesh has tp=fsdp=1."""
+    block = {
+        "attn_norm": {"scale": P()},
+        "attn": {"wq": P("fsdp", "tp"), "wk": P("fsdp", "tp"),
+                 "wv": P("fsdp", "tp"), "wo": P("tp", "fsdp")},
+        "ffn_norm": {"scale": P()},
+        "mlp": {"w_gate": P("fsdp", "tp"), "w_up": P("fsdp", "tp"),
+                "w_down": P("tp", "fsdp")},
+    }
+    return {
+        "tok_emb": P("tp", "fsdp"),
+        "norm_f": {"scale": P()},
+        "lm_head": P("fsdp", "tp"),
+        "blocks": [block for _ in range(config.num_layers)],
+    }

@@ -17,7 +17,9 @@ The moments are kept in each parameter's dtype, as optax keeps them with
 mu_dtype=None, and the arithmetic runs in that dtype too. Where optax
 returns new arrays, this updates params and moments in place (the port's
 stand-in for JAX's buffer donation), with PyTorch's multi-tensor
-(`_foreach`) operations over all leaves at once.
+(`_foreach`) operations over all leaves at once. DTensor params and
+moments (the mesh form of `train.step.TrainStep`) are updated on each
+rank's blocks: the ZeRO-3 update.
 """
 from __future__ import annotations
 
@@ -25,8 +27,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import tree_leaves, tree_map
+
+
+def _local(tensors: Sequence[torch.Tensor]) -> list:
+    """Plain tensors: a DTensor's block on this rank (its storage, so the
+    in-place update lands in the DTensor)."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
 
 
 @dataclass(frozen=True)
@@ -50,9 +59,9 @@ class AdamW:
                 params: Any) -> None:
         """One step: `grads` in the order of `tree_leaves(params)`;
         `state` (from `init`) and `params` are updated in place."""
-        ps = tree_leaves(params)
-        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
-        g = list(grads)
+        ps, g = _local(tree_leaves(params)), _local(grads)
+        mu, nu = _local(tree_leaves(state["mu"])), \
+            _local(tree_leaves(state["nu"]))
         if not len(g) == len(ps) == len(mu) == len(nu):
             raise ValueError(f"{len(g)} grads for {len(ps)} params")
         state["count"] += 1

@@ -19,7 +19,13 @@ backward (Llama's only trained route): gradients against fp32 on the CPU
 (`llama_train_check`) and `TrainStep` + `adamw` at tokens [4, 2048]
 (`llama_train`). The mesh form of both steps (`mesh_train`): one NCCL
 rank, `parallel.make_mesh`, the models' partition specs, the same
-weights and batches, each loss against the one-device step's. The GPT-2
+weights and batches, each loss against the one-device step's. Then
+checkpoints and the trainer (`trainer_resume`): GPT-2 small through
+`train.TorchTrainer.fit()` with an `async_save` every 4 steps, failing
+once and resuming bit-equal to an uninterrupted run, a mesh <->
+one-device reshard, a Llama small round trip, and what a checkpoint
+costs (bytes, snapshot, writer, restore, steps with a write in
+flight). The GPT-2
 loss's backward is the chunked CE backward
 (`kernels.ce_bwd`: ce_probs, ce_dx and ce_dw per vocabulary chunk, 7
 chunks a step), held on three shapes (`ce_bwd`). Inputs the attention
@@ -1468,6 +1474,13 @@ def train_launches_per_step(kernels, cfg, tokens: int) -> dict:
             "ce_dx": chunks, "ce_dw": chunks}
 
 
+def train_batch(cfg, b: int, t: int, seed: int) -> dict:
+    """The fixed training batch of tokens [b, t] from `seed`, on the CPU."""
+    seq = torch.randint(0, cfg.vocab_size, (b, t + 1),
+                        generator=torch.Generator().manual_seed(seed))
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
 def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
               b: int, t: int, seed: int, per_step: dict, mesh=None,
               param_specs=None):
@@ -1482,9 +1495,7 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
     from ray_tpu_torch.train.optim import adamw
     from ray_tpu_torch.train.step import TrainStep
 
-    seq = torch.randint(0, cfg.vocab_size, (b, t + 1),
-                        generator=torch.Generator().manual_seed(seed))
-    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    batch = train_batch(cfg, b, t, seed)
     fpt = flops.train_flops_per_token(cfg, t)
     timer = StepTimer()
     step = TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
@@ -1668,6 +1679,328 @@ def summarize(timer) -> dict:
             "data_wait_p50_ms": phases["data_wait"]["p50_ms"],
             "mfu_median": statistics.median(r.get("mfu", 0.0)
                                             for r in recs)}
+
+
+# trainer_resume: GPT-2 through TorchTrainer, 12 steps, an async
+# checkpoint every 4, attempt 0 failing after step 10's report
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AFTER = 12, 4, 10
+RESHARD_STEPS = 2   # steps before a save, and after each restore
+LLAMA_RESUME_STEPS = 2
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def state_bytes(state) -> int:
+    from ray_tpu_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(state)
+               if isinstance(x, torch.Tensor))
+
+
+def same_bits(a, b) -> bool:
+    """Two train states (plain or DTensor leaves) hold the same bits."""
+    from ray_tpu_torch.tree import tree_leaves
+    from torch.distributed.tensor import DTensor
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, DTensor):
+            x, y = x.to_local(), y.to_local()
+        if isinstance(x, torch.Tensor):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif int(x) != int(y):
+            return False
+    return True
+
+
+def check_launches(kernels, what: str, per_step: dict, steps: int) -> dict:
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {k: n * steps for k, n in per_step.items()},
+          f"{what}: launches {launches} over {steps} steps")
+    check_no_plain_route(what)
+    return launches
+
+
+def resume_gpt2(kernels, gpt2, tmp: str) -> dict:
+    """GPT-2 small [8, 1024] through `TorchTrainer.fit()` (spmd mode):
+    12 steps of TrainStep + adamw, `report` every step and `async_save`
+    of the whole state every 4th; attempt 0 raises after step 10's
+    report, attempt 1 restores step 8's checkpoint onto a fresh state and
+    runs to 12. Held bit-equal to the same 12 steps uninterrupted (its
+    steps timed with no write in flight)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.observability import flops
+    from ray_tpu_torch.observability.step_timer import StepTimer
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.tree import tree_leaves
+
+    _, loss_fn, cfg, _, b, t, seed, per_step = gpt2_train_args(kernels,
+                                                               gpt2)
+    batch = train_batch(cfg, b, t, seed)
+    fpt = flops.train_flops_per_token(cfg, t)
+
+    def fresh():
+        step = train.TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
+                               flops_per_token=fpt, device="cuda")
+        return step, step.init_state(gpt2_train_args(kernels, gpt2)[3])
+
+    # the uninterrupted run, its steps synchronised as the session's are
+    step, ref = fresh()
+    step.timer = StepTimer()
+    reset_counts(kernels)
+    ref_losses, ref_ms = [], []
+    for _ in range(RESUME_STEPS):
+        t0 = time.perf_counter()
+        ref, m = step(ref, batch)
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_losses.append(float(m["loss"]))
+        step.timer.end_step()
+    check_launches(kernels, "trainer_resume uninterrupted", per_step,
+                   RESUME_STEPS)
+
+    rec = {"losses": {}, "snapshot_ms": [], "report_ms": [], "ckpts": [],
+           "steps": [], "restore_ms": None}
+
+    def in_flight() -> bool:
+        return any(not c.committed for c in rec["ckpts"])
+
+    def train_fn(config):
+        step, state = fresh()
+        resume = train.get_checkpoint()
+        if resume is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = train.restore(resume.path, like=state)
+            torch.cuda.synchronize()
+            rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["restored_step"] = int(state["step"])
+        attempt = train.get_context().attempt
+        for s in range(int(state["step"]) + 1, RESUME_STEPS + 1):
+            busy = in_flight()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            rec["steps"].append({"attempt": attempt, "step": s, "ms": ms,
+                                 "write_in_flight": busy and in_flight()})
+            loss = float(m["loss"])
+            rec["losses"][(attempt, s)] = loss
+            ck = None
+            if s % RESUME_EVERY == 0:
+                t0 = time.perf_counter()
+                with train.get_step_timer().phase("checkpoint"):
+                    ck = train.async_save(
+                        os.path.join(tmp, "work", f"a{attempt}-s{s}"), state)
+                rec["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["ckpts"].append(ck)
+            t0 = time.perf_counter()
+            train.report({"step": s, "loss": loss}, checkpoint=ck)
+            if ck is not None:
+                rec["report_ms"].append((time.perf_counter() - t0) * 1e3)
+            if attempt == 0 and s == RESUME_FAIL_AFTER:
+                raise RuntimeError("scripted failure after step "
+                                   f"{RESUME_FAIL_AFTER}'s report")
+        rec["state"] = state
+
+    reset_counts(kernels)
+    result = train.TorchTrainer(
+        train_fn, run_config=train.RunConfig(
+            name="gpt2", storage_path=os.path.join(tmp, "exp"),
+            checkpoint_config=train.CheckpointConfig(num_to_keep=2),
+            failure_config=train.FailureConfig(max_failures=1)),
+        restart_backoff_base_s=0.01).fit()
+    steps_run = RESUME_FAIL_AFTER + RESUME_STEPS - 8
+    launches = check_launches(kernels, "trainer_resume GPT-2 fit", per_step,
+                              steps_run)
+    check(result.error is None, f"fit failed: {result.error!r}")
+    check(rec.get("restored_step") == 8,
+          f"attempt 1 resumed from step {rec.get('restored_step')}, not 8")
+    first = [rec["losses"][(0, s)] for s in range(1, RESUME_FAIL_AFTER + 1)]
+    resumed = [rec["losses"][(1, s)] for s in range(9, RESUME_STEPS + 1)]
+    check(first == ref_losses[:RESUME_FAIL_AFTER],
+          f"attempt 0 losses {first} vs uninterrupted {ref_losses}")
+    check(resumed == ref_losses[8:],
+          f"resumed losses {resumed} vs uninterrupted {ref_losses[8:]}")
+    final = rec["state"]
+    check(same_bits(final, ref), "resumed parameters, moments, count or "
+          "step differ from the uninterrupted run's")
+    ck_root = os.path.join(result.path, "checkpoints")
+    kept = sorted(os.listdir(ck_root))
+    with open(os.path.join(result.checkpoint.path, "metrics.json")) as f:
+        last = json.load(f)
+    check(len(kept) == 2 and last["step"] == RESUME_STEPS
+          and result.checkpoint.path == os.path.join(ck_root, kept[-1]),
+          f"kept {kept}, result checkpoint {result.checkpoint.path} of "
+          f"step {last['step']}")
+    for c in rec["ckpts"]:
+        check(c.committed and c.write_s is not None,
+              f"checkpoint {c.path} not committed")
+    # a measurement, not a gate: a fast disk may commit within a step
+    flight = [x["ms"] for x in rec["steps"] if x["write_in_flight"]]
+    history = result.metrics_history
+    return {
+        "model": "gpt2-small", "dtype": "bfloat16", "tokens": [b, t],
+        "steps": RESUME_STEPS, "checkpoint_every": RESUME_EVERY,
+        "failed_after_step": RESUME_FAIL_AFTER, "resumed_from_step": 8,
+        "steps_run": steps_run, "launches": launches,
+        "losses_uninterrupted": ref_losses, "losses_resumed": resumed,
+        "losses_bit_equal": True, "state_bit_equal": True,
+        "kept_checkpoints": kept, "result_checkpoint_step": last["step"],
+        "checkpoint_bytes": dir_bytes(result.checkpoint.path),
+        "state_tensor_bytes": state_bytes(final),
+        "leaves": len(tree_leaves(final)),
+        "async_save_ms": rec["snapshot_ms"],
+        "report_with_checkpoint_ms": rec["report_ms"],
+        "writer_ms": [c.write_s * 1e3 for c in rec["ckpts"]],
+        "restore_ms": rec["restore_ms"],
+        "step_ms_write_in_flight": flight,
+        "step_ms_write_in_flight_median": statistics.median(flight)
+        if flight else None,
+        "step_ms_no_checkpointing": ref_ms,
+        "step_ms_no_checkpointing_median": statistics.median(ref_ms[1:]),
+        "step_ms_trainer": [x["ms"] for x in rec["steps"]],
+        "step_timer_checkpoint_ms": {
+            str(h["step"]): h["checkpoint_ms"] for h in history},
+        "step_timer_step_time_ms": {
+            str(h["step"]): h["step_time_ms"] for h in history}}
+
+
+def reshard_gpt2(kernels, gpt2, tmp: str) -> dict:
+    """GPT-2 small's mesh-form state (DTensors on one NCCL rank, the
+    model's partition specs) after 2 steps, saved and restored into the
+    one-device TrainStep; that saved and restored back into the mesh
+    form. Two steps on each side are held bit-equal to the mesh step
+    continuing without a save."""
+    import torch.distributed as dist
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.train.optim import adamw
+
+    _, loss_fn, cfg, _, b, t, seed, per_step = gpt2_train_args(kernels,
+                                                               gpt2)
+    batch = train_batch(cfg, b, t, seed)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+
+        def fresh(on_mesh: bool):
+            kw = dict(mesh=mesh, param_specs=gpt2.gpt2_partition_specs(
+                cfg)) if on_mesh else {}
+            step = train.TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
+                                   device="cuda", **kw)
+            return step, step.init_state(gpt2_train_args(kernels, gpt2)[3])
+
+        def run(step, state, n):
+            losses = []
+            for _ in range(n):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            return state, losses
+
+        reset_counts(kernels)
+        mesh_step, state = fresh(True)
+        state, _ = run(mesh_step, state, RESHARD_STEPS)
+        train.async_save(os.path.join(tmp, "mesh"), state).wait()
+        _, want = run(mesh_step, state, RESHARD_STEPS)
+        del state
+        one_step, one = fresh(False)
+        one = train.restore(os.path.join(tmp, "mesh"), like=one)
+        train.async_save(os.path.join(tmp, "one"), one).wait()
+        _, got_one = run(one_step, one, RESHARD_STEPS)
+        del one
+        mesh_step2, back = fresh(True)
+        back = train.restore(os.path.join(tmp, "one"), like=back)
+        _, got_mesh = run(mesh_step2, back, RESHARD_STEPS)
+        launches = check_launches(kernels, "trainer_resume reshard",
+                                  per_step, 4 * RESHARD_STEPS)
+    finally:
+        dist.destroy_process_group()
+    check(got_one == want and got_mesh == want,
+          f"reshard: one-device {got_one}, mesh again {got_mesh}, mesh "
+          f"continuing {want}")
+    return {"model": "gpt2-small", "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.mesh.shape)), "steps_each": RESHARD_STEPS,
+        "losses_mesh_continuing": want, "losses_one_device_restored":
+        got_one, "losses_mesh_restored": got_mesh, "bit_equal": True,
+        "launches": launches}
+
+
+def resume_llama(kernels, llama, tmp: str) -> dict:
+    """Llama small [4, 2048]: 2 steps, a save, a restore onto a fresh
+    state (bit-equal to the saved state), then 2 more steps on the
+    restored and on the unrestored state: losses within
+    MESH_LOSS_TOL["llama-small"] (the fused backward's atomics)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.optim import adamw
+
+    model, loss_fn, cfg, _, b, t, seed, per_step = llama_train_args(llama)
+    batch = train_batch(cfg, b, t, seed)
+
+    def fresh():
+        step = train.TrainStep(loss_fn, adamw(3e-4, weight_decay=0.1),
+                               device="cuda")
+        return step, step.init_state(llama_train_args(llama)[3])
+
+    reset_counts(kernels)
+    step, state = fresh()
+    for _ in range(LLAMA_RESUME_STEPS):
+        state, _ = step(state, batch)
+    train.async_save(os.path.join(tmp, "llama"), state).wait()
+    step2, back = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = train.restore(os.path.join(tmp, "llama"), like=back)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(back, state), "llama: the restored state differs from "
+          "the saved one")
+    want, got = [], []
+    for _ in range(LLAMA_RESUME_STEPS):
+        state, m = step(state, batch)
+        want.append(float(m["loss"]))
+        back, m = step2(back, batch)
+        got.append(float(m["loss"]))
+    launches = check_launches(kernels, "trainer_resume llama", per_step,
+                              3 * LLAMA_RESUME_STEPS)
+    tol = MESH_LOSS_TOL[model]
+    diff = max(abs(a - r) for a, r in zip(got, want))
+    check(diff <= tol, f"llama resumed losses {got} vs unrestored {want}")
+    return {"model": model, "dtype": "bfloat16", "tokens": [b, t],
+            "restored_bit_equal": True, "losses_unrestored": want,
+            "losses_restored": got, "loss_max_abs_diff": diff,
+            "loss_tol": tol, "restore_ms": restore_ms,
+            "checkpoint_bytes": dir_bytes(os.path.join(tmp, "llama")),
+            "launches": launches}
+
+
+def phase_trainer_resume(kernels, gpt2, llama) -> None:
+    """Checkpoints and the trainer's fit loop on the card: `resume_gpt2`,
+    `reshard_gpt2` and `resume_llama`, each counted from 0, in a
+    temporary directory removed at the end whatever happens."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="trainer-resume-")
+    try:
+        line = {"phase": "trainer_resume", "card": card_line(),
+                "gpt2": resume_gpt2(kernels, gpt2, tmp)}
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        line["reshard"] = reshard_gpt2(kernels, gpt2, tmp)
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        line["llama"] = resume_llama(kernels, llama, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"{tmp} was not removed")
+    line["tmp_removed"] = True
+    emit(line)
 
 
 SERVE_LENGTHS = [8, 40, 77, 120, 160, 200]
@@ -2741,6 +3074,8 @@ def main() -> int:
     # the mesh form of the same steps, counted from 0 the same way
     phase_mesh_train(kernels, gpt2, llama, {"gpt2-small": gpt2_line,
                                             "llama-small": llama_line})
+    # checkpoints and the trainer's fit loop, each leg counted from 0
+    phase_trainer_resume(kernels, gpt2, llama)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

@@ -7,12 +7,15 @@ Partitions each step's wall time into named phases (`data_wait`,
 batch moved to the card) and `device_step` (the step, synchronised) into
 the timer it is given; the loop closes each step with `end_step()`,
 whose record is kept in `records` (the newest `KEEP`). A loop that
-wants no timing passes no timer. Shipping records to a cluster
+wants no timing passes no timer; a disabled timer (`enabled=False`, what
+`train.session.get_step_timer()` gives outside a session) records
+nothing. Shipping records to a cluster
 conductor comes with the port of the runtime.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Any, Deque, Dict, Optional
 
@@ -77,10 +80,14 @@ class _PhaseCM:
         return False
 
 
+_NULL_CM = contextlib.nullcontext()
+
+
 class StepTimer:
     """Step clock of one training loop."""
 
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
         self.records: Deque[Dict[str, Any]] = collections.deque(maxlen=KEEP)
         self._step_index = 0
         self._step_start: Optional[float] = None
@@ -92,11 +99,13 @@ class StepTimer:
 
     def phase(self, name: str):
         """Context manager accumulating wall time into phase `name`."""
-        return _PhaseCM(self, name)
+        return _PhaseCM(self, name) if self.enabled else _NULL_CM
 
     def record(self, name: str, seconds: float) -> None:
         """Account `seconds` to phase `name` in the open step. Recording
         into a not-yet-open step backdates the step start by `seconds`."""
+        if not self.enabled:
+            return
         if self._step_start is None:
             self._begin_step()
             self._step_start -= seconds
@@ -127,7 +136,7 @@ class StepTimer:
         was recorded): `<phase>_ms` for every phase, `other_ms`,
         `total_ms`, and `tokens_per_sec` and `mfu` where their inputs are
         known (MFU against the device-step time)."""
-        if self._step_start is None:
+        if not self.enabled or self._step_start is None:
             return None
         total_s = _now() - self._step_start
         rec: Dict[str, Any] = {"step": self._step_index,

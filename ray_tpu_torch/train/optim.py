@@ -64,8 +64,8 @@ class AdamW:
             _local(tree_leaves(state["nu"]))
         if not len(g) == len(ps) == len(mu) == len(nu):
             raise ValueError(f"{len(g)} grads for {len(ps)} params")
-        state["count"] += 1
-        t = state["count"]
+        # int(): a restored count is a numpy 0-d int64
+        t = state["count"] = int(state["count"]) + 1
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)

@@ -31,6 +31,7 @@ from ..parallel.mesh import (P, axis_names, map_specs, mesh_sizes,
                              validate_axis_names)
 from ..parallel.shardcheck import check_specs
 from ..tree import tree_leaves, tree_map
+from .session import _get_session
 
 
 def _batch_tokens(batch: Any) -> int:
@@ -53,7 +54,10 @@ class TrainStep:
     records `data_wait` (moving the batch to the device) and
     `device_step` (the step, synchronised with the device: the
     measurement's cost; without a timer the step stays asynchronous);
-    the caller closes each step with `timer.end_step()`.
+    the caller closes each step with `timer.end_step()`. Without one,
+    under a train session (`train.trainer.TorchTrainer`) the step records
+    into the session's StepTimer, which `session.report()` closes, as
+    the JAX package's step does; outside a session it records nothing.
 
     Params and optimizer moments are updated IN PLACE, and the state
     dict passed in is the one returned: this is the port's stand-in for
@@ -176,9 +180,16 @@ class TrainStep:
         return tree_map(lambda p: p.redistribute(self.mesh, self._full)
                         .to_local(grad_placements=self._partial), params)
 
+    def _timer(self) -> Optional[StepTimer]:
+        timer = self.timer
+        if timer is None:
+            ctx = _get_session()
+            timer = ctx._step_timer if ctx is not None else None
+        return timer if timer is not None and timer.enabled else None
+
     def __call__(self, state: Dict[str, Any], batch: Any
                  ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        timer = self.timer
+        timer = self._timer()
         t0 = time.perf_counter()
         batch = tree_map(lambda x: x.to(self.device, non_blocking=True)
                          if isinstance(x, torch.Tensor) else x, batch)
@@ -199,7 +210,8 @@ class TrainStep:
             loss = self.loss_fn(self.gathered(params), batch) / self._blocks
         grads = torch.autograd.grad(loss, leaves)
         self.optimizer.update_(grads, state["opt_state"], params)
-        state["step"] += 1
+        # int(): a restored step is a numpy 0-d int64
+        state["step"] = int(state["step"]) + 1
         loss = loss.detach()
         if self.mesh is not None:
             loss = DTensor.from_local(loss, self.mesh, self._partial,

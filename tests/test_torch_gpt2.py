@@ -150,6 +150,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                          cwd=str(PKG.parent))
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 9
+    # the training plumbing (checkpoints, session, trainer) is scanned too
+    assert {f"ray_tpu_torch.train.{m}" for m in (
+        "config", "checkpoint", "async_checkpoint", "session", "trainer",
+        "gang_checks")} | {"ray_tpu_torch.resilience.supervisor"} <= \
+        set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

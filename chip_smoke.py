@@ -25,7 +25,15 @@ checkpoints and the trainer (`trainer_resume`): GPT-2 small through
 once and resuming bit-equal to an uninterrupted run, a mesh <->
 one-device reshard, a Llama small round trip, and what a checkpoint
 costs (bytes, snapshot, writer, restore, steps with a write in
-flight). The GPT-2
+flight). The MoE decoder (Mixtral-style, the two-pass attention
+backward): one step's gradients at `MoEConfig()`'s widths cut to 2
+layers against fp32 on the CPU taking the card's expert choices, and
+the card's routing against the CPU's (`moe_train_check`); `TrainStep` +
+`adamw` at Mixtral 8x7B's widths cut to 2 layers, tokens [1, 4096]
+(`moe_train`), and its mesh form in `mesh_train`. Sequence parallelism
+on one NCCL rank (`seq_parallel`): ring and Ulysses attention at
+[1, 4096, 32, 128], Ulysses around `flash_attention` too, and
+`all_to_all` at axis size 1. The GPT-2
 loss's backward is the chunked CE backward
 (`kernels.ce_bwd`: ce_probs, ce_dx and ce_dw per vocabulary chunk, 7
 chunks a step), held on three shapes (`ce_bwd`). Inputs the attention
@@ -43,7 +51,8 @@ a request filling the window; `serve_lora`, both models: two tenants
 and base in one batch, speculated too, a hot swap; `serve_adopt`, GPT-2
 small: prefilled KV adopted with no prefill): every stream equals
 generate(). `dq_seeds` holds flash_bwd_dq over
-16 seeds and shapes against emulations of its bf16 rounding. Every
+8 seeds at each of three shapes against emulations of its bf16
+rounding. Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -60,6 +69,7 @@ data-sheet peaks (989 TFLOP/s dense bf16, 3.35 TB/s HBM3).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import json
 import math
@@ -273,25 +283,33 @@ def hold_grads(label: str, got, ref) -> dict:
     return out
 
 
-def hold_forward(label: str, o, lse, ref_o, ref_lse) -> dict:
-    """The attention forward's O and LSE against the plain forward's: O
-    held as `hold_grads` holds a gradient (finite, allclose(rtol=GRAD_TOL,
-    atol=GRAD_ATOL_FRAC * max|ref|), relative norm <= GRAD_NORM_TOL), the
-    LSE within LSE_TOL. Most causal O values are far below the largest
-    (median |ref| ~0.04 against ~3 at T 2048), so an allclose of BF16_TOL
-    alone would pass O 5 % off in half the rows. Returns the errors and
-    the reference's median and largest |O|."""
+def hold_output(label: str, o, ref_o) -> dict:
+    """An attention output O against the plain fp32 one, held as
+    `hold_grads` holds a gradient: finite, allclose(rtol=GRAD_TOL,
+    atol=GRAD_ATOL_FRAC * max|ref|), relative norm <= GRAD_NORM_TOL. Most
+    causal O values are far below the largest (median |ref| ~0.04 against
+    ~3 at T 2048), so an allclose of BF16_TOL alone would pass O 5 % off
+    in half the rows. Returns the errors and the reference's median and
+    largest |O|."""
     o, ref_o = o.float(), ref_o.float()
     check(torch.isfinite(o).all().item(), f"{label}: non-finite O")
     top = float(ref_o.abs().max())
     rel = norm_err(o, ref_o)
     out = {"max_abs_err": max_err(o, ref_o), "rel_norm_err": rel,
            "ref_median_abs": float(ref_o.abs().median()),
-           "ref_max_abs": top, "lse_max_abs_err": max_err(lse, ref_lse)}
+           "ref_max_abs": top}
     check(torch.allclose(o, ref_o, atol=GRAD_ATOL_FRAC * top, rtol=GRAD_TOL)
           and rel <= GRAD_NORM_TOL,
           f"{label} o: max error {out['max_abs_err']} (largest |ref| {top}),"
           f" relative norm error {rel}")
+    return out
+
+
+def hold_forward(label: str, o, lse, ref_o, ref_lse) -> dict:
+    """The attention forward's O and LSE against the plain forward's: O
+    by `hold_output`, the LSE within LSE_TOL. Returns the errors."""
+    out = {**hold_output(label, o, ref_o),
+           "lse_max_abs_err": max_err(lse, ref_lse)}
     check(out["lse_max_abs_err"] <= LSE_TOL,
           f"{label} lse: max error {out['lse_max_abs_err']}")
     return out
@@ -431,7 +449,7 @@ def qkv(gen, b, tq, tk, h, d) -> list:
 
 
 def phase_flash(kernels, attention, gen) -> dict:
-    """flash_fwd against the plain fp32 forward (`hold_forward`) on six
+    """flash_fwd against the plain fp32 forward (`hold_forward`) on seven
     cases, then timed at the scoring and both training shapes beside the
     plain version and SDPA."""
     cases = [(4, 512, 512, 12, 64, True),    # GPT-2 small scoring
@@ -439,7 +457,8 @@ def phase_flash(kernels, attention, gen) -> dict:
              (4, 2048, 2048, 12, 64, True),  # Llama small training
              (2, 128, 640, 12, 64, True),    # tq < tk: end-aligned mask
              (2, 256, 256, 8, 128, False),   # non-causal, head_dim 128
-             (2, 300, 300, 12, 64, True)]    # ragged length
+             (2, 300, 300, 12, 64, True),    # ragged length
+             (1, 4096, 4096, 32, 128, True)]  # MoE training (Mixtral)
     results = []
     for b, tq, tk, h, d, causal in cases:
         q, k, v = qkv(gen, b, tq, tk, h, d)
@@ -603,7 +622,8 @@ def phase_flash_bwd(kernels, attention, gen) -> list:
              (2, 300, 300, 12, 64, True),     # ragged length
              (2, 128, 384, 12, 64, True),     # tq < tk: end-aligned mask
              (2, 256, 256, 8, 64, False),     # non-causal
-             (2, 256, 256, 8, 128, True)]     # head_dim 128
+             (2, 256, 256, 8, 128, True),     # head_dim 128
+             (1, 4096, 4096, 32, 128, True)]  # MoE training (Mixtral)
     results = []
     for b, tq, tk, h, d, causal in cases:
         q, k, v = qkv(gen, b, tq, tk, h, d)
@@ -750,12 +770,16 @@ def hold_dq_rounding(label: str, dq, emu, emu_exact) -> dict:
     return out
 
 
-DQ_SEED_SHAPES = [(8, 1024, 12, 64), (4, 2048, 12, 64)]
+# the GPT-2 and Llama training shapes, and the MoE step's (Mixtral's
+# heads at head_dim 128 over 4096 keys, where the bf16 rounding of dS
+# alone can take dQ past hold_grads' allowance at some seeds)
+DQ_SEED_SHAPES = [(8, 1024, 12, 64), (4, 2048, 12, 64),
+                  (1, 4096, 32, 128)]
 DQ_SEEDS = range(8)
 
 
 def phase_dq_seeds(kernels, attention) -> None:
-    """flash_bwd_dq's dQ over seeds 0-7 at both causal training shapes,
+    """flash_bwd_dq's dQ over seeds 0-7 at the causal training shapes,
     from the forward kernel's O and LSE: against the plain backward's dQ
     by hold_grads' allowance and relative norm (reported, not gated: the
     question is whether a miss is the kernel's or the bf16 rounding of
@@ -1284,11 +1308,13 @@ def named_leaves(tree, prefix: str = "") -> list:
     return [(prefix[:-1], tree)]
 
 
-def card_vs_cpu_grads(tree, loss_fn, params, cfg, tokens, targets):
+def card_vs_cpu_grads(tree, loss_fn, params, cfg, tokens, targets,
+                      tape=None):
     """One step's loss and gradients in bf16 on the card against the same
     weights in fp32 through the port's CPU path (the plain versions):
     (loss, CPU loss, leaf names, card gradients, per-leaf relative error
-    |g_card - g_cpu| / |g_cpu|, CPU seconds)."""
+    |g_card - g_cpu| / |g_cpu|, CPU seconds). With a `RoutingTape`, the
+    CPU pass takes the experts the card chose."""
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = tree.tree_map(lambda p: p.float().cpu(), params)
 
@@ -1299,10 +1325,13 @@ def card_vs_cpu_grads(tree, loss_fn, params, cfg, tokens, targets):
         loss = loss_fn(p, tok, tgt, c)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
-    loss, grads = loss_and_grads(params, cfg, tokens.cuda(), targets.cuda())
+    with tape.record() if tape else contextlib.nullcontext():
+        loss, grads = loss_and_grads(params, cfg, tokens.cuda(),
+                                     targets.cuda())
     t0 = time.perf_counter()
-    ref_loss, ref_grads = loss_and_grads(cpu_params, cpu_cfg, tokens,
-                                         targets)
+    with tape.replay() if tape else contextlib.nullcontext():
+        ref_loss, ref_grads = loss_and_grads(cpu_params, cpu_cfg, tokens,
+                                             targets)
     cpu_s = time.perf_counter() - t0
     names = [n for n, _ in named_leaves(params)]
     errs = {}
@@ -1474,6 +1503,15 @@ def train_launches_per_step(kernels, cfg, tokens: int) -> dict:
             "ce_dx": chunks, "ce_dw": chunks}
 
 
+def hold_launches(what: str, launches: dict, per_step: dict,
+                  steps: int) -> None:
+    """Every kernel launched exactly per_step[k] times a step, over
+    `steps` steps: one launch more or fewer of any kernel fails."""
+    check(launches == {k: n * steps for k, n in per_step.items()},
+          f"{what}: launches {launches} over {steps} steps, expected "
+          f"{per_step} a step")
+
+
 def train_batch(cfg, b: int, t: int, seed: int) -> dict:
     """The fixed training batch of tokens [b, t] from `seed`, on the CPU."""
     seq = torch.randint(0, cfg.vocab_size, (b, t + 1),
@@ -1522,8 +1560,7 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
     steps = TRAIN_STEPS + 1
     check(all(launches[k] > 0 for k, n in per_step.items() if n),
           f"a kernel never launched on the training path: {launches}")
-    check(launches == {k: n * steps for k, n in per_step.items()},
-          f"training launches {launches} over {steps} steps")
+    hold_launches(f"{phase} {model}", launches, per_step, steps)
     plain = check_no_plain_route(phase)
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1544,7 +1581,13 @@ def train_run(kernels, phase: str, model: str, loss_fn, cfg, params,
         "step_timer": summarize(timer),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "host_launches_per_step": host["launches"],
-        "device_ops_per_step": host["device_ops"]}
+        "device_ops_per_step": host["device_ops"],
+        "traced_step_device_busy_ms": host["device_busy_ms"],
+        "traced_step_wall_ms": host["wall_ms"],
+        # the traced step's own wall time, the profiler's cost included
+        "traced_step_idle_share": 1 - host["device_busy_ms"]
+        / host["wall_ms"],
+        "traced_step_top_device_ms": host["top_device_ms"]}
 
 
 def gpt2_train_args(kernels, gpt2) -> tuple:
@@ -1591,6 +1634,202 @@ def phase_llama_train(kernels, llama):
     return launches, line
 
 
+# The MoE decoder (Mixtral-style): attention through flash_attention's
+# two-pass backward at head_dim 128 (Mixtral) or 64 (MoEConfig()'s
+# default widths), experts, routing and the balancing loss plain torch.
+# moe_train: Mixtral 8x7B's published widths (MoEConfig.mixtral_8x7b())
+# cut to 2 layers, ~2.23 B parameters: ~18 GB of bf16 parameters,
+# gradients and AdamW moments on one card; tokens [1, 4096], its context.
+MOE_LAYERS = 2
+MOE_TRAIN_TOKENS = (1, 4096)
+MOE_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": MOE_LAYERS,
+                         "flash_bwd_dq": MOE_LAYERS,
+                         "flash_bwd_dkv": MOE_LAYERS}
+# the routing of the same bf16 router logits on the card and on the CPU:
+# the dispatch (which token goes to which slot) equal, the combine
+# weights (fp32 softmax of the same inputs, normalised) within this
+ROUTING_COMBINE_TOL = 1e-5
+
+
+class RoutingTape:
+    """Records the expert choices `ops.moe.top_k_stable` makes (each
+    call's indices, in call order: the forward's routing of each layer,
+    then the balancing loss's), or replays them: a replayed call takes
+    the recorded indices and the values of its own probabilities there.
+    bf16 router logits on the card can put a token in another expert
+    than fp32 logits on the CPU; a gradient then differs by that token's
+    whole contribution (~sqrt(flips / tokens) of the leaf at random
+    init), which says nothing of the arithmetic. Replayed, the CPU pass
+    computes the card's function in fp32."""
+
+    def __init__(self, moe_ops):
+        self.moe_ops = moe_ops
+        self.calls: list = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        orig = self.moe_ops.top_k_stable
+        self.moe_ops.top_k_stable = fn
+        try:
+            yield self
+        finally:
+            self.moe_ops.top_k_stable = orig
+
+    def record(self):
+        orig = self.moe_ops.top_k_stable
+
+        def fn(probs, k):
+            vals, idx = orig(probs, k)
+            self.calls.append(idx.detach().cpu())
+            return vals, idx
+
+        self.calls = []
+        return self._patched(fn)
+
+    def replay(self):
+        it = iter(self.calls)
+
+        def fn(probs, k):
+            idx = next(it).to(probs.device)
+            return probs.gather(-1, idx), idx
+
+        return self._patched(fn)
+
+
+def hold_routing(label: str, got, ref) -> dict:
+    """(dispatch, combine) of `_top_k_routing` against the same function
+    on the same logits elsewhere: every token in the same expert slot, or
+    dropped in both, and the combine weights within ROUTING_COMBINE_TOL.
+    Returns the kept share of the (token, choice) pairs."""
+    (dispatch, combine), (ref_dispatch, ref_combine) = got, ref
+    moved = int((dispatch.cpu() != ref_dispatch.cpu()).sum())
+    err = max_err(combine.cpu(), ref_combine.cpu())
+    check(moved == 0 and err <= ROUTING_COMBINE_TOL,
+          f"{label}: {moved} dispatch entries differ, combine error {err}")
+    t = ref_dispatch.shape[0]
+    kept = float(ref_dispatch.sum()) / t
+    return {"dispatch_entries_differing": moved, "combine_max_abs_err": err,
+            "kept_choices_per_token": kept}
+
+
+def routing_line(moe, moe_ops, params, cfg, tokens) -> dict:
+    """The card's routing of `tokens`, layer by layer: held by
+    `hold_routing` against the CPU's routing of the same router logits,
+    with the share of (token, choice) pairs dropped at the capacity."""
+    with torch.no_grad():
+        _, router = moe.moe_forward(params, tokens.cuda(), cfg, True)
+    t = router[0].shape[0]
+    cap = moe_ops.capacity_of(t, cfg.top_k, cfg.capacity_factor,
+                              cfg.num_experts)
+    layers = []
+    for i, lg in enumerate(router):
+        got = moe_ops._top_k_routing(lg, cfg.top_k, cfg.num_experts, cap)
+        ref = moe_ops._top_k_routing(lg.cpu(), cfg.top_k, cfg.num_experts,
+                                     cap)
+        held = hold_routing(f"routing, layer {i}", got, ref)
+        held["dropped_share"] = 1 - held["kept_choices_per_token"] / cfg.top_k
+        layers.append(held)
+    return {"capacity": cap, "capacity_factor": cfg.capacity_factor,
+            "layers": layers,
+            "dropped_share": statistics.mean(x["dropped_share"]
+                                             for x in layers)}
+
+
+def top_k_sets(moe_ops, logits, k: int) -> torch.Tensor:
+    """Each token's set of top-k experts, as sorted indices [T, k]."""
+    idx = moe_ops.top_k_stable(torch.softmax(logits.float(), -1), k)[1]
+    return idx.sort(-1).values.cpu()
+
+
+def phase_moe_train_check(kernels, moe, moe_ops, tree) -> None:
+    """One step of the MoE decoder at MoEConfig()'s widths (d_model 768,
+    12 / 4 heads, head_dim 64, d_ff 2048, 8 experts, top 2) cut to
+    MOE_LAYERS layers, tokens [2, 256]: the loss and every gradient in
+    bf16 on the card against fp32 on the CPU taking the card's expert
+    choices (`RoutingTape`), each leaf within TRAIN_GRAD_TOL and the loss
+    within LOSS_TOL; the card's routing against the CPU's on the same
+    logits (`hold_routing`); and, reported, the tokens whose top-2 set
+    differs between the card's bf16 router logits and the CPU's fp32
+    ones."""
+    cfg = dataclasses.replace(moe.MoEConfig(), num_layers=MOE_LAYERS)
+    params = moe.moe_init(cfg, torch.Generator().manual_seed(40),
+                          device="cuda")
+    tokens, targets = check_tokens(cfg.vocab_size, 41)
+    reset_counts(kernels)
+    tape = RoutingTape(moe_ops)
+    loss, ref_loss, names, grads, errs, cpu_s = card_vs_cpu_grads(
+        tree, moe.moe_loss, params, cfg, tokens, targets, tape=tape)
+    launches = dict(kernels.LAUNCHES)
+    hold_launches("moe_train_check", launches, MOE_LAUNCHES_PER_STEP, 1)
+    check_no_plain_route("moe_train_check")
+    line = train_check_line("moe-default-2l", loss, ref_loss, errs, cpu_s)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        card_router = moe.moe_forward(params, tokens.cuda(), cfg, True)[1]
+        cpu_router = moe.moe_forward(
+            tree.tree_map(lambda p: p.detach().float().cpu(), params),
+            tokens, cpu_cfg, True)[1]
+    flips = [int((top_k_sets(moe_ops, a, cfg.top_k)
+                  != top_k_sets(moe_ops, b, cfg.top_k)).any(-1).sum())
+             for a, b in zip(card_router, cpu_router)]
+    emit({**line, "phase": "moe_train_check", "launches": launches,
+          "routing": "the CPU pass takes the card's expert choices",
+          "routing_held": routing_line(moe, moe_ops, params, cfg, tokens),
+          "cpu_own_routing": {
+              "tokens_top2_set_differs_by_layer": flips,
+              "tokens": tokens.numel()},
+          "card": card_line()})
+
+
+def moe_train_args(moe) -> tuple:
+    """Mixtral 8x7B's widths cut to MOE_LAYERS layers at tokens [1, 4096]
+    from fixed seeds: (train_run's arguments, seconds moe_init took)."""
+    cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
+                              num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = moe.moe_init(cfg, torch.Generator().manual_seed(42),
+                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return ("mixtral-8x7b-2l",
+            lambda p, bt: moe.moe_loss(p, bt["tokens"], bt["targets"], cfg),
+            cfg, params, *MOE_TRAIN_TOKENS, 43,
+            MOE_LAUNCHES_PER_STEP), init_s
+
+
+def phase_moe_train(kernels, moe, moe_ops):
+    """The MoE training path (one device): TrainStep + adamw at Mixtral
+    8x7B's widths, 2 layers, tokens [1, 4096]; then the trained model's
+    routing of the batch (`routing_line`: the dropped share at capacity
+    factor 1.25). Returns the launch counts and the phase's line."""
+    from ray_tpu_torch.observability import flops
+
+    args, init_s = moe_train_args(moe)
+    launches, line = train_run(kernels, "moe_train", *args)
+    _, _, cfg, params, b, t, seed, _ = args
+    del args
+    line.update({
+        "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+        "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "num_experts": cfg.num_experts, "top_k": cfg.top_k,
+        "vocab_size": cfg.vocab_size, "rope_theta": cfg.rope_theta,
+        "params_total": flops.params_size(params),
+        "params_active_jax_count": flops.param_count(cfg),
+        # `mfu` takes JAX's count, which charges each active expert three
+        # d x d_ff matrices; it has two (w_in, w_out)
+        "mfu_two_matrix_experts": flops.mfu(
+            (flops.train_flops_per_token(cfg, t) - 6.0 * cfg.num_layers
+             * cfg.top_k * cfg.d_model * cfg.d_ff) * b * t,
+            line["step_ms"] / 1e3, line["peak_flops"]),
+        "moe_init_s": init_s,
+        "routing": routing_line(moe, moe_ops, params, cfg,
+                                train_batch(cfg, b, t, seed)["tokens"]),
+        "card": card_line()})
+    emit(line)
+    return launches, line
+
+
 # the mesh step on one NCCL rank against the one-device step, on the same
 # weights and batch: the same kernels on the same tensors (at world 1
 # every block is the whole parameter). GPT-2's kernels are deterministic,
@@ -1599,18 +1838,23 @@ def phase_llama_train(kernels, llama):
 # atomics, so its one-device step differs from itself run to run; over
 # 11 AdamW steps on bf16 weights that noise grew to 1.4e-2 in the loss on
 # that card (8e-5 after one update), while the loss falls ~0.23 a step.
-# The phase also reruns the one-device step and prints that spread.
-MESH_LOSS_TOL = {"gpt2-small": 1e-3, "llama-small": 5e-2}
+# The phase also reruns the one-device step and prints that spread. The
+# MoE step's attention backward is the two-pass pair (no atomics), so its
+# losses are held as GPT-2's.
+MESH_LOSS_TOL = {"gpt2-small": 1e-3, "llama-small": 5e-2,
+                 "mixtral-8x7b-2l": 1e-3}
 
 
-def phase_mesh_train(kernels, gpt2, llama, one_device: dict) -> list:
+def phase_mesh_train(kernels, gpt2, llama, moe, one_device: dict) -> list:
     """The mesh TrainStep on one NCCL rank (a file:// store, world 1),
     `make_mesh(MeshConfig())`, the models' partition specs: GPT-2 small
-    [8, 1024] and Llama small [4, 2048] on the weights and batches of
-    `train` and `llama_train`. Every loss within MESH_LOSS_TOL of the
-    one-device step's, the same kernel launches a step, no plain route;
-    beside it the one-device step run again, for its own spread. The
-    process group is destroyed at the end."""
+    [8, 1024], Llama small [4, 2048] and the 2-layer Mixtral-width MoE
+    [1, 4096] on the weights and batches of `train`, `llama_train` and
+    `moe_train`. Every loss within MESH_LOSS_TOL of the one-device
+    step's, the same kernel launches a step, no plain route; beside it
+    the one-device step run again, for its own spread. Each run's state
+    is freed before the next. The process group is destroyed at the
+    end."""
     import shutil
     import tempfile
 
@@ -1628,7 +1872,10 @@ def phase_mesh_train(kernels, gpt2, llama, one_device: dict) -> list:
                 (lambda: gpt2_train_args(kernels, gpt2),
                  gpt2.gpt2_partition_specs(gpt2.GPT2Config.small())),
                 (lambda: llama_train_args(llama),
-                 llama.llama_partition_specs(llama.LlamaConfig.small()))):
+                 llama.llama_partition_specs(llama.LlamaConfig.small())),
+                (lambda: moe_train_args(moe)[0],
+                 moe.moe_partition_specs(dataclasses.replace(
+                     moe.MoEConfig.mixtral_8x7b(), num_layers=MOE_LAYERS)))):
             _, again = train_run(kernels, "train_repeat", *make_args())
             launches, line = train_run(kernels, "mesh_train", *make_args(),
                                        mesh=mesh, param_specs=specs)
@@ -1666,6 +1913,91 @@ def phase_mesh_train(kernels, gpt2, llama, one_device: dict) -> list:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
+
+
+SEQ_SHAPE = (1, 4096, 32, 128)  # [B, T, H, D]: Mixtral's heads, context
+
+
+def phase_seq_parallel(kernels, attention) -> None:
+    """Sequence parallelism on one NCCL rank (world 1, every mesh axis of
+    size 1), the causal attention of Mixtral's shape [1, 4096, 32, 128]
+    in bf16 inside `shard_map` split on `sp`: `ring_attention`,
+    `ulysses_attention` (around `mha_reference`, and around
+    `flash_attention`, whose `flash_fwd` launch is counted), each held by
+    `hold_output` against `mha_reference` in fp32 on the same inputs and
+    timed beside `mha_reference` in bf16; and `all_to_all` at axis size 1,
+    the identity in both forms. No kernel but that one `flash_fwd`, no
+    plain-route attention call. The process group is destroyed at the
+    end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    from ray_tpu_torch.ops.ulysses import ulysses_attention
+    from ray_tpu_torch.parallel import (MeshConfig, P, all_to_all,
+                                        make_mesh, shard_map)
+    from ray_tpu_torch.parallel.mesh import axis_env
+
+    tmp = tempfile.mkdtemp(prefix="seq-parallel-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(50)
+        q, k, v = qkv(gen, SEQ_SHAPE[0], SEQ_SHAPE[1], SEQ_SHAPE[1],
+                      *SEQ_SHAPE[2:])
+        spec = P(None, "sp")
+        runs = {
+            "ring": lambda a, b, c: ring_attention(a, b, c, "sp", True),
+            "ulysses_mha": lambda a, b, c: ulysses_attention(a, b, c, "sp",
+                                                             True),
+            "ulysses_flash": lambda a, b, c: ulysses_attention(
+                a, b, c, "sp", True, attn_fn=attention.flash_attention)}
+        with torch.no_grad():
+            ref = attention.mha_reference(q.float(), k.float(), v.float(),
+                                          True)
+            reset_counts(kernels)
+            outs = {name: shard_map(fn, mesh=mesh, in_specs=(spec,) * 3,
+                                    out_specs=spec)(q, k, v).to_local()
+                    for name, fn in runs.items()}
+            launches = dict(kernels.LAUNCHES)
+            hold_launches("seq_parallel", launches,
+                          {**_NO_LAUNCHES, "flash_fwd": 1}, 1)
+            plain = check_no_plain_route("seq_parallel")
+            line = {"phase": "seq_parallel", "shape": list(SEQ_SHAPE),
+                    "dtype": "bfloat16", "causal": True,
+                    "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                    "backend": dist.get_backend(), "launches": launches,
+                    "plain_attention_calls": plain}
+            for name, out in outs.items():
+                check(out.shape == q.shape and out.dtype == q.dtype,
+                      f"{name}: {out.shape} {out.dtype}")
+                line[name] = hold_output(f"seq_parallel {name}", out, ref)
+            del outs, ref
+            for name, fn in runs.items():
+                line[name]["ms"] = median_ms(
+                    lambda fn=fn: shard_map(fn, mesh=mesh,
+                                            in_specs=(spec,) * 3,
+                                            out_specs=spec)(q, k, v),
+                    iters=5, reps=2, warmup=1)
+            line["mha_reference_bf16_ms"] = median_ms(
+                lambda: attention.mha_reference(q, k, v, True), iters=5,
+                reps=2, warmup=1)
+            x = q.contiguous()
+            with axis_env(mesh):
+                tiled = all_to_all(x, "sp", split_axis=2, concat_axis=1,
+                                   tiled=True)
+                untiled = all_to_all(x, "sp", split_axis=0, concat_axis=2)
+            check(torch.equal(tiled, x)
+                  and torch.equal(untiled, x.movedim(0, 2)),
+                  "all_to_all at axis size 1 is not the identity")
+            line["all_to_all_size1_identity"] = True
+        line["card"] = card_line()
+        emit(line)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def summarize(timer) -> dict:
@@ -1721,8 +2053,7 @@ def same_bits(a, b) -> bool:
 
 def check_launches(kernels, what: str, per_step: dict, steps: int) -> dict:
     launches = dict(kernels.LAUNCHES)
-    check(launches == {k: n * steps for k, n in per_step.items()},
-          f"{what}: launches {launches} over {steps} steps")
+    hold_launches(what, launches, per_step, steps)
     check_no_plain_route(what)
     return launches
 
@@ -2259,21 +2590,32 @@ _LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 def launches_of(fn):
     """(fn's result, its host launches: the CUDA runtime calls that put a
     kernel, a copy or a fill on the card, as torch.profiler records them
-    on the host, and the device operations CUPTI saw)."""
+    on the host, the device operations CUPTI saw, their summed durations
+    (the card's busy time), the traced call's wall time, synchronised on
+    both sides, and the five names that took longest)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     host = device = 0
+    by_name: dict = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             device += 1
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
         elif ev.name.startswith(_LAUNCH_CALLS):
             host += 1
-    return out, {"launches": host, "device_ops": device}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return out, {"launches": host, "device_ops": device,
+                 "device_busy_ms": sum(by_name.values()) / 1e3,
+                 "wall_ms": wall_ms,
+                 "top_device_ms": [[n[:72], us / 1e3] for n, us in top]}
 
 
 def _untraced(fn):
@@ -2972,7 +3314,9 @@ def main() -> int:
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.models import generate as generate_mod
     from ray_tpu_torch.models import gpt2, kvcache, llama
+    from ray_tpu_torch.models import moe_transformer as moe
     from ray_tpu_torch.ops import attention, fused_ce
+    from ray_tpu_torch.ops import moe as moe_ops
     from ray_tpu_torch.serve import lora as lora_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3062,6 +3406,7 @@ def main() -> int:
     fused_row = phase_flash_bwd_fused(kernels, attention, gen)
     phase_train_check(gpt2, tree)
     phase_llama_train_check(kernels, llama, tree)
+    phase_moe_train_check(kernels, moe, moe_ops, tree)
     phase_plain_route(kernels, attention, gpt2, llama, tree)
     # the training paths, each counted from 0: GPT-2's reaches seven of
     # the kernels, Llama's the single-pass backward
@@ -3071,9 +3416,14 @@ def main() -> int:
     launches, llama_line = phase_llama_train(kernels, llama)
     fused_row["launches"] = launches["flash_bwd_fused"]
     rows.insert(4, fused_row)
+    # the MoE step: the two-pass attention kernels at head_dim 128
+    _, moe_line = phase_moe_train(kernels, moe, moe_ops)
     # the mesh form of the same steps, counted from 0 the same way
-    phase_mesh_train(kernels, gpt2, llama, {"gpt2-small": gpt2_line,
-                                            "llama-small": llama_line})
+    phase_mesh_train(kernels, gpt2, llama, moe,
+                     {"gpt2-small": gpt2_line, "llama-small": llama_line,
+                      "mixtral-8x7b-2l": moe_line})
+    # ring and Ulysses attention, all_to_all, counted from 0
+    phase_seq_parallel(kernels, attention)
     # checkpoints and the trainer's fit loop, each leg counted from 0
     phase_trainer_resume(kernels, gpt2, llama)
     keys = ["name", "route", "source", "replaces", "launches",

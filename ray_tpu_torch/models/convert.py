@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import is_node, rebuild, tree_map
 
 
 def numpy_tensor(arr: Any) -> torch.Tensor:
@@ -54,10 +54,11 @@ def from_jax_adamw_state(opt_state: Any, like_params: Any,
 
     def moment(like, src):
         # walk like_params, so the moments keep its keys and leaf order
-        if isinstance(like, dict):
-            return {k: moment(v, src[k]) for k, v in like.items()}
-        if isinstance(like, (list, tuple)):
-            return type(like)(moment(v, s) for v, s in zip(like, src))
+        if isinstance(like, dict) and is_node(like):
+            return rebuild(like, ((k, moment(v, src[k]))
+                                  for k, v in like.items()))
+        if is_node(like):
+            return rebuild(like, [moment(v, s) for v, s in zip(like, src)])
         if tuple(np.shape(src)) != tuple(like.shape):
             raise ValueError(f"moment shape {np.shape(src)} does not "
                              f"match parameter {tuple(like.shape)}")

@@ -8,6 +8,8 @@ from typing import Any, Optional, Union
 
 import torch
 
+from ..tree import tree_leaves
+
 # dense bf16 tensor-core peak FLOP/s by CUDA device name (NVIDIA data
 # sheets, SXM parts, no sparsity); the longest matching prefix wins
 PEAK_FLOPS_BF16 = {
@@ -33,17 +35,30 @@ def param_count(cfg: Any) -> int:
     tied wte, wpe and 12 d^2 per layer (qkv 3, proj 1, mlp 8).
     LlamaConfig: the embedding and per layer q, k, v, o (2 d^2 + 2 d
     kv_dim) and gate, up, down (3 d d_ff); the untied `lm_head` is not
-    counted, as in JAX."""
+    counted, as in JAX. MoEConfig: the Llama count with the active
+    experts' `top_k * 3 d d_ff` for the MLP, JAX's count as written,
+    though each expert has two matrices (`w_in`, `w_out`): it charges the
+    experts 1.5x their parameters, so the MFU reads as JAX's would."""
     name = type(cfg).__name__
     d, layers = cfg.d_model, cfg.num_layers
     if name == "GPT2Config":
         return (cfg.padded_vocab * d + cfg.max_seq_len * d
                 + layers * 12 * d * d)
-    if name == "LlamaConfig":
+    if name in ("LlamaConfig", "MoEConfig"):
         kv_dim = cfg.num_kv_heads * cfg.head_dim
+        mlp = 3 * d * cfg.d_ff
+        if name == "MoEConfig":
+            mlp *= cfg.top_k
         return cfg.padded_vocab * d + layers * (
-            2 * d * d + 2 * d * kv_dim + 3 * d * cfg.d_ff)
+            2 * d * d + 2 * d * kv_dim + mlp)
     raise TypeError(f"no analytic parameter count for {name}")
+
+
+def params_size(params: Any) -> int:
+    """Parameter count of an actual tree: every leaf's elements, so an
+    MoE model's total (every expert), not its active count."""
+    return int(sum(leaf.numel() for leaf in tree_leaves(params)
+                   if isinstance(leaf, torch.Tensor)))
 
 
 def attn_flops_per_token(cfg: Any, seq: Optional[int] = None,

@@ -4,7 +4,9 @@ ray_tpu/parallel/).
 - MeshConfig / make_mesh: named-axis `DeviceMesh` (dp/fsdp/pp/sp/ep/tp)
   over the ranks of the default process group; `P` partition specs and
   their DTensor placements; `shard_map` with the axis collectives
-  (`psum`, `all_gather`, `ppermute`, `axis_index`, `axis_size`)
+  (`psum`, `all_gather`, `ppermute`, `all_to_all`, `axis_index`,
+  `axis_size`); `RowSplit` / `row_split`: the mesh TrainStep's split
+  of the batch rows, for a loss that needs the whole batch
 - infer_fsdp_specs / fsdp_shardings: ZeRO-3 specs on the `fsdp` axis
 - HybridMeshConfig / make_hybrid_mesh / discover_slice_topology:
   DCN x ICI hybrid meshes over ranks grouped into slices
@@ -27,7 +29,9 @@ from .mesh import (  # noqa: F401
     MESH_AXES,
     MeshConfig,
     P,
+    RowSplit,
     all_gather,
+    all_to_all,
     axis_index,
     axis_size,
     host_local_array_to_global,
@@ -35,7 +39,9 @@ from .mesh import (  # noqa: F401
     named_sharding,
     ppermute,
     psum,
+    row_split,
     shard_map,
+    split_rows,
 )
 from .multislice import (  # noqa: F401
     HybridMeshConfig,

@@ -15,9 +15,13 @@ all_gather, ppermute, axis_index / axis_size and their gradients),
 `collective` (host groups: a pair and the whole gang), `pipeline`
 (forward and gradients), `train_*` (the mesh TrainStep), `dp_grad` (the
 data-parallel gradient through `TrainStep.gathered`, and through
-`full_tensor()` for contrast) and `rendezvous` (KV rendezvous into a
-new process group, a hybrid mesh over it, a one-rank group); it ends the
-gang's process group, so it runs last.
+`full_tensor()` for contrast), `all_to_all` (both forms, and at axis size
+1), `seq_parallel` (ring and Ulysses attention and their gradients at sp
+4 and sp 1), `moe_ep` (the expert-parallel `moe_ffn` and its gradients),
+`row_split` (a batch's rows gathered over two data axes, and back) and
+`rendezvous` (KV rendezvous into a new process group, a hybrid mesh over
+it, a one-rank group); it ends the gang's process group, so it runs
+last.
 """
 from __future__ import annotations
 
@@ -33,9 +37,9 @@ from torch.distributed.tensor import distribute_tensor
 from ..tree import tree_leaves, tree_map
 from . import collective as col
 from .distributed import initialize_torch_distributed
-from .mesh import (MeshConfig, P, all_gather, axis_index, axis_size,
-                   host_local_array_to_global, make_mesh, ppermute, psum,
-                   shard_map, spec_placements)
+from .mesh import (MeshConfig, P, RowSplit, all_gather, all_to_all,
+                   axis_index, axis_size, host_local_array_to_global,
+                   make_mesh, ppermute, psum, shard_map, spec_placements)
 from .multislice import HybridMeshConfig, discover_slice_topology, \
     make_hybrid_mesh
 from .pipeline import make_pipeline_fn, stack_stage_params
@@ -135,6 +139,112 @@ def check_collective(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
     return out
 
 
+SEQ_MESH = dict(dp=1, sp=4)
+EP_MESH = dict(dp=1, ep=4)
+# name -> (split_axis, concat_axis, tiled, axis, this rank's block shape)
+A2A_CASES = {
+    "untiled_0_0": (0, 0, False, "sp", (4, 3, 2)),
+    "untiled_0_2": (0, 2, False, "sp", (4, 3, 2)),
+    "untiled_1_0": (1, 0, False, "sp", (3, 4, 2)),
+    "tiled_2_1": (2, 1, True, "sp", (2, 3, 8, 2)),
+    "tiled_1_2": (1, 2, True, "sp", (2, 8, 3, 2)),
+    "size1_untiled": (0, 1, False, "dp", (1, 3, 2)),
+    "size1_tiled": (1, 0, True, "dp", (2, 3, 2)),
+}
+
+
+def a2a_out_shape(block, split: int, concat: int, tiled: bool, n: int):
+    """The shape `all_to_all` gives a block of shape `block` over n ranks."""
+    out = list(block)
+    if tiled:
+        out[split] //= n
+        out[concat] *= n
+        return tuple(out)
+    del out[split]
+    out.insert(concat, n)
+    return tuple(out)
+
+
+def _grads_of(fn, tensors, weight):
+    """fn(*tensors) as a whole array, and the gradients of
+    sum(fn(...) * weight) in each tensor."""
+    ts = [torch.from_numpy(t).requires_grad_() for t in tensors]
+    y = fn(*ts)
+    if hasattr(y, "full_tensor"):
+        y = y.full_tensor()
+    grads = torch.autograd.grad((y * torch.from_numpy(weight)).sum(), ts)
+    return {"y": _np(y), "grads": [_np(g) for g in grads]}
+
+
+def check_all_to_all(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
+    """Each A2A_CASES exchange over a block per rank stacked on dim 0, and
+    its gradient."""
+    mesh = make_mesh(MeshConfig(**SEQ_MESH), device="cpu")
+    out = {}
+    for name, (split, concat, tiled, axis, _) in A2A_CASES.items():
+        def body(xl, split=split, concat=concat, tiled=tiled, axis=axis):
+            return all_to_all(xl, axis, split_axis=split,
+                              concat_axis=concat, tiled=tiled)
+
+        spec = P("sp")
+        fn = shard_map(body, mesh=mesh, in_specs=spec, out_specs=spec)
+        out[name] = _grads_of(fn, [inp[name]["x"]], inp[name]["w"])
+    return out
+
+
+def check_seq_parallel(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
+    """Ring and Ulysses attention at sp 4 (q, k, v split on the sequence)
+    and at sp 1 (a dp 4 mesh, each rank its own batch row), forward and
+    gradients; Ulysses' refusal of heads sp does not divide."""
+    from ..ops.ring_attention import ring_attention
+    from ..ops.ulysses import ulysses_attention
+
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    out = {}
+    for name, case in inp["cases"].items():
+        kind, causal, sp = case["kind"], case["causal"], case["sp"]
+        mesh = make_mesh(MeshConfig(**(SEQ_MESH if sp > 1 else
+                                       dict(dp=world))), device="cpu")
+        spec = P(None, "sp") if sp > 1 else P("dp")
+
+        def body(q, k, v, fn=fns[kind], causal=causal):
+            return fn(q, k, v, axis_name="sp", causal=causal)
+
+        fn = shard_map(body, mesh=mesh, in_specs=(spec,) * 3,
+                       out_specs=spec)
+        out[name] = _grads_of(fn, case["qkv"], case["w"])
+    mesh = make_mesh(MeshConfig(**SEQ_MESH), device="cpu")
+    q6 = torch.zeros(1, 16, 6, 8)
+    try:
+        shard_map(lambda q, k, v: ulysses_attention(q, k, v, "sp"),
+                  mesh=mesh, in_specs=(P(None, "sp"),) * 3,
+                  out_specs=P(None, "sp"))(q6, q6, q6)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def check_moe_ep(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
+    """The expert-parallel moe_ffn at ep 4, tokens and experts split on
+    `ep`, the gate replicated: output and the gradients of x, gate_w,
+    w_in and w_out."""
+    from ..ops.moe import moe_ffn
+
+    mesh = make_mesh(MeshConfig(**EP_MESH), device="cpu")
+    out = {}
+    for name, case in inp.items():
+        def body(x, gw, wi, wo, cf=case["capacity_factor"]):
+            return moe_ffn(x, gw, wi, wo, top_k=case["top_k"],
+                           capacity_factor=cf, axis_name="ep")
+
+        fn = shard_map(body, mesh=mesh,
+                       in_specs=(P("ep"), P(), P("ep"), P("ep")),
+                       out_specs=P("ep"))
+        out[name] = _grads_of(fn, case["args"], case["w"])
+    return out
+
+
 def pipeline_stage(params, x: torch.Tensor) -> torch.Tensor:
     """tests/test_parallel.py's stage: tanh(x @ w + b)."""
     w, b = params
@@ -159,36 +269,39 @@ def check_pipeline(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
 
 def _loss_fn(model: str, cfg):
     if model == "gpt2":
-        from ..models.gpt2 import gpt2_loss
+        from ..models.gpt2 import gpt2_loss as loss
+    elif model == "moe":
+        from ..models.moe_transformer import moe_loss as loss
+    else:
+        from ..models.llama import llama_loss as loss
 
-        return lambda p, b: gpt2_loss(p, b["tokens"], b["targets"], cfg)
-    from ..models.llama import llama_loss
-
-    return lambda p, b: llama_loss(p, b["tokens"], b["targets"], cfg)
+    return lambda p, b: loss(p, b["tokens"], b["targets"], cfg)
 
 
 def _specs(model: str, cfg):
     if model == "gpt2":
-        from ..models.gpt2 import gpt2_partition_specs
+        from ..models.gpt2 import gpt2_partition_specs as specs
+    elif model == "moe":
+        from ..models.moe_transformer import moe_partition_specs as specs
+    else:
+        from ..models.llama import llama_partition_specs as specs
 
-        return gpt2_partition_specs(cfg)
-    from ..models.llama import llama_partition_specs
-
-    return llama_partition_specs(cfg)
+    return specs(cfg)
 
 
 def check_train(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
-    """Steps of the mesh TrainStep + adamw: each loss, and rank 0's
-    gathered params and first moments; whether every moment has its
-    param's layout."""
+    """Steps of the mesh TrainStep + adamw (on `data_spec` when given):
+    each loss, and rank 0's gathered params and first moments; whether
+    every moment has its param's layout."""
     from ..models.convert import from_jax_params
     from ..train.optim import adamw
     from ..train.step import TrainStep
 
     model, cfg = inp["model"], inp["config"]
     mesh = make_mesh(MeshConfig(**inp["mesh"]), device="cpu")
+    kw = {"data_spec": inp["data_spec"]} if "data_spec" in inp else {}
     step = TrainStep(_loss_fn(model, cfg), adamw(inp["lr"]), device="cpu",
-                     mesh=mesh, param_specs=_specs(model, cfg))
+                     mesh=mesh, param_specs=_specs(model, cfg), **kw)
     state = step.init_state(from_jax_params(inp["params"], device="cpu"))
     losses = []
     for b in inp["batches"]:
@@ -247,6 +360,20 @@ def check_dp_grad(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
     return out
 
 
+def check_row_split(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
+    """A batch split on its rows over (dp, fsdp), as the mesh TrainStep
+    splits it: this rank's block, the rows `RowSplit.gather` joins, and
+    the gradient of sum(gather(block) * w) in the block."""
+    mesh = make_mesh(MeshConfig(**inp["mesh"]), device="cpu")
+    split = RowSplit(mesh, ("dp", "fsdp"))
+    block = split.own(torch.from_numpy(inp["x"])).requires_grad_()
+    rows = split.gather(block)
+    (g,) = torch.autograd.grad((rows * torch.from_numpy(inp["w"])).sum(),
+                               block)
+    return {"block": split.block, "blocks": split.blocks, "own": _np(block),
+            "rows": _np(rows), "grad": _np(g)}
+
+
 class _FileKV:
     """kv_put / kv_get over files in a directory all ranks see."""
 
@@ -300,7 +427,9 @@ def check_rendezvous(rank: int, world: int, inp: Dict[str, Any]) -> Dict:
 
 CHECKS = {"layout": check_layout, "shard_map": check_shard_map,
           "collective": check_collective, "pipeline": check_pipeline,
-          "dp_grad": check_dp_grad, "rendezvous": check_rendezvous}
+          "dp_grad": check_dp_grad, "all_to_all": check_all_to_all,
+          "seq_parallel": check_seq_parallel, "moe_ep": check_moe_ep,
+          "row_split": check_row_split, "rendezvous": check_rendezvous}
 
 
 def run_checks(rank: int, world: int, inputs: Dict[str, Any]) -> Dict:

@@ -15,11 +15,12 @@ tensor. A dim split over one axis, and every batch split, is laid out as
 in JAX.
 
 `shard_map` runs a function on each rank's local blocks, with the axis
-collectives below inside it. Their gradients follow JAX's shard_map with
-`check_vma=False`: `psum`'s backward is a `psum`, and the cotangent of an
-output that is replicated over some axes is split evenly between its
-replicas, so gradients through `shard_map` equal those of the same
-function on the global arrays.
+collectives below (`psum`, `all_gather`, `ppermute`, `all_to_all`)
+inside it. Their gradients follow JAX's shard_map with `check_vma=False`:
+`psum`'s backward is a `psum`, and the cotangent of an output that is
+replicated over some axes is split evenly between its replicas, so
+gradients through `shard_map` equal those of the same function on the
+global arrays.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..device import resolve_device
+from ..tree import is_node, rebuild
 
 # Canonical axis order: data-like axes outermost, model axes innermost.
 MESH_AXES: Tuple[str, ...] = ("dp", "fsdp", "pp", "sp", "ep", "tp")
@@ -171,24 +173,26 @@ def map_specs(fn: Callable[[Any, Any, str], Any], specs: Any, tree: Any,
     `jax.tree_util.keystr` does, e.g. "['blocks'][0]['attn']['qkv']"."""
     if isinstance(specs, P) or specs is None:
         spec = P() if specs is None else specs
-        if isinstance(tree, dict):
-            return {k: map_specs(fn, spec, v, f"{path}[{k!r}]")
-                    for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(map_specs(fn, spec, v, f"{path}[{i}]")
-                              for i, v in enumerate(tree))
+        if isinstance(tree, dict) and is_node(tree):
+            return rebuild(tree, ((k, map_specs(fn, spec, v,
+                                                f"{path}[{k!r}]"))
+                                  for k, v in tree.items()))
+        if is_node(tree):
+            return rebuild(tree, [map_specs(fn, spec, v, f"{path}[{i}]")
+                                  for i, v in enumerate(tree)])
         return fn(spec, tree, path)
     if isinstance(tree, dict) and isinstance(specs, dict):
         if set(tree) != set(specs):
             raise ValueError(
                 f"spec tree at {path or 'the root'} has keys "
                 f"{sorted(specs)}, the tree {sorted(tree)}")
-        return {k: map_specs(fn, specs[k], v, f"{path}[{k!r}]")
-                for k, v in tree.items()}
+        return rebuild(tree, ((k, map_specs(fn, specs[k], v,
+                                            f"{path}[{k!r}]"))
+                              for k, v in tree.items()))
     if isinstance(tree, (list, tuple)) and isinstance(specs, (list, tuple)) \
             and len(tree) == len(specs):
-        return type(tree)(map_specs(fn, s, v, f"{path}[{i}]")
-                          for i, (s, v) in enumerate(zip(specs, tree)))
+        return rebuild(tree, [map_specs(fn, s, v, f"{path}[{i}]")
+                              for i, (s, v) in enumerate(zip(specs, tree))])
     raise ValueError(f"spec tree does not match the tree at "
                      f"{path or 'the root'}: {type(specs).__name__} "
                      f"against {type(tree).__name__}")
@@ -356,6 +360,39 @@ class _PPermute(torch.autograd.Function):
                 None, None, None)
 
 
+class _AllToAll(torch.autograd.Function):
+    """Chunk j of x (cut on `split_axis`) to axis coordinate j; what each
+    coordinate sent, joined on `concat_axis` in coordinate order. The
+    backward is the inverse exchange, split and concat swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, order, split_axis, concat_axis, tiled):
+        ctx.args = group, order, split_axis, concat_axis, tiled
+        return _all_to_all(x, group, order, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, order, split_axis, concat_axis, tiled = ctx.args
+        return (_all_to_all(g, group, order, concat_axis, split_axis, tiled),
+                None, None, None, None, None)
+
+
+def _all_to_all(x: torch.Tensor, group, order: list, split_axis: int,
+                concat_axis: int, tiled: bool) -> torch.Tensor:
+    n = len(order)
+    parts = x.chunk(n, split_axis) if tiled else x.unbind(split_axis)
+    coord = {r: j for j, r in enumerate(order)}
+    # the list form exchanges by group rank (the sorted global ranks)
+    by_rank = sorted(order)
+    send = [parts[coord[r]].contiguous() for r in by_rank]
+    recv = [torch.empty_like(t) for t in send]
+    dist.all_to_all(recv, send, group=group)
+    got = dict(zip(by_rank, recv))
+    joined = [got[r] for r in order]
+    return torch.cat(joined, concat_axis) if tiled \
+        else torch.stack(joined, concat_axis)
+
+
 def _exchange(x: torch.Tensor, group, send_to: Optional[int],
               recv_from: Optional[int]) -> torch.Tensor:
     """Send x to global rank `send_to`, return what `recv_from` sent
@@ -429,6 +466,91 @@ def ppermute(x: torch.Tensor, axis_name: str, perm: Sequence[Tuple[int, int]],
     return _PPermute.apply(x, group, send_to, recv_from)
 
 
+def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int,
+               concat_axis: int, tiled: bool = False,
+               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """`jax.lax.all_to_all`: x is cut on `split_axis` into one chunk per
+    rank along `axis_name`, chunk j goes to axis coordinate j, and the
+    chunks this rank receives are joined on `concat_axis` in coordinate
+    order. tiled=False: x.shape[split_axis] must equal the axis size,
+    each chunk is one slice of that dim (the dim goes), and the received
+    slices stack on a new dim at `concat_axis`. tiled=True: the dim is
+    cut into axis-size equal blocks, concatenated on `concat_axis`.
+    Differentiable (the backward is the inverse exchange)."""
+    mesh = _mesh(mesh)
+    order = _axis_ranks(mesh, axis_name)
+    n = len(order)
+    size = x.shape[split_axis]
+    if (size % n) if tiled else (size != n):
+        raise ValueError(
+            f"all_to_all over {axis_name!r} of size {n}: split dim "
+            f"{split_axis} has size {size}, which must "
+            f"{'be a multiple of' if tiled else 'equal'} the axis size")
+    if n == 1:
+        return x if tiled else torch.movedim(x, split_axis, concat_axis)
+    return _AllToAll.apply(x, mesh.get_group(axis_name), order, split_axis,
+                           concat_axis, tiled)
+
+
+# ------------------------------------------------------------ row splits
+
+@dataclass(frozen=True)
+class RowSplit:
+    """A global batch cut on its rows (dim 0) over `axes` of `mesh`, in
+    the axes' order (the first axis major), as JAX lays a batch out on a
+    data spec: this rank holds block `block` of `blocks`. The mesh
+    TrainStep runs its loss under one (`split_rows`). A loss that is a
+    mean over rows needs nothing of it; a function of the whole batch
+    (MoE routing: each expert's capacity and queue, the balancing loss)
+    gathers the rows with `gather` and takes its own back with `own`."""
+
+    mesh: DeviceMesh
+    axes: Tuple[str, ...]
+
+    @property
+    def blocks(self) -> int:
+        return int(np.prod([axis_size(a, self.mesh) for a in self.axes]))
+
+    @property
+    def block(self) -> int:
+        i = 0
+        for a in self.axes:
+            i = i * axis_size(a, self.mesh) + axis_index(a, self.mesh)
+        return i
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every block's rows of x, in block order; differentiable (each
+        block's cotangent is summed over the ranks)."""
+        for a in reversed(self.axes):
+            x = all_gather(x, a, axis=0, tiled=True, mesh=self.mesh)
+        return x
+
+    def own(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the rows of a gathered y."""
+        n = y.shape[0] // self.blocks
+        return y[self.block * n:(self.block + 1) * n]
+
+
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("row_split",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def split_rows(split: Optional[RowSplit]):
+    """Run the code inside on this rank's block of `split`'s rows."""
+    token = _ROWS.set(split)
+    try:
+        yield split
+    finally:
+        _ROWS.reset(token)
+
+
+def row_split() -> Optional[RowSplit]:
+    """The row split the running code's batch has (inside a mesh
+    TrainStep's loss), or None: the batch is whole."""
+    return _ROWS.get()
+
+
 # -------------------------------------------------------------- shard_map
 
 class _SplitCotangent(torch.autograd.Function):
@@ -495,8 +617,9 @@ def shard_map(f: Callable, *, mesh: DeviceMesh, in_specs: Any,
     return run
 
 
-__all__ = ["MESH_AXES", "MeshConfig", "P", "all_gather", "axis_index",
-           "axis_size", "host_local_array_to_global", "make_mesh",
-           "map_specs", "mesh_rank_array", "mesh_sizes", "named_sharding",
-           "ppermute", "psum", "shard_map", "solve_axis_sizes",
-           "spec_placements", "validate_axis_names"]
+__all__ = ["MESH_AXES", "MeshConfig", "P", "RowSplit", "all_gather",
+           "all_to_all", "axis_index", "axis_size",
+           "host_local_array_to_global", "make_mesh", "map_specs",
+           "mesh_rank_array", "mesh_sizes", "named_sharding", "ppermute",
+           "psum", "row_split", "shard_map", "solve_axis_sizes",
+           "spec_placements", "split_rows", "validate_axis_names"]

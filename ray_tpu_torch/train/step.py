@@ -26,9 +26,9 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate,
 from ..device import resolve_device
 from ..observability import flops as _flops
 from ..observability.step_timer import StepTimer
-from ..parallel.mesh import (P, axis_names, map_specs, mesh_sizes,
-                             spec_axes, spec_placements,
-                             validate_axis_names)
+from ..parallel.mesh import (P, RowSplit, axis_names, map_specs,
+                             mesh_sizes, spec_axes, spec_placements,
+                             split_rows, validate_axis_names)
 from ..parallel.shardcheck import check_specs
 from ..tree import tree_leaves, tree_map
 from .session import _get_session
@@ -80,7 +80,10 @@ class TrainStep:
       axes of `data_spec`'s first entry, in the spec's order, as JAX
       lays out the batch. `loss_fn` must be a mean over equal rows: the
       step divides it by the number of row blocks, so the gradient and
-      the returned loss are the global batch's mean, as JAX's.
+      the returned loss are the global batch's mean, as JAX's. It runs
+      under the split (`parallel.mesh.split_rows`): a loss that needs
+      the whole batch reads `row_split()` and gathers it (the MoE
+      model's routing does), and is then the global batch's as well.
     - tp, pp, sp and ep in a spec only decide where a parameter is
       stored: the step computes on gathered weights, so any mesh gives
       JAX's numbers, but tensor-parallel compute is not split yet.
@@ -116,16 +119,10 @@ class TrainStep:
             raise ValueError(f"data_spec {self.data_spec} splits a dim "
                              f"other than the batch")
         data_axes = spec_axes(self.data_spec[0]) if self.data_spec else ()
-        names = axis_names(mesh)
-        coord = mesh.get_coordinate()
-        sizes = mesh_sizes(mesh)
-        self._blocks, self._block = 1, 0
-        for ax in data_axes:
-            self._blocks *= sizes[ax]
-            self._block = self._block * sizes[ax] + coord[names.index(ax)]
+        self._split = RowSplit(mesh, data_axes)
         self._full = [Replicate()] * mesh.ndim
         self._partial = [Partial() if a in data_axes else Replicate()
-                         for a in names]
+                         for a in axis_names(mesh)]
 
     def init_state(self, params: Any) -> Dict[str, Any]:
         """Params moved to the step's device (a tensor already there is
@@ -165,11 +162,10 @@ class TrainStep:
         """This rank's block of rows of a global batch leaf."""
         if not isinstance(x, torch.Tensor) or x.dim() == 0:
             return x
-        if x.shape[0] % self._blocks:
+        if x.shape[0] % self._split.blocks:
             raise ValueError(f"batch of {x.shape[0]} rows does not split "
-                             f"into {self._blocks} equal blocks")
-        n = x.shape[0] // self._blocks
-        return x[self._block * n:(self._block + 1) * n]
+                             f"into {self._split.blocks} equal blocks")
+        return self._split.own(x)
 
     def gathered(self, params: Any) -> Any:
         """A mesh state's parameters as plain full tensors, each on every
@@ -207,7 +203,9 @@ class TrainStep:
         if self.mesh is None:
             loss = self.loss_fn(params, batch)
         else:
-            loss = self.loss_fn(self.gathered(params), batch) / self._blocks
+            with split_rows(self._split):
+                loss = self.loss_fn(self.gathered(params), batch)
+            loss = loss / self._split.blocks
         grads = torch.autograd.grad(loss, leaves)
         self.optimizer.update_(grads, state["opt_state"], params)
         # int(): a restored step is a numpy 0-d int64

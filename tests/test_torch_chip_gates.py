@@ -13,7 +13,11 @@ the kernel sums them pass at GPT-2's vocabulary, and a sum-exp without
 the ragged last vocab tile or without one 64-column slice, or a tile
 without one d chunk, fails; the bound it replaced passed the first two.
 And the parse of nvcc's output that puts ptxas's warnings in the build
-line."""
+line. The MoE and sequence-parallel gates: `hold_routing` refuses a
+routing that drops a token it should keep, `hold_output` refuses a ring
+that skips a block (the port's `ring_attention` over 4 emulated ranks),
+`hold_launches` refuses a launch count off by one either way, and
+`RoutingTape` makes a replayed pass take the recorded experts."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,6 +26,8 @@ import torch
 
 import chip_smoke
 from ray_tpu_torch.ops import attention, fused_ce
+from ray_tpu_torch.ops import moe as moe_ops
+from ray_tpu_torch.ops import ring_attention as ring_mod
 
 
 def _grads(t: int = 1024, h: int = 2, d: int = 64, parts: bool = False):
@@ -331,3 +337,100 @@ def test_dq_sweep_reference_and_emulation():
     assert chip_smoke.allowance_used(wrong, got_ref) > 1
     with pytest.raises(AssertionError, match="dq"):
         chip_smoke.hold_grads("5 % dq", (wrong, plain[1], plain[2]), plain)
+
+
+# --------------------------------------------- MoE and sequence parallel
+
+def _routing(capacity_cut: int = 0):
+    """The routing of fixed random logits [256, 8] leaning to expert 0,
+    top 2, at capacity factor 1.25, with the capacity cut by
+    `capacity_cut` slots (the tokens in the cut slots dropped though they
+    fit)."""
+    logits = torch.randn(256, 8, generator=torch.Generator().manual_seed(1))
+    logits[:, 0] += 1.0
+    cap = moe_ops.capacity_of(256, 2, 1.25, 8)
+    d, c = moe_ops._top_k_routing(logits, 2, 8, cap - capacity_cut)
+    return torch.nn.functional.pad(d, (0, capacity_cut)), \
+        torch.nn.functional.pad(c, (0, capacity_cut))
+
+
+def test_routing_gate_refuses_a_dropped_token():
+    ref = _routing()
+    held = chip_smoke.hold_routing("same routing", _routing(), ref)
+    assert held["dispatch_entries_differing"] == 0
+    assert held["kept_choices_per_token"] < 2  # the capacity binds
+    one = (ref[0].clone(), ref[1].clone())
+    t, e, c = ref[0].nonzero()[0].tolist()
+    one[0][t, e, c] = 0
+    one[1][t, e, c] = 0
+    for fault in (_routing(capacity_cut=1), one):
+        with pytest.raises(AssertionError, match="dispatch entries differ"):
+            chip_smoke.hold_routing("drops a token", fault, ref)
+
+
+def _ring(monkeypatch, skip: bool = False, sp: int = 4):
+    """ring_attention on each of `sp` emulated ranks of a causal bf16
+    sequence [1, 1024, 2, 64] split on T, with a ppermute that hands each
+    rank the block of the rank before it (with `skip`, the one before
+    that: a ring that skips a block); the joined output and the fp32
+    mha_reference of the whole sequence."""
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 1024, 2, 64, generator=gen).bfloat16()
+               for _ in range(3))
+    qs, ks, vs = (x.chunk(sp, dim=1) for x in (q, k, v))
+    rank = {"r": 0}
+
+    def ppermute(x, axis_name, perm):
+        blocks = ks if any(x is b for b in ks) else vs
+        j = next(i for i, b in enumerate(blocks) if b is x)
+        return blocks[(j - 1 - int(skip)) % sp]
+
+    monkeypatch.setattr(ring_mod, "axis_size", lambda name: sp)
+    monkeypatch.setattr(ring_mod, "axis_index", lambda name: rank["r"])
+    monkeypatch.setattr(ring_mod, "ppermute", ppermute)
+    outs = []
+    for r in range(sp):
+        rank["r"] = r
+        outs.append(ring_mod.ring_attention(qs[r], ks[r], vs[r], "sp"))
+    ref = attention.mha_reference(q.float(), k.float(), v.float(), True)
+    return torch.cat(outs, dim=1), ref
+
+
+def test_ring_gate_refuses_a_skipped_block(monkeypatch):
+    out, ref = _ring(monkeypatch)
+    held = chip_smoke.hold_output("emulated ring", out, ref)
+    assert held["rel_norm_err"] < chip_smoke.GRAD_NORM_TOL / 2
+    bad, ref = _ring(monkeypatch, skip=True)
+    with pytest.raises(AssertionError, match="relative norm error"):
+        chip_smoke.hold_output("ring skipping a block", bad, ref)
+
+
+def test_launch_gate_refuses_a_count_off_by_one():
+    per_step = chip_smoke.MOE_LAUNCHES_PER_STEP
+    steps = chip_smoke.TRAIN_STEPS + 1
+    exact = {k: n * steps for k, n in per_step.items()}
+    chip_smoke.hold_launches("moe_train", exact, per_step, steps)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_fwd"):
+        for off in (-1, 1):
+            if exact[name] + off < 0:
+                continue
+            with pytest.raises(AssertionError, match="launches"):
+                chip_smoke.hold_launches(
+                    "moe_train", {**exact, name: exact[name] + off},
+                    per_step, steps)
+
+
+def test_routing_tape_replays_the_recorded_experts():
+    """A pass under replay() routes as the recorded pass did, also where
+    its own probabilities would choose another expert, and takes its own
+    probabilities' values there (so the gate gets their gradient)."""
+    tape = chip_smoke.RoutingTape(moe_ops)
+    a = torch.tensor([[0.5, 0.3, 0.2], [0.1, 0.2, 0.7]])
+    b = torch.tensor([[0.3, 0.5, 0.2], [0.1, 0.2, 0.7]])
+    with tape.record():
+        moe_ops.top_k_stable(a, 1)
+    with tape.replay():
+        vals, idx = moe_ops.top_k_stable(b, 1)
+    assert idx.tolist() == [[0], [2]]
+    assert torch.equal(vals, b.gather(-1, idx))
+    assert moe_ops.top_k_stable(b, 1)[1].tolist() == [[1], [2]]

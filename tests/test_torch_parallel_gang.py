@@ -10,11 +10,16 @@ Tolerances: 1e-5 for the small ops (the same fp32 arithmetic in another
 order), 1e-4 for the mesh TrainStep's losses and parameters after 3
 steps (as tests/test_torch_train.py, Adam's near-noise elements held to
 3 steps of lr), exact for the collectives' small integer-valued inputs.
+The sequence- and expert-parallel ops (`all_to_all`, ring and Ulysses
+attention, the expert-parallel `moe_ffn`) are held, forward and
+gradients, against `jax.grad` of the same shard-mapped JAX functions on
+the shapes of tests/test_parallel.py (ep 4, sp 4).
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import functools
 import shutil
 import tempfile
 
@@ -28,6 +33,11 @@ from jax.sharding import NamedSharding, PartitionSpec as JP
 
 from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu.models import llama as jllama
+from ray_tpu.models import moe_transformer as jmoe
+from ray_tpu.ops.attention import mha_reference as jmha
+from ray_tpu.ops.moe import moe_ffn as jmoe_ffn
+from ray_tpu.ops.ring_attention import ring_attention as jring
+from ray_tpu.ops.ulysses import ulysses_attention as julysses
 from ray_tpu.parallel import collective as jcol
 from ray_tpu.parallel import distributed as jdist
 from ray_tpu.parallel import mesh as jmesh
@@ -37,8 +47,9 @@ from ray_tpu.parallel.pipeline import stack_stage_params as jstack
 from ray_tpu.train.trainer import TrainStep as JTrainStep
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import moe_transformer as tmoe
 from ray_tpu_torch.models.convert import from_jax_params
-from ray_tpu_torch.parallel import gang, gang_checks
+from ray_tpu_torch.parallel import P, gang, gang_checks
 from ray_tpu_torch.tree import tree_leaves, tree_map
 
 WORLD = 4
@@ -56,10 +67,41 @@ MODELS = {
                                   dtype=jnp.float32),
               dataclasses.replace(tllama.LlamaConfig.tiny(),
                                   dtype=torch.float32), jllama),
+    "moe": (dataclasses.replace(jmoe.MoEConfig.tiny(), dtype=jnp.float32),
+            dataclasses.replace(tmoe.MoEConfig.tiny(), dtype=torch.float32),
+            jmoe),
 }
-TRAIN_CASES = {"train_gpt2_dp_fsdp": ("gpt2", dict(dp=2, fsdp=2)),
-               "train_gpt2_fsdp_tp": ("gpt2", dict(dp=1, fsdp=2, tp=2)),
-               "train_llama_dp_fsdp": ("llama", dict(dp=2, fsdp=2))}
+LOSSES = {"gpt2": ("gpt2_loss", "gpt2_partition_specs", tgpt2.gpt2_init),
+          "llama": ("llama_loss", "llama_partition_specs",
+                    tllama.llama_init),
+          "moe": ("moe_loss", "moe_partition_specs", tmoe.moe_init)}
+# name: (model, mesh, data_spec; None for TrainStep's default)
+TRAIN_CASES = {"train_gpt2_dp_fsdp": ("gpt2", dict(dp=2, fsdp=2), None),
+               "train_gpt2_fsdp_tp": ("gpt2", dict(dp=1, fsdp=2, tp=2),
+                                      None),
+               "train_llama_dp_fsdp": ("llama", dict(dp=2, fsdp=2), None),
+               # tests/test_models.py:101's mesh. MoE routing is not a
+               # mean over rows (each expert's capacity and queue, and
+               # the balancing loss, take the whole batch, as JAX's GSPMD
+               # step computes them): with the batch split on dp the
+               # model gathers the rows it routes; with P() every rank
+               # takes the whole batch. Both give JAX's step.
+               "train_moe_dp_ep": ("moe", dict(dp=-1, ep=2), None),
+               "train_moe_dp_ep_whole_batch": ("moe", dict(dp=-1, ep=2),
+                                               P())}
+# tests/test_parallel.py's shapes: [B, T, H, D] and causal for each case
+SEQ_CASES = {
+    "ulysses_causal": ("ulysses", True, 4, (2, 32, 8, 16)),
+    "ulysses_full": ("ulysses", False, 4, (2, 32, 8, 16)),
+    "ring_causal": ("ring", True, 4, (1, 16, 4, 8)),
+    "ring_full": ("ring", False, 4, (1, 16, 4, 8)),
+    "agree_ulysses": ("ulysses", True, 4, (1, 16, 4, 8)),
+    "ring_sp1": ("ring", True, 1, (4, 16, 4, 8)),
+    "ulysses_sp1": ("ulysses", True, 1, (4, 16, 4, 8)),
+}
+# tests/test_parallel.py:85: 4 ranks x 8 tokens, d 16, f 32, 8 experts,
+# top 2; capacity factor 8 drops nothing, 1.0 drops tokens
+MOE_CASES = {"no_drop": 8.0, "drops": 1.0}
 SLICE_IDS = [1, 0, 1, 0]
 HYBRID = dict(dp=-1, dcn_dp=2)
 
@@ -89,17 +131,44 @@ def _inputs(rng, kv_dir):
                      "x": f32(8, 8), "microbatches": 2}},
         "dp_grad": {"mesh": dict(dp=2, fsdp=2), "w": f32(8, 3),
                     "x": f32(8, 8)},
+        "row_split": {"mesh": dict(dp=2, fsdp=2), "x": f32(8, 3),
+                      "w": f32(8, 3)},
     }
-    for name, (model, mesh) in TRAIN_CASES.items():
+    inputs["all_to_all"] = {}
+    for name, (split, concat, tiled, axis, block) in \
+            gang_checks.A2A_CASES.items():
+        n = 4 if axis == "sp" else 1
+        out = gang_checks.a2a_out_shape(block, split, concat, tiled, n)
+        inputs["all_to_all"][name] = {
+            "x": f32(WORLD * block[0], *block[1:]),
+            "w": f32(WORLD * out[0], *out[1:])}
+    inputs["seq_parallel"] = {"cases": {
+        name: {"kind": kind, "causal": causal, "sp": sp,
+               "qkv": [f32(*shape) for _ in range(3)], "w": f32(*shape)}
+        for name, (kind, causal, sp, shape) in SEQ_CASES.items()}}
+    # ring and Ulysses on the same inputs (tests/test_parallel.py:161)
+    agree = inputs["seq_parallel"]["cases"]
+    agree["agree_ulysses"]["qkv"] = agree["ring_causal"]["qkv"]
+    agree["agree_ulysses"]["w"] = agree["ring_causal"]["w"]
+    t, d, f, e = 8, 16, 32, 8
+    inputs["moe_ep"] = {
+        name: {"top_k": 2, "capacity_factor": cf,
+               "args": [f32(WORLD * t, d), f32(d, e) * 0.5,
+                        f32(e, d, f) * 0.2, f32(e, f, d) * 0.2],
+               "w": f32(WORLD * t, d)}
+        for name, cf in MOE_CASES.items()}
+    for name, (model, mesh, spec) in TRAIN_CASES.items():
         jcfg, tcfg, _ = MODELS[model]
         # the port's init (the JAX layout, no compile before the gang
         # starts), the same numpy weights for both packages
-        init = tgpt2.gpt2_init if model == "gpt2" else tllama.llama_init
+        init = LOSSES[model][2]
         inputs[name] = {
             "model": model, "config": tcfg, "mesh": mesh, "lr": TRAIN_LR,
             "params": tree_map(lambda p: p.numpy(), init(
                 tcfg, torch.Generator().manual_seed(3), device="cpu")),
             "batches": _batches(5, jcfg.vocab_size, TRAIN_STEPS)}
+        if spec is not None:
+            inputs[name]["data_spec"] = spec
     inputs["rendezvous"] = {"kv_dir": kv_dir, "slice_ids": SLICE_IDS,
                             "hybrid": HYBRID}
     return inputs
@@ -162,11 +231,88 @@ def _jax_pipeline(case):
             "seq_grads": [np.asarray(g) for g in seq_g]}
 
 
+def _jax_grads(fn, args, w):
+    """fn(*args) and the gradients of sum(fn(...) * w) in each argument."""
+    args = [jnp.asarray(a) for a in args]
+    y = fn(*args)
+    grads = jax.grad(lambda *a: jnp.sum(fn(*a) * w),
+                     argnums=tuple(range(len(args))))(*args)
+    return {"y": np.asarray(y), "grads": [np.asarray(g) for g in grads]}
+
+
+def _jax_all_to_all(inputs):
+    """jax.lax.all_to_all under shard_map, and its gradient. JAX (0.9)
+    cannot differentiate the untiled form with split_axis != concat_axis
+    (its transpose gives the cotangent the wrong shape): there the
+    gradient of sum(y * w) is the inverse exchange of w, which is what
+    the exchange's transpose is, computed by JAX's forward."""
+    from jax import lax
+
+    out = {}
+    mesh = _jax_mesh(**gang_checks.SEQ_MESH)
+
+    def exchange(split, concat, tiled, axis):
+        return jmesh.shard_map(
+            lambda x: lax.all_to_all(x, axis, split, concat, tiled=tiled),
+            mesh=mesh, in_specs=JP("sp"), out_specs=JP("sp"),
+            check_vma=False)
+
+    for name, (split, concat, tiled, axis, _) in \
+            gang_checks.A2A_CASES.items():
+        fn = exchange(split, concat, tiled, axis)
+        x, w = inputs[name]["x"], inputs[name]["w"]
+        if tiled or split == concat:
+            out[name] = _jax_grads(fn, [x], w)
+        else:
+            inverse = exchange(concat, split, tiled, axis)
+            out[name] = {"y": np.asarray(fn(jnp.asarray(x))),
+                         "grads": [np.asarray(inverse(jnp.asarray(w)))]}
+    return out
+
+
+def _jax_seq_parallel(inputs):
+    out = {}
+    fns = {"ring": jring, "ulysses": julysses}
+    for name, case in inputs["cases"].items():
+        sp = case["sp"]
+        mesh = _jax_mesh(**(gang_checks.SEQ_MESH if sp > 1
+                            else dict(dp=WORLD)))
+        spec = JP(None, "sp") if sp > 1 else JP("dp")
+        fn = jmesh.shard_map(
+            functools.partial(fns[case["kind"]], axis_name="sp",
+                              causal=case["causal"]),
+            mesh=mesh, in_specs=(spec,) * 3, out_specs=spec,
+            check_vma=False)
+        out[name] = _jax_grads(jax.jit(fn), case["qkv"], case["w"])
+        out[name]["mha"] = np.asarray(jmha(
+            *(jnp.asarray(a) for a in case["qkv"]), case["causal"]))
+    return out
+
+
+def _jax_moe_ep(inputs):
+    out = {}
+    mesh = _jax_mesh(**gang_checks.EP_MESH)
+    for name, case in inputs.items():
+        kw = dict(top_k=case["top_k"],
+                  capacity_factor=case["capacity_factor"])
+        fn = jmesh.shard_map(
+            functools.partial(jmoe_ffn, axis_name="ep", **kw), mesh=mesh,
+            in_specs=(JP("ep"), JP(), JP("ep"), JP("ep")),
+            out_specs=JP("ep"), check_vma=False)
+        out[name] = _jax_grads(jax.jit(fn), case["args"], case["w"])
+        x, gw, wi, wo = (jnp.asarray(a) for a in case["args"])
+        t = x.shape[0] // WORLD
+        # tests/test_parallel.py:109: the dense layer on each rank's tokens
+        out[name]["dense"] = np.concatenate([np.asarray(jmoe_ffn(
+            x[i * t:(i + 1) * t], gw, wi, wo, **kw)) for i in range(WORLD)])
+    return out
+
+
 def _jax_train(inp, model):
     jcfg, tcfg, jmod = MODELS[model]
-    loss = jmod.gpt2_loss if model == "gpt2" else jmod.llama_loss
-    specs = (jmod.gpt2_partition_specs(jcfg) if model == "gpt2"
-             else jmod.llama_partition_specs(jcfg))
+    loss_name, specs_name, _ = LOSSES[model]
+    loss = getattr(jmod, loss_name)
+    specs = getattr(jmod, specs_name)(jcfg)
     step = JTrainStep(lambda p, b: loss(p, b["tokens"], b["targets"], jcfg),
                       optax.adamw(TRAIN_LR), _jax_mesh(**inp["mesh"]),
                       specs)
@@ -179,7 +325,8 @@ def _jax_train(inp, model):
     # Adam's first update divides a gradient by its own magnitude: the
     # elements whose first gradient is at the fp32 noise of its sum
     # (tests/test_torch_train.py:182-200), from the one-device port loss
-    tloss = tgpt2.gpt2_loss if model == "gpt2" else tllama.llama_loss
+    tloss = getattr({"gpt2": tgpt2, "llama": tllama, "moe": tmoe}[model],
+                    loss_name)
     params = from_jax_params(inp["params"], device="cpu")
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     b = inp["batches"][0]
@@ -211,9 +358,19 @@ def gang_run():
                                                  inputs["shard_map"])}
                 futs.update({f"pipeline_{k}": pool.submit(_jax_pipeline, c)
                              for k, c in inputs["pipeline"].items()})
-                futs.update({name: pool.submit(_jax_train, inputs[name],
-                                               model)
-                             for name, (model, _) in TRAIN_CASES.items()})
+                # one JAX step for the cases of one model and mesh: the
+                # data spec changes only the port's layout of the batch
+                jax_of = {}
+                for name, (model, mesh, _) in TRAIN_CASES.items():
+                    key = (model, tuple(sorted(mesh.items())))
+                    if key not in jax_of:
+                        jax_of[key] = pool.submit(_jax_train, inputs[name],
+                                                  model)
+                    futs[name] = jax_of[key]
+                for name, fn in (("all_to_all", _jax_all_to_all),
+                                 ("seq_parallel", _jax_seq_parallel),
+                                 ("moe_ep", _jax_moe_ep)):
+                    futs[name] = pool.submit(fn, inputs[name])
                 ref = {k: f.result() for k, f in futs.items()}
         finally:
             results = g.join()
@@ -403,6 +560,86 @@ def test_data_parallel_gradient_is_the_global_batch_mean(gang_run):
         np.testing.assert_allclose(o["gathered"]["loss"], float(loss(w0)),
                                    **TOL)
         assert not np.allclose(o["full_tensor"]["w"], want_w, atol=1e-3)
+
+
+def test_row_split_gathers_the_batch_in_block_order(gang_run):
+    """`RowSplit` over (dp 2, fsdp 2), the mesh TrainStep's split of a
+    batch of 8 rows: rank r (at dp r // 2, fsdp r % 2) holds rows 2r and
+    2r + 1, as JAX lays the batch out on P(("dp", "fsdp")); `gather`
+    joins the four blocks in that order on every rank; the gradient of
+    every rank's sum(gather(block) * w) in a block is the four ranks'
+    cotangents summed, 4 w on its rows."""
+    inputs, _, _ = gang_run
+    x, w = inputs["row_split"]["x"], inputs["row_split"]["w"]
+    for r, o in enumerate(_check(gang_run, "row_split")):
+        assert (o["block"], o["blocks"]) == (r, WORLD)
+        np.testing.assert_array_equal(o["own"], x[2 * r:2 * r + 2])
+        np.testing.assert_array_equal(o["rows"], x)
+        np.testing.assert_allclose(o["grad"], 4 * w[2 * r:2 * r + 2],
+                                   **TOL)
+
+
+# ---------------------------------------- sequence and expert parallelism
+
+def _hold(got, want, tol=TOL):
+    np.testing.assert_allclose(got["y"], want["y"], **tol)
+    assert len(got["grads"]) == len(want["grads"])
+    for g, w in zip(got["grads"], want["grads"]):
+        np.testing.assert_allclose(g, w, **tol)
+
+
+@pytest.mark.parametrize("case", list(gang_checks.A2A_CASES))
+def test_all_to_all_matches_jax(gang_run, case):
+    """`all_to_all` against `jax.lax.all_to_all` under shard_map, untiled
+    and tiled, at axis size 4 and 1: the exchanged blocks and the
+    gradient (the inverse exchange)."""
+    _, _, ref = gang_run
+    want = ref["all_to_all"][case]
+    for o in _check(gang_run, "all_to_all"):
+        assert o[case]["y"].shape == want["y"].shape
+        _hold(o[case], want, dict(atol=0, rtol=0))
+
+
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_seq_parallel_matches_jax(gang_run, case):
+    """Ring and Ulysses attention over sp 4 (and over sp 1 on a dp 4
+    mesh) against JAX's under shard_map: the output and the gradients
+    of q, k and v; the output also against the JAX `mha_reference` of
+    the whole sequence (tests/test_parallel.py:144)."""
+    _, _, ref = gang_run
+    want = ref["seq_parallel"][case]
+    for o in _check(gang_run, "seq_parallel"):
+        _hold(o[case], want)
+        np.testing.assert_allclose(o[case]["y"], want["mha"], rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_ring_and_ulysses_agree(gang_run):
+    """tests/test_parallel.py:161: ring and Ulysses attention on the same
+    inputs give the same output, and the same gradients."""
+    for o in _check(gang_run, "seq_parallel"):
+        _hold(o["ring_causal"], o["agree_ulysses"],
+              dict(rtol=2e-4, atol=2e-4))
+
+
+def test_ulysses_refuses_heads_sp_does_not_divide(gang_run):
+    for o in _check(gang_run, "seq_parallel"):
+        assert o["indivisible"] == "heads 6 not divisible by sp axis size 4"
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_expert_parallel_matches_jax(gang_run, case):
+    """The expert-parallel `moe_ffn` at ep 4 against JAX's under
+    shard_map: the output and the gradients of x, gate_w, w_in and w_out,
+    with and without dropped tokens; without drops also the dense layer
+    on each rank's tokens (tests/test_parallel.py:85)."""
+    _, _, ref = gang_run
+    want = ref["moe_ep"][case]
+    for o in _check(gang_run, "moe_ep"):
+        _hold(o[case], want)
+        if case == "no_drop":
+            np.testing.assert_allclose(o[case]["y"], want["dense"],
+                                       rtol=2e-4, atol=2e-4)
 
 
 # ------------------------------------------------------------ rendezvous

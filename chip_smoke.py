@@ -52,7 +52,14 @@ and base in one batch, speculated too, a hot swap; `serve_adopt`, GPT-2
 small: prefilled KV adopted with no prefill): every stream equals
 generate(). `dq_seeds` holds flash_bwd_dq over
 8 seeds at each of three shapes against emulations of its bf16
-rounding. Every
+rounding. Last, the actor runtime (`runtime`): `ray_tpu_torch.init()`
+on the card, CUDA tensors through the object store and a GPU actor both
+ways (512 MB through the native arena, timed), a `num_gpus=1` actor
+scoring GPT-2 small on the kernels (its own launches held, its loss
+against the driver's), `kill()` returning the GPU once the process has
+exited, and a second GPU actor serving 8 concurrent requests, each
+stream equal to generate(); the GPU actor's cold start and its scoring
+call against the driver's are timed. Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -3290,6 +3297,503 @@ def phase_serve_adopt(cfg, params, engine_mod, kvcache, paged) -> None:
           "prefill_admission_host_ms_median": statistics.median(prefill_ms)})
 
 
+# ----------------------------------------------------------------- runtime
+# The actor runtime (ray_tpu_torch.init / remote / put / get / kill) on
+# the card: a one-node cluster whose GPU is leased whole to one actor at
+# a time, CUDA tensors through the object store, GPT-2 small scored and
+# served from GPU actors.
+
+RUNTIME_CPUS = 4
+RUNTIME_BIG_BYTES = 512 << 20
+RUNTIME_TIMING_CALLS = 10
+# kill() -> the GPU back in available_resources(), its process gone
+GPU_RETURN_BOUND_S = 15.0
+RUNTIME_SERVE_LENGTHS = [8, 40, 77, 120, 160, 200, 24, 96]
+
+
+def runtime_tensors(gen) -> dict:
+    """CUDA tensors of each kind the object plane must carry."""
+    base = torch.randn(256, 384, device="cuda", generator=gen)
+    return {
+        "bf16": torch.randn(64, 128, device="cuda",
+                            generator=gen).to(torch.bfloat16),
+        "fp32": torch.randn(33, 17, device="cuda", generator=gen),
+        "int64": torch.randint(-2 ** 40, 2 ** 40, (1000,), device="cuda",
+                               generator=gen),
+        "non_contiguous": base.t()[::3],
+        "zero_d": torch.tensor(1.25, device="cuda"),
+    }
+
+
+def same_tensors(label: str, got: dict, want: dict) -> None:
+    for name, t in want.items():
+        g = got[name]
+        check(g.device.type == "cuda" and g.dtype == t.dtype
+              and g.shape == t.shape and torch.equal(g, t),
+              f"{label}: {name} came back {g.device} {g.dtype} "
+              f"{tuple(g.shape)}, not equal to what was sent")
+
+
+def _no_tf32() -> None:
+    """The driver's matmul settings (main()), in an actor's process.
+    Imported here: this function is pickled by value with the actor
+    class, and torch.backends.cudnn is an object pickle cannot send."""
+    from torch.backends import cuda as backends_cuda
+    from torch.backends import cudnn as backends_cudnn
+
+    backends_cuda.matmul.allow_tf32 = False
+    backends_cudnn.allow_tf32 = False
+
+
+def boot_clock() -> float:
+    """Seconds since boot: one clock for every process of the machine."""
+    return time.clock_gettime(time.CLOCK_BOOTTIME)
+
+
+def _process_start() -> float:
+    """This process's start on boot_clock() (field 22 of
+    /proc/self/stat, in clock ticks)."""
+    import os
+
+    with open("/proc/self/stat", "rb") as f:
+        stat = f.read()
+    ticks = int(stat[stat.rindex(b")") + 2:].split()[19])
+    return ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _where(init_at: float) -> dict:
+    """Where an actor runs, and when (boot_clock()) its process started,
+    its __init__ began (after the imports its class needs) and its CUDA
+    context was up."""
+    import os
+
+    torch.zeros(1, device="cuda")  # the CUDA context
+    return {"pid": os.getpid(), "ppid": os.getppid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "process_start": _process_start(), "init_at": init_at,
+            "cuda_ready_at": boot_clock()}
+
+
+def cold_start_split(t0: float, where: dict, t_first: float) -> dict:
+    """A GPU actor's cold start in spans (boot_clock(), clock-tick
+    resolution for the process start): the driver's .remote() to the
+    process's start, its imports until __init__, __init__ and the CUDA
+    context, then the first result back to the driver."""
+    return {"spawn_s": where["process_start"] - t0,
+            "imports_s": where["init_at"] - where["process_start"],
+            "init_and_cuda_s": where["cuda_ready_at"] - where["init_at"],
+            "reply_s": t_first - where["cuda_ready_at"]}
+
+
+class RuntimeGpuActor:
+    """The runtime phase's first GPU actor: objects both ways, the 512 MB
+    transfer, and GPT-2 small scoring on the kernels."""
+
+    def __init__(self):
+        self.init_at = boot_clock()
+        _no_tf32()
+        self.big = None
+        self.params = None
+
+    def ready(self) -> dict:
+        return _where(self.init_at)
+
+    def echo(self, tensors: dict):
+        return {k: t.device.type for k, t in tensors.items()}, tensors
+
+    def take(self, box):
+        """The whole get, then its two copies again, one by one, on the
+        same arena block: out of the arena into host memory, and host to
+        device (what the tensor's rebuild does)."""
+        import warnings
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private import worker as worker_mod
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.big = rt.get(box[0])
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        store = worker_mod.global_worker.store
+        entry = store._entries[box[0].id]
+        (off, n), = entry.layout
+        mapping = store._attach(entry.shm_name)
+        t0 = time.perf_counter()
+        raw = bytes(mapping.buf[off:off + n])
+        t1 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.frombuffer(raw, dtype=torch.uint8)
+        dst = torch.empty(n, dtype=torch.uint8, device="cuda")
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(torch.equal(dst.view(self.big.dtype).view(self.big.shape),
+                          self.big), "runtime: the timed copies differ")
+        return get_s, self.big.device.type, {
+            "copy_out_s": t1 - t0, "h2d_s": t2 - t1,
+            "rest_s": get_s - (t2 - t0)}
+
+    def give(self):
+        big, self.big = self.big, None
+        return big
+
+    def load(self, params) -> list:
+        from ray_tpu_torch import tree
+
+        self.params = params
+        return sorted({t.device.type for t in tree.tree_leaves(params)})
+
+    def score(self, tokens, targets):
+        """gpt2_forward then gpt2_loss, counted from 0 as phase_score
+        counts them: this process's launches come back with the loss."""
+        from ray_tpu_torch import kernels
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.ops import attention
+
+        cfg = gpt2.GPT2Config.small()
+        kernels.reset_launches()
+        attention.PLAIN_CALLS["attention"] = 0
+        with torch.inference_mode():
+            gpt2.gpt2_forward(self.params, tokens, cfg)
+            loss = gpt2.gpt2_loss(self.params, tokens, targets, cfg)
+        torch.cuda.synchronize()
+        return (loss.clone(), dict(kernels.LAUNCHES),
+                attention.PLAIN_CALLS["attention"])
+
+    def loss(self, tokens, targets) -> float:
+        from ray_tpu_torch.models import gpt2
+
+        with torch.inference_mode():
+            return float(gpt2.gpt2_loss(self.params, tokens, targets,
+                                        gpt2.GPT2Config.small()))
+
+
+def put_split(rt, big) -> dict:
+    """The legs of a CUDA tensor's put, again one by one on the same
+    tensor: the device-to-host copy into a fresh tensor, serializing the
+    host copy, and a put of the host copy (serializing it and copying it
+    into a fresh arena block); then, for scale, the same host copy into
+    fresh pageable memory and again into memory already touched."""
+    from ray_tpu_torch._private import serialization
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = big.cpu()
+    t1 = time.perf_counter()
+    serialization.serialize(host)
+    t2 = time.perf_counter()
+    ref = rt.put(host)
+    t3 = time.perf_counter()
+    dst = torch.empty_like(host)
+    t4 = time.perf_counter()
+    dst.copy_(host)
+    t5 = time.perf_counter()
+    dst.copy_(host)
+    t6 = time.perf_counter()
+    del ref
+    return {"d2h_s": t1 - t0, "serialize_s": t2 - t1,
+            "host_put_s": t3 - t2, "host_copy_fresh_s": t5 - t4,
+            "host_copy_touched_s": t6 - t5}
+
+
+FRESH_INTERPRETER = """
+import json, pickle, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import ray_tpu_torch._private.worker
+t2 = time.perf_counter()
+with open(sys.argv[1], "rb") as f:
+    pickle.loads(f.read())
+t3 = time.perf_counter()
+torch.zeros(1, device="cuda")
+t4 = time.perf_counter()
+print(json.dumps({"import_torch_s": t1 - t0, "import_worker_s": t2 - t1,
+                  "load_actor_class_s": t3 - t2, "cuda_context_s": t4 - t3,
+                  "inside_s": t4 - t0}))
+"""
+
+
+def fresh_interpreter_split(actor_cls) -> dict:
+    """Where a GPU worker's start goes, timed in a fresh interpreter on
+    the card (the page cache warm, as for the runtime's second GPU
+    actor): torch's import, the worker's modules, loading the actor's
+    class as the worker gets it, the CUDA context; `start_s` is the
+    interpreter's own start and exit, the wall time less the rest."""
+    import tempfile
+
+    from ray_tpu_torch._private import serialization
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "actor_class.pkl")
+        with open(path, "wb") as f:
+            f.write(serialization.dumps(actor_cls))
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", FRESH_INTERPRETER, path],
+                             cwd=here, capture_output=True, text=True,
+                             timeout=300, check=True)
+        wall = time.perf_counter() - t0
+    split = json.loads(out.stdout.strip().splitlines()[-1])
+    split["wall_s"] = wall
+    split["start_s"] = wall - split.pop("inside_s")
+    return split
+
+
+class RuntimeServeActor:
+    """The runtime phase's second GPU actor: a ContinuousBatchingEngine
+    on GPT-2 small in fp32 (the driver's weights, drawn from the same
+    seed on the card), answering concurrent actor calls."""
+
+    def __init__(self, seed: int):
+        from ray_tpu_torch.models import engine, gpt2
+
+        self.init_at = boot_clock()
+        _no_tf32()
+        cfg = gpt2.GPT2Config(dtype=torch.float32)
+        params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(seed),
+                                device="cuda")
+        self.engine = engine.ContinuousBatchingEngine(params, cfg,
+                                                      max_batch=4)
+
+    def ready(self) -> dict:
+        return _where(self.init_at)
+
+    def generate(self, prompt, new: int) -> list:
+        return self.engine.generate(prompt, new, timeout_s=300.0)
+
+    def stop(self) -> bool:
+        self.engine.stop()
+        return not self.engine._thread.is_alive()
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_runtime(gpt2, generate_mod) -> None:
+    """init / remote / put / get / kill on a one-node cluster holding the
+    card: host workers see no GPU; CUDA tensors come back bit-equal
+    through the store and through a GPU actor both ways (a 512 MB one
+    through the native arena, timed); a host task cannot load one; a GPU
+    actor scores GPT-2 small on the kernels (its launches held) with the
+    driver's loss; kill() returns the GPU once the process has exited;
+    a second GPU actor serves 8 concurrent greedy requests, each stream
+    equal to generate()."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        line = runtime_body(rt, gpt2, generate_mod)
+    finally:
+        rt.shutdown()
+    emit(line)
+
+
+def runtime_body(rt, gpt2, generate_mod) -> dict:
+    from ray_tpu_torch._private import worker as worker_mod
+
+    w = worker_mod.global_worker
+    res = rt.cluster_resources()
+    check(res.get("GPU") == 1.0, f"runtime: cluster_resources {res}")
+    want_visible = rt._visible_gpu_ids(1)[0]
+
+    @rt.remote
+    def host_sees():
+        import os
+
+        import torch
+
+        return (torch.cuda.is_available(),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    host = rt.get(host_sees.remote(), timeout=300.0)
+    check(host == (False, ""), f"runtime: a host worker sees {host}")
+
+    # CUDA tensors through the store, read back in the driver
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    tensors = runtime_tensors(gen)
+    check(w.store._arena is not None, "runtime: no native arena")
+    for name, t in tensors.items():
+        ref = rt.put(t)
+        same_tensors("runtime driver get", {name: rt.get(ref)}, {name: t})
+    # a put holds the tensor as it was: later writes change no get
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    ref = rt.put(x)
+    x.add_(1)
+    rt.get(ref).add_(1)
+    check(torch.equal(rt.get(ref), x - 1),
+          "runtime: a write after put changed what get returns")
+    ref = rt.put(tensors)
+
+    @rt.remote
+    def host_get(box):
+        from ray_tpu_torch._private.serialization import \
+            GpuLeaseRequiredError
+
+        try:
+            rt.get(box[0])
+        except GpuLeaseRequiredError as e:
+            return str(e)
+        return "loaded"
+
+    said = rt.get(host_get.remote([ref]), timeout=300.0)
+    check(ref.id in said and "no GPU lease" in said,
+          f"runtime: a host task's get of CUDA tensors said {said!r}")
+
+    # the first GPU actor: cold start, objects both ways, 512 MB
+    GpuActor = rt.remote(num_gpus=1)(RuntimeGpuActor)
+    t0, t0_boot = time.perf_counter(), boot_clock()
+    a = GpuActor.remote()
+    where = rt.get(a.ready.remote(), timeout=300.0)
+    cold_s = time.perf_counter() - t0
+    cold_split = cold_start_split(t0_boot, where, boot_clock())
+    check(where["visible"] == want_visible and where["count"] == 1
+          and where["ppid"] == os.getpid(),
+          f"runtime: GPU actor {where}, want CUDA_VISIBLE_DEVICES="
+          f"{want_visible!r}, one device, spawned cold by this driver")
+    check(rt.available_resources().get("GPU") == 0.0,
+          "runtime: the GPU is not leased to the actor")
+    for label, arg in (("actor, value", tensors),
+                       ("actor, ref", rt.put(tensors))):
+        devices, back = rt.get(a.echo.remote(arg), timeout=300.0)
+        check(set(devices.values()) == {"cuda"},
+              f"runtime {label}: the actor got {devices}")
+        same_tensors(f"runtime {label}", back, tensors)
+    big = torch.empty(RUNTIME_BIG_BYTES // 4, device="cuda")
+    big.uniform_(generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_ref = rt.put(big)
+    put_s = time.perf_counter() - t0
+    entry = w.store._entries[big_ref.id]
+    check((entry.shm_name or "").startswith("arena:"),
+          f"runtime: 512 MB put went to {entry.shm_name}, not the arena")
+    get_s, dev, get_legs = rt.get(a.take.remote([big_ref]), timeout=300.0)
+    check(dev == "cuda", f"runtime: the actor got the 512 MB on {dev}")
+    put_legs = put_split(rt, big)
+    t0 = time.perf_counter()
+    back = rt.get(a.give.remote(), timeout=300.0)
+    torch.cuda.synchronize()
+    back_s = time.perf_counter() - t0
+    check(back.device.type == "cuda" and torch.equal(back, big),
+          "runtime: 512 MB back from the actor differs")
+    del back, big, big_ref
+    gb = RUNTIME_BIG_BYTES / 1e9
+
+    # scoring from the actor: the kernel path, the driver's loss
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    tgen = torch.Generator().manual_seed(1)
+    tok_d = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen).cuda()
+    tgt_d = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen).cuda()
+    check(rt.get(a.load.remote(rt.put(params)), timeout=300.0) == ["cuda"],
+          "runtime: the actor's weights are not all on cuda")
+    loss_a, launches, plain = rt.get(a.score.remote(tok_d, tgt_d),
+                                     timeout=300.0)
+    hold_launches("runtime: the GPU actor's scoring", launches,
+                  {**_NO_LAUNCHES, "flash_fwd": 2 * cfg.num_layers,
+                   "ce_fwd": 1}, 1)
+    check(plain == 0, f"runtime: {plain} attention calls took the plain "
+          f"route in the actor")
+    with torch.inference_mode():
+        loss_d = gpt2.gpt2_loss(params, tok_d, tgt_d, cfg)
+    bit_equal = bool(loss_a.device.type == "cuda"
+                     and torch.equal(loss_a, loss_d))
+    check(bit_equal or abs(float(loss_a) - float(loss_d)) <= LOSS_TOL,
+          f"runtime: actor loss {float(loss_a)} vs driver {float(loss_d)}")
+    remote_ms, local_ms = [], []
+    for i in range(RUNTIME_TIMING_CALLS + 1):
+        t0 = time.perf_counter()
+        rt.get(a.loss.remote(tok_d, tgt_d), timeout=300.0)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            float(gpt2.gpt2_loss(params, tok_d, tgt_d, cfg))
+        t2 = time.perf_counter()
+        if i:  # the first pair warms up
+            remote_ms.append((t1 - t0) * 1e3)
+            local_ms.append((t2 - t1) * 1e3)
+    del params
+
+    # the lease ends with the process: kill, then the GPU returns
+    t0 = time.perf_counter()
+    rt.kill(a)
+    while rt.available_resources().get("GPU", 0.0) < 1.0:
+        check(time.perf_counter() - t0 < GPU_RETURN_BOUND_S,
+              f"runtime: the GPU was not back {GPU_RETURN_BOUND_S}s "
+              f"after kill()")
+        time.sleep(0.01)
+    return_s = time.perf_counter() - t0
+    check(not _pid_alive(where["pid"]),
+          "runtime: the GPU came back before its process exited")
+
+    # the second GPU actor gets the card and serves
+    scfg = gpt2.GPT2Config(dtype=torch.float32)
+    sparams = gpt2.gpt2_init(scfg, torch.Generator().manual_seed(2),
+                             device="cuda")
+    ServeActor = rt.remote(num_gpus=1, max_concurrency=8)(RuntimeServeActor)
+    t0, t0_boot = time.perf_counter(), boot_clock()
+    b = ServeActor.remote(2)
+    where_b = rt.get(b.ready.remote(), timeout=300.0)
+    serve_start_s = time.perf_counter() - t0
+    serve_split = cold_start_split(t0_boot, where_b, boot_clock())
+    check(where_b["visible"] == want_visible and where_b["pid"] !=
+          where["pid"], f"runtime: second GPU actor {where_b}")
+    pgen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, scfg.vocab_size, (n,), generator=pgen)
+               .tolist() for n in RUNTIME_SERVE_LENGTHS]
+    t0 = time.perf_counter()
+    streams = rt.get([b.generate.remote(p, SERVE_NEW) for p in prompts],
+                     timeout=600.0)
+    serve_wall = time.perf_counter() - t0
+    check(rt.get(b.stop.remote(), timeout=60.0),
+          "runtime: the actor's engine loop still running")
+    want = generated(generate_mod, sparams, scfg, prompts)
+    differ = [i for i, (s, g) in enumerate(zip(streams, want)) if s != g]
+    check(not differ, f"runtime: streams {differ} from the serving actor "
+          f"differ from generate()")
+    return {
+        "phase": "runtime", "card": card_line(), "cpus": RUNTIME_CPUS,
+        "cluster_resources": res, "gpu_visible": where["visible"],
+        "host_worker_sees_cuda": host[0],
+        "tensors_bit_equal": sorted(tensors),
+        "cold_start_s": cold_s, "cold_start_predicted_s": [2, 6],
+        "cold_start_split": cold_split,
+        "big_mb": RUNTIME_BIG_BYTES >> 20, "put_s": put_s,
+        "put_gb_per_s": gb / put_s, "put_legs": put_legs,
+        "actor_get_s": get_s, "actor_get_legs": get_legs,
+        "actor_get_gb_per_s": gb / get_s,
+        "put_plus_get_gb_per_s": gb / (put_s + get_s),
+        "put_plus_get_predicted_gb_per_s": [1, 4],
+        "actor_back_s": back_s, "actor_back_gb_per_s": gb / back_s,
+        "actor_launches": launches, "loss_actor": float(loss_a),
+        "loss_driver": float(loss_d), "loss_bit_equal": bit_equal,
+        "score_actor_ms_median": statistics.median(remote_ms),
+        "score_local_ms_median": statistics.median(local_ms),
+        "score_added_ms": statistics.median(remote_ms)
+        - statistics.median(local_ms),
+        "score_added_predicted_ms": [0.5, 3],
+        "score_actor_ms_range": [min(remote_ms), max(remote_ms)],
+        "score_local_ms_range": [min(local_ms), max(local_ms)],
+        "gpu_return_s": return_s, "gpu_return_bound_s": GPU_RETURN_BOUND_S,
+        "serve_actor_start_s": serve_start_s,
+        "serve_actor_start_split": serve_split,
+        "serve_requests": len(prompts), "serve_new_tokens": SERVE_NEW,
+        "serve_wall_s": serve_wall,
+        "streams_equal_generate": len(prompts) - len(differ),
+        "fresh_interpreter": fresh_interpreter_split(RuntimeGpuActor)}
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -3426,6 +3930,9 @@ def main() -> int:
     phase_seq_parallel(kernels, attention)
     # checkpoints and the trainer's fit loop, each leg counted from 0
     phase_trainer_resume(kernels, gpt2, llama)
+    # the actor runtime: GPU actors score (the kernels counted in the
+    # actor's process from 0) and serve
+    phase_runtime(gpt2, generate_mod)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

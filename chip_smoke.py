@@ -59,7 +59,15 @@ scoring GPT-2 small on the kernels (its own launches held, its loss
 against the driver's), `kill()` returning the GPU once the process has
 exited, and a second GPU actor serving 8 concurrent requests, each
 stream equal to generate(); the GPU actor's cold start and its scoring
-call against the driver's are timed. Every
+call against the driver's are timed. Then the runtime beyond one node
+(`cluster`): a head without a GPU, a node agent started as `python -m
+ray_tpu_torch start --address` counting the card, a STRICT_PACK
+placement group reserving it on the agent's node, a GPU actor in the
+group scoring GPT-2 small (its launches held, its loss against the
+driver's, a printed line reaching the driver's log subscription), a job
+scoring the same tokens through the named actor, the agent SIGKILLed
+(the dead node detected, its orphaned GPU worker gone before a second
+agent joins and a GPU actor there scores again). Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -3794,6 +3802,321 @@ def runtime_body(rt, gpt2, generate_mod) -> dict:
         "fresh_interpreter": fresh_interpreter_split(RuntimeGpuActor)}
 
 
+# ----------------------------------------------------------------- cluster
+# The runtime beyond one node on the card: a head without a GPU in this
+# process, a node agent (`python -m ray_tpu_torch start --address`) that
+# counts the card, a placement group reserving it, GPT-2 small scored
+# from a GPU actor placed in the group on the agent's node and through
+# a submitted job, then the agent's death and a second agent.
+
+CLUSTER_SYSTEM_CONFIG = {"node_timeout": 3.0, "node_heartbeat": 0.5}
+# a written-off worker exits on the conductor's shutdown notice; at the
+# latest on its next re-register, every 5 s at the default
+# worker_orphan_grace (worker_main.py), plus the RPC
+ORPHAN_EXIT_BOUND_S = 5.5
+CLUSTER_JOB = """
+import sys
+import torch
+import ray_tpu_torch as rt
+
+rt.init(address="auto")
+scorer = rt.get_actor("scorer", namespace="cluster")
+gen = torch.Generator().manual_seed(1)
+tokens = torch.randint(0, int(sys.argv[1]), (4, 512), generator=gen)
+targets = torch.randint(0, int(sys.argv[1]), (4, 512), generator=gen)
+print("JOB_LOSS", repr(rt.get(scorer.loss.remote(tokens, targets),
+                              timeout=300.0)), flush=True)
+rt.shutdown()
+"""
+
+
+class ClusterScorer(RuntimeGpuActor):
+    """The cluster phase's GPU actor: RuntimeGpuActor's scoring, where
+    it runs, and a line for the driver's log subscription. Tokens may
+    come from the host (a job's driver holds no GPU)."""
+
+    def ready(self) -> dict:
+        from ray_tpu_torch._private.worker_spawn import ENV_NODE_ID
+
+        return {**_where(self.init_at), "node": os.environ.get(ENV_NODE_ID)}
+
+    def say(self, text: str) -> bool:
+        print(text, flush=True)
+        return True
+
+    def loss(self, tokens, targets) -> float:
+        return super().loss(tokens.cuda(), targets.cuda())
+
+    def cuda_reserved(self) -> int:
+        """Bytes this process's caching allocator holds on the card."""
+        return torch.cuda.memory_reserved()
+
+
+def wait_for(pred, bound_s: float, what: str) -> float:
+    """Seconds until pred() holds; fails past `bound_s`."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 <= bound_s,
+              f"cluster: {what} not within {bound_s} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def start_agent(rt, session_dir: str) -> tuple:
+    """A node agent joined to this cluster, counting the GPUs it sees;
+    returns (Popen, node id, seconds from Popen to registered)."""
+    from ray_tpu_torch._private.ids import NodeID
+
+    node_id = NodeID().hex()
+    host, port = rt._private.worker.global_worker.conductor_address
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RTT_SESSION_DIR=session_dir,
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log = open(os.path.join(session_dir, f"agent-{node_id[:12]}.log"), "ab")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "start", "--address",
+         f"{host}:{port}", "--num-cpus", "2", "--node-id", node_id],
+        cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    wait_for(lambda: any(n["node_id"] == node_id and n["alive"]
+                         for n in rt.nodes()), 120.0,
+             "the agent's registration")
+    join_s = time.perf_counter() - t0
+    check(proc.poll() is None, "cluster: the agent exited")
+    return proc, node_id, join_s
+
+
+def phase_cluster(gpt2) -> None:
+    """Head and agent, a placement group, scoring from a GPU actor in it
+    and through a job, node death and a second agent (see
+    cluster_body). Every process the phase started is ended here, and
+    the phase fails if one outlived the cluster's shutdown."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import isolated
+
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=2, resources={"GPU": 0},
+                   _system_config=CLUSTER_SYSTEM_CONFIG)
+    session_dir = info["session_dir"]
+    agents: list = []
+    try:
+        line = cluster_body(rt, gpt2, session_dir, agents)
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            for proc in agents:
+                try:
+                    proc.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+            deadline = time.monotonic() + 10.0
+            while isolated.session_processes(session_dir) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.1)
+            left = isolated.session_processes(session_dir)
+            for pid in left:
+                try:
+                    os.kill(pid, 9)
+                except OSError:
+                    pass
+    check(not left, f"cluster: processes {left} outlived the cluster")
+    emit(line)
+
+
+def cluster_body(rt, gpt2, session_dir: str, agents: list) -> dict:
+    from ray_tpu_torch import tree
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.memory_monitor import pid_rss
+    from ray_tpu_torch._private.worker_spawn import pid_exited
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.util.placement_group import placement_group
+
+    w = worker_mod.global_worker
+    want_visible = rt._visible_gpu_ids(1)[0]
+    head = rt.cluster_resources()
+    check(head.get("GPU") == 0.0, f"cluster: the head counts {head}")
+
+    # 1. the agent joins with the card
+    agent, agent_id, join_s = start_agent(rt, session_dir)
+    agents.append(agent)
+    nodes = [n for n in rt.nodes() if n["alive"]]
+    res = rt.cluster_resources()
+    check(len(nodes) == 2 and res.get("GPU") == 1.0,
+          f"cluster: nodes {nodes}, resources {res}")
+    agent_node = next(n for n in nodes if n["node_id"] == agent_id)
+    check(agent_node["gpu_ids"] == [want_visible],
+          f"cluster: the agent names its GPUs {agent_node['gpu_ids']}")
+
+    # 2. a placement group reserves the card on the agent's node
+    t0 = time.perf_counter()
+    pg = placement_group([{"GPU": 1, "CPU": 1}], strategy="STRICT_PACK")
+    check(pg.wait(60.0), "cluster: the placement group never got ready")
+    pg_ready_s = time.perf_counter() - t0
+    assign = next(p["assignments"] for p in w.conductor.call(
+        "list_placement_groups", timeout=30.0) if p["pg_id"] == pg.id)
+    avail = rt.available_resources()
+    check(assign == [agent_id] and avail.get("GPU") == 0.0
+          and avail.get(f"_pg_{pg.id}_GPU") == 1.0,
+          f"cluster: group on {assign}, available {avail}")
+
+    # 3. a GPU actor in the group scores on the kernels
+    logs, marker = [], f"CLUSTER_LOG_{os.getpid()}"
+    got_log = threading.Event()
+
+    def on_logs(batch):
+        logs.extend(batch)
+        if any(marker in e.get("line", "") for e in batch):
+            got_log.set()
+
+    w.subscribe_channel("worker_logs", on_logs)
+    Scorer = rt.remote(num_gpus=1, placement_group=pg, name="scorer",
+                       namespace="cluster", max_restarts=0)(ClusterScorer)
+    t0, t0_boot = time.perf_counter(), boot_clock()
+    a = Scorer.remote()
+    where = rt.get(a.ready.remote(), timeout=300.0)
+    cold_s = time.perf_counter() - t0
+    cold_split = cold_start_split(t0_boot, where, boot_clock())
+    check(where["node"] == agent_id and where["ppid"] == agent.pid
+          and where["visible"] == want_visible and where["count"] == 1,
+          f"cluster: the GPU actor {where}, want the agent's node "
+          f"{agent_id[:12]}, its child, CUDA_VISIBLE_DEVICES="
+          f"{want_visible!r} and one device")
+    check(rt.available_resources().get(f"_pg_{pg.id}_GPU") == 0.0,
+          "cluster: the actor holds no GPU of the group")
+    rss_idle = pid_rss(where["pid"])
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    tgen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen)
+    tgt = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen)
+    tok_d, tgt_d = tok.cuda(), tgt.cuda()
+    with torch.inference_mode():
+        loss_d = gpt2.gpt2_loss(params, tok_d, tgt_d, cfg)
+
+    def score_on(actor, label: str) -> dict:
+        check(rt.get(actor.load.remote(rt.put(params)), timeout=300.0)
+              == ["cuda"], f"cluster: {label}'s weights are not on cuda")
+        loss_a, launches, plain = rt.get(actor.score.remote(tok_d, tgt_d),
+                                         timeout=300.0)
+        hold_launches(f"cluster: {label}'s scoring", launches,
+                      {**_NO_LAUNCHES, "flash_fwd": 2 * cfg.num_layers,
+                       "ce_fwd": 1}, 1)
+        check(plain == 0, f"cluster: {plain} attention calls of {label} "
+              "took the plain route")
+        bit_equal = bool(loss_a.device.type == "cuda"
+                         and torch.equal(loss_a, loss_d))
+        check(bit_equal or abs(float(loss_a) - float(loss_d)) <= LOSS_TOL,
+              f"cluster: {label}'s loss {float(loss_a)} vs the driver's "
+              f"{float(loss_d)}")
+        return {"launches": launches, "loss": float(loss_a),
+                "bit_equal": bit_equal}
+
+    scored = score_on(a, "the group's actor")
+    rss_loaded = pid_rss(where["pid"])
+    check(rt.get(a.say.remote(marker), timeout=60.0), "cluster: say")
+    log_s = wait_for(got_log.is_set, 10.0, "the actor's line on worker_logs")
+
+    # 4. a job scores the same seeded tokens through the named actor
+    script = os.path.join(session_dir, "cluster_job.py")
+    with open(script, "w") as f:
+        f.write(CLUSTER_JOB)
+    here = os.path.dirname(os.path.abspath(__file__))
+    client = JobSubmissionClient()
+    t0 = time.perf_counter()
+    job_id = client.submit_job(
+        entrypoint=f"{sys.executable} {script} {cfg.vocab_size}",
+        runtime_env={"env_vars": {"PYTHONPATH": here,
+                                  "RTT_SESSION_DIR": session_dir}})
+    status = client.wait_until_finished(job_id, timeout=300.0, poll_s=0.05)
+    job_s = time.perf_counter() - t0
+    job_log = client.get_job_logs(job_id)
+    check(status == "SUCCEEDED", f"cluster: job {status}:\n{job_log[-2000:]}")
+    job_loss = re.search(r"JOB_LOSS (\S+)", job_log)
+    check(job_loss is not None and (
+        float(job_loss.group(1)) == float(loss_d) or
+        (not scored["bit_equal"]
+         and abs(float(job_loss.group(1)) - float(loss_d)) <= LOSS_TOL)),
+        f"cluster: the job's loss {job_loss and job_loss.group(1)} vs the "
+        f"driver's {float(loss_d)!r}")
+
+    # 5. the agent dies under its GPU worker. The card must get back at
+    # least what the worker's allocator held, the weights included (its
+    # CUDA context comes on top), before a second agent may lease it.
+    held = rt.get(a.cuda_reserved.remote(), timeout=60.0)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree.tree_leaves(params))
+    check(held >= weight_bytes, f"cluster: the GPU worker holds {held} "
+          f"bytes on the card, less than the {weight_bytes} of its weights")
+    free_loaded = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    agent.kill()
+    agent.wait(timeout=30)
+    wait_for(lambda: not any(
+        n["alive"] for n in rt.nodes() if n["node_id"] == agent_id),
+        CLUSTER_SYSTEM_CONFIG["node_timeout"] + 2.0,
+        "the dead node's detection")
+    detect_s = time.perf_counter() - t0  # from the kill
+    res_dead = rt.cluster_resources()
+    check(res_dead.get("GPU", 0.0) == 0.0,
+          f"cluster: the dead node's GPU still counted: {res_dead}")
+    orphan_s = wait_for(lambda: pid_exited(where["pid"]),
+                        ORPHAN_EXIT_BOUND_S, "the orphaned GPU worker's exit")
+    freed_s = wait_for(
+        lambda: torch.cuda.mem_get_info()[0] - free_loaded >= held,
+        ORPHAN_EXIT_BOUND_S, "the card taking back the orphan's memory")
+    freed = torch.cuda.mem_get_info()[0] - free_loaded
+    try:
+        rt.get(a.score.remote(tok_d, tgt_d), timeout=60.0)
+        check(False, "cluster: a call on the dead node's actor answered")
+    except rt.exceptions.ActorDiedError:
+        pass
+
+    # only now a second agent: a plain GPU actor gets the card
+    agent2, agent2_id, join2_s = start_agent(rt, session_dir)
+    agents.append(agent2)
+    t0 = time.perf_counter()
+    b = rt.remote(num_gpus=1)(ClusterScorer).remote()
+    where_b = rt.get(b.ready.remote(), timeout=300.0)
+    cold2_s = time.perf_counter() - t0
+    check(where_b["node"] == agent2_id and where_b["ppid"] == agent2.pid
+          and where_b["visible"] == want_visible,
+          f"cluster: the second agent's GPU actor {where_b}")
+    rescored = score_on(b, "the second agent's actor")
+    del params
+    return {
+        "phase": "cluster", "card": card_line(),
+        "system_config": CLUSTER_SYSTEM_CONFIG,
+        "agent_gpu_ids": agent_node["gpu_ids"],
+        "agent_join_s": join_s, "agent_join_predicted_s": [6, 9],
+        "pg_ready_s": pg_ready_s, "pg_ready_predicted_s": [0, 0.05],
+        "cold_start_s": cold_s, "cold_start_predicted_s": [9, 12],
+        "cold_start_split": cold_split,
+        "actor_launches": scored["launches"], "loss_actor": scored["loss"],
+        "loss_driver": float(loss_d), "loss_bit_equal": scored["bit_equal"],
+        "worker_log_s": log_s,
+        "job_s": job_s, "job_predicted_s": [8, 15],
+        "job_loss": job_loss.group(1),
+        "detect_s": detect_s, "detect_predicted_s": [3.0, 3.8],
+        "orphan_exit_after_detect_s": orphan_s,
+        "orphan_exit_predicted_s": [0, 5.5],
+        "orphan_exit_bound_s": ORPHAN_EXIT_BOUND_S,
+        "orphan_reserved_mb": held / 2 ** 20,
+        "card_freed_mb": freed / 2 ** 20,
+        "card_freed_predicted_mb": [1024, 2560],
+        "card_freed_after_exit_s": freed_s,
+        "card_freed_after_exit_predicted_s": [0, 0.1],
+        "gpu_worker_rss_idle_mb": rss_idle / 2 ** 20,
+        "gpu_worker_rss_loaded_mb": rss_loaded / 2 ** 20,
+        "gpu_worker_rss_predicted_mb": [512, 1536],
+        "second_agent_join_s": join2_s, "second_cold_start_s": cold2_s,
+        "second_loss_bit_equal": rescored["bit_equal"],
+        "second_launches": rescored["launches"]}
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -3933,6 +4256,9 @@ def main() -> int:
     # the actor runtime: GPU actors score (the kernels counted in the
     # actor's process from 0) and serve
     phase_runtime(gpt2, generate_mod)
+    # the runtime beyond one node: a GPU actor on an agent's node, in a
+    # placement group, scores (its kernels counted in its process from 0)
+    phase_cluster(gpt2)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

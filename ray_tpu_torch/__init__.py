@@ -11,8 +11,13 @@ raise when CUDA is unavailable and the caller did not ask for the CPU.
 On a CPU tensor each kernel's wrapper runs its plain PyTorch version; on
 a CUDA tensor it launches the kernel or raises.
 
-The runtime (this module's API, as `ray_tpu`'s): a one-node cluster of
-worker processes with tasks, actors and a shared-memory object store.
+The runtime (this module's API, as `ray_tpu`'s): a cluster of worker
+processes with tasks, actors and a shared-memory object store. The head
+runs in the driver (`init()`) or on its own (`python -m ray_tpu_torch
+start --head`); node agents join it (`start --address HOST:PORT`), each
+with its own GPUs; placement groups reserve bundles across nodes
+(`util.placement_group`), and jobs run drivers on the head
+(`job_submission`).
 
     import ray_tpu_torch as rt
     rt.init()                      # counts the GPUs this process sees
@@ -73,7 +78,9 @@ def init(address: Optional[str] = None, *,
          ignore_reinit_error: bool = False,
          _system_config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Start a local cluster (conductor in this process) or connect to a
-    running one with ``address="host:port"``.
+    running one with ``address="host:port"``, or ``address="auto"``: the
+    address in RTT_ADDRESS. A job's driver (its head sets RTT_ADDRESS)
+    connects with a plain ``init()`` too.
 
     A new cluster counts the GPUs this process sees
     (`torch.cuda.device_count()`, which honours CUDA_VISIBLE_DEVICES)
@@ -91,12 +98,24 @@ def init(address: Optional[str] = None, *,
             return {"address": _worker_mod.global_worker.conductor_address}
         raise RuntimeError("ray_tpu_torch.init() already called; "
                            "use ignore_reinit_error=True to ignore")
-    if address is not None and (address == "auto"
-                                or address.startswith("ray://")):
+    from ._private.conductor import ENV_ADDRESS
+
+    if address is not None and address.startswith("ray://"):
         raise NotImplementedError(
-            f"init(address={address!r}): the client and address discovery "
-            "are not ported yet (ROADMAP Queue 1 item 2, second part); "
-            "pass address='host:port' of a running head")
+            f"init(address={address!r}): the client is not ported yet "
+            "(ROADMAP Queue 1 item 2, third part); pass "
+            "address='host:port' of a running head")
+    if address == "auto":
+        # reference semantics of ray.init("auto") / RAY_ADDRESS
+        address = os.environ.get(ENV_ADDRESS)
+        if not address:
+            raise RuntimeError(
+                f"init(address='auto'): no {ENV_ADDRESS} in the "
+                "environment; pass address='host:port' or start a head "
+                "with `python -m ray_tpu_torch start --head`")
+    elif address is None:
+        # job drivers spawned by the head find their cluster here
+        address = os.environ.get(ENV_ADDRESS) or None
     if worker_env and "CUDA_VISIBLE_DEVICES" in worker_env:
         raise ValueError(
             "worker_env may not set CUDA_VISIBLE_DEVICES: host workers see "
@@ -106,6 +125,9 @@ def init(address: Optional[str] = None, *,
         from ._private.config import config as _cfg
 
         _system_config_prior = _cfg.apply(_system_config)
+    if session_dir is None and address is not None:
+        # a driver on the head's machine (a job's) shares its session
+        session_dir = _head_session_dir(address)
     if session_dir is None:
         import uuid as _uuid
 
@@ -145,6 +167,26 @@ def init(address: Optional[str] = None, *,
     _worker_mod.global_worker = w
     atexit.register(shutdown)
     return {"address": conductor_address, "session_dir": session_dir}
+
+
+def _head_session_dir(address: str) -> Optional[str]:
+    """The head's session directory, when it exists on this machine."""
+    from ._private.rpc import RpcClient
+
+    host, port = address.rsplit(":", 1)
+    try:
+        c = RpcClient((host, int(port)), connect_retries=3)
+        try:
+            info = c.call("session_info", timeout=10.0)
+        finally:
+            c.close()
+    except Exception:  # noqa: BLE001 — the Worker's connect reports it
+        return None
+    from ._private.worker import machine_id
+
+    d = info.get("session_dir")
+    return d if info.get("machine") == machine_id() and d \
+        and os.path.isdir(d) else None
 
 
 def _detect_gpus() -> int:

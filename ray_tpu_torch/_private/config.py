@@ -18,19 +18,19 @@ raises as an unknown flag instead of doing nothing:
   `init(resources={"GPU": n})` sets the count explicitly.
 - `pallas_interpret`: ran Pallas kernels in interpret mode; the port
   has no Pallas kernel (its CPU path is the kernels' plain versions).
-- the flags of subsystems not ported yet (ROADMAP Queue 1 item 2,
-  second part), each back with the slice that reads it: remote nodes
-  and persistence (`node_timeout`, `node_heartbeat`,
-  `node_orphan_grace`, `restore_grace`, `node_ip`), the memory and log
-  monitors (`memory_usage_threshold`, `memory_monitor_refresh_ms`,
-  `log_to_driver`), the failure-domain tracker and preemption watcher
-  (`preempt_grace_s`, `maintenance_poll_s`, `quarantine_threshold`,
-  `quarantine_halflife_s`), Dataset backpressure
-  (`data_memory_budget`, `data_shm_high_water`), the weight fabric
-  (`weights_keep`, `weights_publish_ttl_s`), workflows
-  (`workflow_storage`), and the trainer's restart backoff
+- the flags of subsystems not ported yet, each back with the slice
+  that reads it: `node_ip` (the gang code of ROADMAP Queue 1 item 3),
+  Dataset backpressure (`data_memory_budget`, `data_shm_high_water`),
+  the weight fabric (`weights_keep`, `weights_publish_ttl_s`),
+  workflows (`workflow_storage`), and the trainer's restart backoff
   (`restart_backoff_base_s`, `restart_backoff_max_s`), which the
   port's trainer takes as arguments.
+
+The cluster layer's flags (remote nodes and their heartbeats,
+persistence, the memory and log monitors, the failure-domain tracker
+and the preemption watcher) are the JAX package's by name, type and
+default. A node agent takes the head's resolved table when it joins
+(`session_info`), so a flag set on the head holds on every node.
 
 Flags the port adds, each in place of an environment variable the JAX
 package reads: `rpc_warn_ms` (RAY_TPU_RPC_WARN_MS), `no_fork_server`
@@ -55,8 +55,17 @@ _FLAGS: List[Flag] = [
     # --- control plane -------------------------------------------------
     Flag("worker_start_timeout", float, 60.0,
          "seconds a lease waits for a worker process to start"),
+    Flag("node_timeout", float, 10.0,
+         "seconds without a heartbeat before an agent node is dead"),
+    Flag("node_heartbeat", float, 1.0,
+         "node agent heartbeat period (seconds)"),
     Flag("worker_orphan_grace", float, 30.0,
          "seconds a worker outlives a dead conductor before exiting"),
+    Flag("node_orphan_grace", float, 30.0,
+         "seconds a node agent outlives a dead conductor before exiting"),
+    Flag("restore_grace", float, 20.0,
+         "seconds a snapshot-restored worker record is presumed alive "
+         "awaiting its re-register"),
     Flag("lease_idle_ttl", float, 0.1,
          "seconds a submitter keeps an idle worker lease for reuse "
          "before returning it to the conductor (reference: direct task "
@@ -87,6 +96,26 @@ _FLAGS: List[Flag] = [
     Flag("force_remote_fetch", int, 0,
          "testing: every process claims a distinct machine id, forcing "
          "the cross-host chunked fetch path"),
+    # --- monitors ------------------------------------------------------
+    Flag("memory_usage_threshold", float, 0.95,
+         "node memory fraction above which the monitor OOM-kills the "
+         "greediest worker (<= 0 disables; reference memory_monitor.h)"),
+    Flag("memory_monitor_refresh_ms", int, 250,
+         "memory monitor poll period in milliseconds (0 disables)"),
+    Flag("log_to_driver", int, 1,
+         "1 = mirror worker stdout/stderr lines to the driver console "
+         "via the worker_logs pubsub channel (reference log_monitor.py)"),
+    # --- resilience ----------------------------------------------------
+    Flag("preempt_grace_s", float, 30.0,
+         "default preemption grace window (seconds) when the "
+         "maintenance-event channel does not specify one"),
+    Flag("maintenance_poll_s", float, 1.0,
+         "poll period of the maintenance-event file watcher"),
+    Flag("quarantine_threshold", float, 3.0,
+         "decayed failure score at which a host is quarantined out of "
+         "lease grants and gang formation"),
+    Flag("quarantine_halflife_s", float, 600.0,
+         "half-life (seconds) of a host's failure score decay"),
 ]
 
 _BY_NAME: Dict[str, Flag] = {f.name: f for f in _FLAGS}

@@ -4,9 +4,9 @@
                            "config_unknown_flag_rejected": None})
     ok, text = outcomes["core_put_get"]
 
-Each named check is a function of `runtime_checks.py` (a module of the
-package, so worker processes can import what a check pickles by
-reference). `run_checks` starts a fresh `python -m
+Each named check is a function of `runtime_checks.py` or
+`cluster_checks.py` (modules of the package, so worker processes can
+import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
 starts and stops its own), runs the check, shuts the cluster down and
@@ -167,7 +167,7 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import runtime_checks
+    from . import cluster_checks, runtime_checks
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -185,7 +185,8 @@ def _driver_main(payload_path: str) -> int:
 
     for name, init_kwargs in p["checks"]:
         try:
-            fn = getattr(runtime_checks, name)
+            fn = getattr(runtime_checks, name, None) \
+                or getattr(cluster_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             fn()

@@ -1202,9 +1202,9 @@ def config_unknown_flag_rejected():
     _raises(KeyError, config.get, "chips")
     before = config.snapshot()
     _raises(ValueError, rt.init, num_cpus=1,
-            _system_config={"memory_usage_threshold": 0.5})
+            _system_config={"weights_keep": 2})
     _raises(ValueError, rt.init, num_cpus=1,
-            _system_config={"log_to_driver": 0})
+            _system_config={"workflow_storage": "/tmp/x"})
     assert not rt.is_initialized() and config.snapshot() == before
 
 
@@ -1666,27 +1666,25 @@ def port_failed_arena_build_raises():
         _native._SRC, _native._lib = saved
 
 
+# the L6 report and get methods wait for their subsystems (ROADMAP
+# Queue 1 items 3-8)
 OMITTED_RPCS = [
-    ("create_placement_group", ([{"CPU": 1.0}],)),
-    ("register_node", ("n", {"CPU": 1.0})),
-    ("node_heartbeat", ("n",)),
-    ("submit_job", ("true",)),
-    ("shutdown_cluster", ()),
     ("report_spans", ([],)),
-    ("get_resilience_status", ()),
     ("weights_latest_version", ("w",)),
     ("get_recent_logs", ()),
+    ("get_train_progress", ()),
+    ("report_resilience_event", ({"kind": "recovery"},)),
 ]
 
 
 def port_omitted_parts_raise():
-    """What this slice leaves out raises: the conductor's omitted RPCs
+    """What the port leaves out raises: the conductor's omitted RPCs
     are absent (not stubs), and the API's unported options, hooks and
     addresses raise NotImplementedError naming the ROADMAP item."""
     from ray_tpu_torch._private.rpc import RemoteError
 
-    _raises(NotImplementedError, rt.init, address="auto")
-    _raises(NotImplementedError, rt.init, address="ray://127.0.0.1:1")
+    e = _raises(NotImplementedError, rt.init, address="ray://127.0.0.1:1")
+    assert "ROADMAP" in str(e), e
     assert not rt.is_initialized()
     rt.init(num_cpus=2)
     conductor = _worker().conductor
@@ -1697,9 +1695,14 @@ def port_omitted_parts_raise():
     def f():
         return 1
 
-    for option in ("placement_group", "runtime_env", "num_tpus"):
+    for option in ("runtime_env", "num_tpus"):
         e = _raises(NotImplementedError, rt.remote(**{option: 1}), f)
         assert "ROADMAP" in str(e) or "num_gpus" in str(e), e
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    e = _raises(NotImplementedError, JobSubmissionClient().submit_job,
+                entrypoint="true", runtime_env={"pip": ["x"]})
+    assert "ROADMAP" in str(e), e
     _raises(NotImplementedError, rt.remote(f).bind)
     c = Counter.remote()
     for hook in ("__ray_tpu_col_init__", "__ray_tpu_compiled_loop__"):
@@ -1748,7 +1751,10 @@ def port_reads_no_ray_tpu_knob():
     and the runtime wires its processes with RTT_* variables only."""
     knobs = {"RAY_TPU_OBJECT_STORE_CAP": "1024",
              "RAY_TPU_NO_FORK_SERVER": "1",
-             "RAY_TPU_LEASE_IDLE_TTL": "100"}
+             "RAY_TPU_LEASE_IDLE_TTL": "100",
+             "RAY_TPU_NODE_TIMEOUT": "1",
+             "RAY_TPU_LOG_TO_DRIVER": "0",
+             "RAY_TPU_ADDRESS": "127.0.0.1:1"}
     os.environ.update(knobs)
     try:
         rt.init(num_cpus=2)
@@ -1756,6 +1762,8 @@ def port_reads_no_ray_tpu_knob():
 
         assert config.object_store_cap == 2 * 1024 ** 3
         assert _worker().store._cap == 2 * 1024 ** 3
+        assert (config.node_timeout, config.log_to_driver) == (10.0, 1)
+        assert rt._conductor is not None  # RAY_TPU_ADDRESS named no head
 
         @rt.remote
         def env():

@@ -22,8 +22,10 @@ Submission protocol (reference direct_task_transport.h:75 kept):
 
 Calls that end a process (`shutdown_worker`, a force cancel, an actor's
 `exit_actor()`) raise in a driver instead: a stray RPC must not end the
-user's program. The JAX package's collective, compiled-DAG, tracing and
-profiler hooks are not ported here; a call that needs one raises
+user's program. A driver mirrors the workers' output lines from the
+`worker_logs` channel to its stderr (the `log_to_driver` flag). The JAX
+package's collective, compiled-DAG, tracing and profiler hooks are not
+ported here; a call that needs one raises
 NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -119,6 +121,7 @@ class TaskSpec:
     # DEFAULT = pack (head-first); SPREAD = emptiest node first
     # (reference scheduling_strategy on @ray.remote)
     scheduling_strategy: Any = "DEFAULT"
+    placement_group_id: Optional[str] = None
 
 
 def _top_level_refs(args: tuple, kwargs: dict) -> List[ObjectRef]:
@@ -215,6 +218,30 @@ class Worker:
         from . import refcount
 
         refcount.tracker.attach(self)
+        if mode == "driver":
+            self._maybe_mirror_worker_logs()
+
+    def _maybe_mirror_worker_logs(self) -> None:
+        """log_to_driver (reference log_monitor.py): print worker
+        stdout/stderr lines arriving on the worker_logs channel to this
+        driver's stderr."""
+        from .config import config
+
+        if not config.log_to_driver:
+            return
+        import sys
+
+        from .log_monitor import format_log_line
+
+        def on_lines(batch) -> None:
+            try:
+                for entry in batch:
+                    sys.stderr.write(format_log_line(entry) + "\n")
+                sys.stderr.flush()
+            except Exception:  # noqa: BLE001 — closed stderr on teardown
+                pass
+
+        self.subscribe_channel("worker_logs", on_lines)
 
     # ------------------------------------------------------------ put / get
 
@@ -583,6 +610,7 @@ class Worker:
                     resources: Optional[Dict[str, float]] = None,
                     max_retries: int = DEFAULT_MAX_RETRIES,
                     scheduling_strategy: Any = "DEFAULT",
+                    placement_group_id: Optional[str] = None,
                     fn_bytes: Optional[bytes] = None):
         return_ids = [ObjectID().hex() for _ in range(num_returns)]
         spec = TaskSpec(
@@ -595,7 +623,8 @@ class Worker:
             resources=dict(resources or {}),
             max_retries=max_retries,
             owner=self.address,
-            scheduling_strategy=scheduling_strategy)
+            scheduling_strategy=scheduling_strategy,
+            placement_group_id=placement_group_id)
         refs = [ObjectRef(oid, locator=None, owner=self.address)
                 for oid in return_ids]
         from . import refcount
@@ -663,11 +692,12 @@ class Worker:
 
     def _lease_key(self, spec: TaskSpec) -> tuple:
         """Cache key under which a granted lease is reusable: same
-        resource shape and scheduling strategy."""
+        resource shape, scheduling strategy and placement group."""
         strat = spec.scheduling_strategy
         if isinstance(strat, (tuple, list)):
             strat = tuple(strat)
-        return (tuple(sorted(spec.resources.items())), strat)
+        return (tuple(sorted(spec.resources.items())), strat,
+                spec.placement_group_id)
 
     @staticmethod
     def _lease_cacheable(key: tuple) -> bool:
@@ -718,8 +748,8 @@ class Worker:
                 self._lease_cv.wait(min(0.05, remaining))
         try:
             return self.conductor.call(
-                "lease_worker", spec.resources, None,
-                spec.scheduling_strategy, self._arg_locations(deps),
+                "lease_worker", spec.resources, spec.placement_group_id,
+                None, spec.scheduling_strategy, self._arg_locations(deps),
                 timeout=None)
         finally:
             with self._lease_cv:
@@ -804,8 +834,8 @@ class Worker:
             worker_id, address = self._acquire_lease(key, spec, deps)
         else:
             worker_id, address = self.conductor.call(
-                "lease_worker", spec.resources, None,
-                spec.scheduling_strategy, self._arg_locations(deps),
+                "lease_worker", spec.resources, spec.placement_group_id,
+                None, spec.scheduling_strategy, self._arg_locations(deps),
                 timeout=None)
         if self._is_cancelled(spec.return_ids):  # cancelled during lease
             self._lease_recache(key, worker_id, address)
@@ -1135,6 +1165,7 @@ class Worker:
             resources,
             options.get("max_restarts", 0),
             options.get("max_task_retries", 0),
+            options.get("placement_group_id"),
             options.get("get_if_exists", False),
             _sched.to_wire(options.get("scheduling_strategy", "DEFAULT")),
             timeout=None)

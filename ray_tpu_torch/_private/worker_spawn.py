@@ -14,7 +14,9 @@ Every process a spawn starts carries `RTT_SESSION_DIR` in its
 environment, which is how the isolated test harness finds a session's
 processes (isolated.py). The flag table reaches a forked worker in the
 template's request and a cold-started one through a file in the session
-directory (`RTT_SYSTEM_CONFIG`).
+directory (`RTT_SYSTEM_CONFIG`). A node agent spawns with its own `tag`
+(its node id): its template and its flag-table file are its own, beside
+the head's in a session directory the two may share on one machine.
 """
 from __future__ import annotations
 
@@ -61,8 +63,11 @@ class ForkedProc:
         self.returncode: Optional[int] = None
 
     def _same_process(self) -> bool:
+        """The worker still runs: same pid and start time, not a zombie
+        (a zombie has exited and released everything it held)."""
         try:
-            return proc_start_time(self.pid) == self.start_time
+            return proc_start_time(self.pid) == self.start_time \
+                and not pid_exited(self.pid)
         except (OSError, ValueError, IndexError):
             return False
 
@@ -107,6 +112,17 @@ class ForkedProc:
 
     def kill(self) -> None:
         self.send_signal(signal.SIGKILL)
+
+
+def pid_exited(pid: int) -> bool:
+    """The process is gone or a zombie: it has exited and released
+    everything it held, its CUDA context included."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            stat = f.read()
+    except OSError:
+        return True
+    return stat[stat.rindex(b")") + 2:].split()[0] == b"Z"
 
 
 class _ForkServer:
@@ -167,19 +183,29 @@ def _repo_env(env: Dict[str, str]) -> None:
     env["PYTHONPATH"] = os.pathsep.join(paths)
 
 
-def _get_fork_server(session_dir: str,
-                     base_env: Dict[str, str]) -> Optional[_ForkServer]:
+def _tagged(session_dir: str, name: str, ext: str, tag: str) -> str:
+    return os.path.join(session_dir,
+                        f"{name}-{tag}{ext}" if tag else f"{name}{ext}")
+
+
+def _fork_key(session_dir: str, tag: str) -> str:
+    return f"{session_dir}#{tag}" if tag else session_dir
+
+
+def _get_fork_server(session_dir: str, base_env: Dict[str, str],
+                     tag: str = "") -> Optional[_ForkServer]:
     from .config import config
 
     if sys.platform != "linux" or config.no_fork_server:
         return None
+    key = _fork_key(session_dir, tag)
     with _fork_servers_lock:
-        fs = _fork_servers.get(session_dir)
+        fs = _fork_servers.get(key)
         if fs is not None and fs.proc.poll() is None:
             return fs
         if fs is not None:
-            _fork_servers.pop(session_dir, None)
-        sock_path = os.path.join(session_dir, "fork_server.sock")
+            _fork_servers.pop(key, None)
+        sock_path = _tagged(session_dir, "fork_server", ".sock", tag)
         tmpl_env = dict(base_env)
         tmpl_env[ENV_SESSION_DIR] = session_dir
         _repo_env(tmpl_env)
@@ -208,27 +234,27 @@ def _get_fork_server(session_dir: str,
                     pass
             return None
         fs = _ForkServer(sock_path, proc)
-        _fork_servers[session_dir] = fs
+        _fork_servers[key] = fs
         return fs
 
 
-def stop_fork_server(session_dir: str) -> None:
+def stop_fork_server(session_dir: str, tag: str = "") -> None:
     with _fork_servers_lock:
-        fs = _fork_servers.pop(session_dir, None)
+        fs = _fork_servers.pop(_fork_key(session_dir, tag), None)
     if fs is not None:
         fs.stop()
 
 
-def system_config_path(session_dir: str) -> str:
+def system_config_path(session_dir: str, tag: str = "") -> str:
     """Where a cold-started worker reads the flag table."""
-    return os.path.join(session_dir, "system_config.pkl")
+    return _tagged(session_dir, "system_config", ".pkl", tag)
 
 
-def write_system_config(session_dir: str) -> None:
+def write_system_config(session_dir: str, tag: str = "") -> None:
     """Record this process's flag table for the session's cold spawns."""
     from .config import config
 
-    path = system_config_path(session_dir)
+    path = system_config_path(session_dir, tag)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(config.snapshot(), f)
@@ -241,10 +267,11 @@ def spawn_worker_process(worker_id: str,
                          worker_env: Optional[Dict[str, str]] = None,
                          env_extra: Optional[Dict[str, str]] = None,
                          node_id: Optional[str] = None,
-                         cold: bool = False):
+                         cold: bool = False, tag: str = ""):
     """Start one worker wired to the conductor; returns a Popen-shaped
     handle (subprocess.Popen or ForkedProc). `cold` forces a fresh
-    interpreter (GPU workers)."""
+    interpreter (GPU workers); `tag` names the spawning node's template
+    and flag-table file (empty for the head's)."""
     from .config import config
 
     host, port = conductor_address
@@ -263,13 +290,13 @@ def spawn_worker_process(worker_id: str,
 
     if not cold:
         fs = _get_fork_server(
-            session_dir, dict(os.environ, **(worker_env or {})))
+            session_dir, dict(os.environ, **(worker_env or {})), tag)
         if fs is not None:
             try:
                 return fs.spawn(env, log_path, config.snapshot())
             except Exception:  # noqa: BLE001 — template died: cold spawn
-                stop_fork_server(session_dir)
-    env[ENV_SYSTEM_CONFIG] = system_config_path(session_dir)
+                stop_fork_server(session_dir, tag)
+    env[ENV_SYSTEM_CONFIG] = system_config_path(session_dir, tag)
     _repo_env(env)
     with open(log_path, "ab") as out:
         return subprocess.Popen(

@@ -12,7 +12,8 @@ from typing import Any, Dict, Optional
 
 from . import exceptions as exc
 from ._private import worker as worker_mod
-from .remote_function import DAG_NOT_PORTED, check_options, resources_of
+from .remote_function import (DAG_NOT_PORTED, check_options,
+                              placement_group_id, resources_of)
 
 
 class ActorMethod:
@@ -109,6 +110,8 @@ class ActorClass:
         o["resources"] = {k: v for k, v in resources_of(o).items()
                           if k != "CPU"}
         o.pop("num_gpus", None)
+        o["placement_group_id"] = placement_group_id(o)
+        o.pop("placement_group", None)
         info = w.create_actor(self._cls, args, kwargs, o)
         return ActorHandle(info["actor_id"], info["address"],
                            max_task_retries=o.get("max_task_retries", 0))

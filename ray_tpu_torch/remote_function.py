@@ -2,7 +2,8 @@
 python/ray/remote_function.py (RemoteFunction._remote :266): wrap a callable,
 give it `.remote()` returning ObjectRefs, and `.options()` for per-call
 overrides. `num_gpus=` asks for GPUs (whole GPUs bind a worker to them;
-a fraction only counts the resource)."""
+a fraction only counts the resource); `placement_group=` places the
+task in a group's bundles."""
 from __future__ import annotations
 
 import functools
@@ -14,10 +15,8 @@ from .util import scheduling_strategies as _sched
 
 # options of the JAX package whose machinery is not ported yet
 NOT_PORTED_OPTIONS = {
-    "placement_group": "placement groups are not ported yet (ROADMAP "
-                       "Queue 1 item 2, second part)",
     "runtime_env": "runtime environments are not ported yet (ROADMAP "
-                   "Queue 1 item 2, second part)",
+                   "Queue 1 item 2, third part)",
     "num_tpus": "the port has no TPUs: ask for GPUs with num_gpus=",
 }
 
@@ -29,6 +28,13 @@ def check_options(options: Dict[str, Any]) -> None:
     for name, why in NOT_PORTED_OPTIONS.items():
         if options.get(name) is not None:
             raise NotImplementedError(f"{name}=: {why}")
+
+
+def placement_group_id(options: Dict[str, Any]) -> Optional[str]:
+    """The id of the `placement_group=` option (a PlacementGroup or its
+    id), or None."""
+    pg = options.get("placement_group")
+    return getattr(pg, "id", pg) if pg is not None else None
 
 
 def resources_of(options: Dict[str, Any]) -> Dict[str, float]:
@@ -77,6 +83,7 @@ class RemoteFunction:
             num_returns=int(o.get("num_returns", 1)),
             resources=resources_of(o),
             max_retries=o.get("max_retries", DEFAULT_MAX_RETRIES),
+            placement_group_id=placement_group_id(o),
             scheduling_strategy=_sched.to_wire(
                 o.get("scheduling_strategy", "DEFAULT")))
 

@@ -137,9 +137,13 @@ def test_entry_points_without_device_raise_when_cuda_is_missing():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
+    # every module, and every subpackage by its __init__
     mods = sorted(
-        "ray_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
-        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+        "ray_tpu_torch." + ".".join(
+            p.relative_to(PKG).parent.parts if p.name == "__init__.py"
+            else p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.parent != PKG
+        or p.name != "__init__.py")
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'jaxlib')) or m == 'ray_tpu' or "
@@ -155,6 +159,15 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "config", "checkpoint", "async_checkpoint", "session", "trainer",
         "gang_checks")} | {"ray_tpu_torch.resilience.supervisor"} <= \
         set(mods)
+    # and the runtime's cluster layer (node agents, monitors, placement
+    # groups, jobs, the CLI)
+    assert {f"ray_tpu_torch._private.{m}" for m in (
+        "node_agent", "log_monitor", "memory_monitor", "cluster_checks")} | {
+        "ray_tpu_torch.resilience.domains",
+        "ray_tpu_torch.resilience.preemption",
+        "ray_tpu_torch.util.placement_group",
+        "ray_tpu_torch.scripts.cli", "ray_tpu_torch.__main__",
+        "ray_tpu_torch.job_submission"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -27,20 +27,24 @@ from ray_tpu_torch.util import scheduling_strategies as tsched
 
 # the JAX package's flags without a counterpart (config.py's docstring),
 # with the reason
-_NOT_PORTED = "its subsystem is not ported (ROADMAP Queue 1 item 2, second part)"
+_NOT_PORTED = "its subsystem is not ported (ROADMAP Queue 1)"
 JAX_ONLY_FLAGS = {
     "chips": "the port counts GPUs; init(resources=) sets the count",
     "pallas_interpret": "the port has no Pallas kernel",
     **{name: _NOT_PORTED for name in (
-        "node_timeout", "node_heartbeat", "node_orphan_grace",
-        "restore_grace", "data_memory_budget", "data_shm_high_water",
-        "memory_usage_threshold", "memory_monitor_refresh_ms",
-        "log_to_driver", "preempt_grace_s", "maintenance_poll_s",
-        "quarantine_threshold", "quarantine_halflife_s",
+        "data_memory_budget", "data_shm_high_water",
         "restart_backoff_base_s", "restart_backoff_max_s",
         "weights_keep", "weights_publish_ttl_s", "node_ip",
         "workflow_storage")},
 }
+# the flags the cluster layer brought back (they were JAX_ONLY_FLAGS
+# until then): each is read by the port, under the JAX name, type and
+# default
+CLUSTER_FLAGS = ("node_timeout", "node_heartbeat", "node_orphan_grace",
+                 "restore_grace", "memory_usage_threshold",
+                 "memory_monitor_refresh_ms", "log_to_driver",
+                 "preempt_grace_s", "maintenance_poll_s",
+                 "quarantine_threshold", "quarantine_halflife_s")
 # the port's flags in place of the JAX package's environment reads, with
 # the defaults of those reads (rpc.py:92, worker_spawn.py:137,
 # worker_main.py:39)
@@ -75,6 +79,27 @@ def test_jax_only_flag_is_refused(name):
     with pytest.raises(KeyError):
         cfg.get(name)
     assert cfg.snapshot() == {}
+
+
+@pytest.mark.parametrize("name", CLUSTER_FLAGS)
+def test_cluster_flag_is_read_with_jax_default(name):
+    """A flag of the cluster layer resolves to the JAX package's default,
+    an override holds until restored, and the port's code reads it."""
+    import pathlib
+
+    jflag = jconfig._BY_NAME[name]
+    cfg = tconfig.RayTpuConfig()
+    assert cfg.get(name) == jflag.default
+    assert type(cfg.get(name)) is jflag.type
+    bumped = jflag.type(jflag.default * 2 if jflag.default else 1)
+    prior = cfg.apply({name: bumped})
+    assert cfg.get(name) == bumped and cfg.snapshot() == {name: bumped}
+    cfg.restore(prior)
+    assert cfg.get(name) == jflag.default
+    pkg = pathlib.Path(tconfig.__file__).parents[1]
+    readers = [p for p in pkg.rglob("*.py") if p.name != "config.py"
+               and f"config.{name}" in p.read_text()]
+    assert readers, f"no module of the port reads config.{name}"
 
 
 ID_CLASSES = ["BaseID", "JobID", "NodeID", "TaskID", "ActorID", "ObjectID",

@@ -67,7 +67,18 @@ group scoring GPT-2 small (its launches held, its loss against the
 driver's, a printed line reaching the driver's log subscription), a job
 scoring the same tokens through the named actor, the agent SIGKILLed
 (the dead node detected, its orphaned GPU worker gone before a second
-agent joins and a GPU actor there scores again). Every
+agent joins and a GPU actor there scores again). The live weight
+fabric (`fabric`): `TorchTrainer` trains GPT-2 small bf16 in this
+process at tokens [8, 1024] for 3 steps, each step's launches held, and
+every `report()` publishes the params; a GPU actor builds its bf16 engine
+from version 1 and a `WeightSync` hot-swaps it to each later version
+between decode ticks (a request in flight across each swap completes,
+the actor's streams equal `generate()` here, its loss bit-equal with its
+launches held, every leaf's hash equal; version 1 collected; a tenant
+adapter paged over the fabric and hot-swapped on a re-publish). The
+trainer's worker gang (`train_gang`): two fits of GPT-2 tiny on 2-rank
+gloo gangs of CPU ranks, one killed by a chaos plan and restarted from
+its checkpoint; one card holds no gang of GPU ranks. Every
 phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -3894,7 +3905,6 @@ def phase_cluster(gpt2) -> None:
     cluster_body). Every process the phase started is ended here, and
     the phase fails if one outlived the cluster's shutdown."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private import isolated
 
     torch.cuda.empty_cache()
     info = rt.init(num_cpus=2, resources={"GPU": 0},
@@ -3904,25 +3914,7 @@ def phase_cluster(gpt2) -> None:
     try:
         line = cluster_body(rt, gpt2, session_dir, agents)
     finally:
-        try:
-            rt.shutdown()
-        finally:
-            for proc in agents:
-                try:
-                    proc.wait(timeout=15)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-            deadline = time.monotonic() + 10.0
-            while isolated.session_processes(session_dir) \
-                    and time.monotonic() < deadline:
-                time.sleep(0.1)
-            left = isolated.session_processes(session_dir)
-            for pid in left:
-                try:
-                    os.kill(pid, 9)
-                except OSError:
-                    pass
-    check(not left, f"cluster: processes {left} outlived the cluster")
+        end_session(rt, session_dir, "cluster", agents)
     emit(line)
 
 
@@ -4117,6 +4109,502 @@ def cluster_body(rt, gpt2, session_dir: str, agents: list) -> dict:
         "second_launches": rescored["launches"]}
 
 
+# ------------------------------------------------------------------ fabric
+# The trainer's live weight fabric on the card: GPT-2 small trains in the
+# driver (TorchTrainer, spmd), report() publishes every step, and a GPU
+# actor's bf16 engine hot-swaps to each version between decode ticks.
+
+FABRIC_NAME = "gpt2"
+FABRIC_STEPS = 3
+FABRIC_TOKENS = (8, 1024)
+FABRIC_SEED = 60
+FABRIC_CONFIG = {"weights_keep": 2}
+# the request in flight across each swap: prompt tokens, new tokens
+FABRIC_LONG = (8, 900)
+# the prediction for a version of GPT-2 small bf16 (~0.25 GB) through
+# the arena, written before the phase first ran (PERF.md §6)
+FABRIC_PREDICTED_S = {"publish": [0.5, 1.5], "fetch": [0.4, 1.2]}
+SWAP_BOUND_S = 120.0
+
+
+class FabricServeActor:
+    """The fabric phase's GPU actor: a bf16 GPT-2 small engine built from
+    version 1 of the weight set (`WeightSubscriber.fetch(like=)` onto a
+    template on this card) and kept on the newest version by a
+    `WeightSync`."""
+
+    def __init__(self, name: str):
+        from ray_tpu_torch import weights
+        from ray_tpu_torch.models import engine, gpt2
+
+        self.init_at = boot_clock()
+        _no_tf32()
+        self.cfg = gpt2.GPT2Config.small()
+        template = gpt2.gpt2_init(self.cfg, torch.Generator().manual_seed(1),
+                                  device="cuda")
+        self.sub = weights.WeightSubscriber(name)
+        t0 = time.perf_counter()
+        params = self.sub.fetch(version=1, like=template)
+        torch.cuda.synchronize()
+        self.first_fetch_s = time.perf_counter() - t0
+        del template
+        self.engine = engine.ContinuousBatchingEngine(
+            params, self.cfg, max_batch=4, params_version=1)
+        self.sync = weights.WeightSync(self.engine, name,
+                                       consumer="fabric-actor",
+                                       subscriber=self.sub,
+                                       poll_interval_s=0.05)
+        self.long = None
+        self.lora = None
+
+    def ready(self) -> dict:
+        return {**_where(self.init_at), "first_fetch_s": self.first_fetch_s,
+                "first_fetch_bytes": self.sub.last_stats.fetched_bytes}
+
+    def start_long(self, prompt, new: int) -> dict:
+        """A request that runs across the next swap; returns once its
+        first token is out (it is in flight)."""
+        rec = {"version_at_start": self.engine.params_version,
+               "t_start": time.time(), "tokens": 0}
+        first = threading.Event()
+
+        def run():
+            try:
+                for _ in self.engine.stream(prompt, new, timeout_s=600.0):
+                    rec["tokens"] += 1
+                    first.set()
+            except Exception as err:  # noqa: BLE001 — reported back
+                rec["error"] = repr(err)
+            rec["t_end"] = time.time()
+            rec["version_at_end"] = self.engine.params_version
+            first.set()
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        self.long = (th, rec)
+        check(first.wait(120.0), "fabric: the long request never started")
+        return dict(rec)
+
+    def long_result(self) -> dict:
+        th, rec = self.long
+        th.join(600.0)
+        check(not th.is_alive(), "fabric: the long request never ended")
+        swaps = [s for s in self.sync.swaps
+                 if rec["t_start"] <= s["applied_at"] <= rec["t_end"]]
+        return {**rec, "swaps_during": [s["version"] for s in swaps]}
+
+    def wait_version(self, version: int) -> dict:
+        """The status once the engine serves `version` and the sync has
+        recorded the swap (it does so just after the engine applies
+        it)."""
+        t0 = time.perf_counter()
+        self.sync.wait_for_swap(version, timeout=SWAP_BOUND_S)
+        while not any(x["version"] == version for x in self.sync.swaps):
+            check(time.perf_counter() - t0 < SWAP_BOUND_S,
+                  f"fabric: the swap to v{version} was never recorded")
+            time.sleep(0.005)
+        return self.sync.status()
+
+    def generate_all(self, prompts, new: int) -> list:
+        out = [None] * len(prompts)
+
+        def run(i):
+            out[i] = self.engine.generate(prompts[i], new, timeout_s=600.0)
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600.0)
+        return out
+
+    def score(self, tokens, targets):
+        """gpt2_forward then gpt2_loss on the weights being served,
+        counted from 0 in this process."""
+        from ray_tpu_torch import kernels
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.ops import attention
+
+        kernels.reset_launches()
+        attention.PLAIN_CALLS["attention"] = 0
+        params = self.engine.params
+        with torch.inference_mode():
+            gpt2.gpt2_forward(params, tokens, self.cfg)
+            loss = gpt2.gpt2_loss(params, tokens, targets, self.cfg)
+        torch.cuda.synchronize()
+        return (loss.clone(), dict(kernels.LAUNCHES),
+                attention.PLAIN_CALLS["attention"])
+
+    def hashes(self) -> list:
+        from ray_tpu_torch import weights
+
+        return weights.leaf_content_hashes(self.engine.params)
+
+    def stats(self) -> dict:
+        return {"sync": self.sync.stats(), "status": self.sync.status()}
+
+    def _tenant_streams(self, pool, tenant: str, prompts, new: int) -> list:
+        from ray_tpu_torch.models import engine
+
+        eng = engine.ContinuousBatchingEngine(self.engine.params, self.cfg,
+                                              max_batch=4, lora_pool=pool)
+        try:
+            return [eng.generate(p, new, adapter_id=tenant,
+                                 timeout_s=600.0) for p in prompts]
+        finally:
+            eng.stop()
+
+    def lora_streams(self, tenant: str, adapter, prompts, new: int) -> dict:
+        """The tenant's streams from a pool paging over the fabric
+        (`build_pool(lora=True)`, kept for the re-publish) and from a
+        pool over a LocalAdapterSource of `adapter`, on the weights being
+        served."""
+        from ray_tpu_torch.serve import lora
+
+        if self.lora is None:
+            self.lora = lora.build_pool(self.cfg, True, slots=2,
+                                        device="cuda")
+        fabric = self._tenant_streams(self.lora, tenant, prompts, new)
+        local = self._tenant_streams(
+            lora.build_pool(self.cfg, {tenant: adapter}, slots=2,
+                            device="cuda"), tenant, prompts, new)
+        return {"fabric": fabric, "local": local,
+                "resident_version": self.lora.resident_version(tenant),
+                "stats": self.lora.stats()}
+
+    def wait_dirty(self, tenant: str) -> float:
+        t0 = time.perf_counter()
+        while not self.lora.source.dirty(tenant):
+            check(time.perf_counter() - t0 < 30.0,
+                  "fabric: the re-publish never marked the tenant dirty")
+            time.sleep(0.01)
+        return time.perf_counter() - t0
+
+    def stop(self) -> bool:
+        self.sync.stop()
+        self.engine.stop()
+        if self.lora is not None:
+            self.lora.source.close()
+        return not self.engine._thread.is_alive()
+
+
+def end_session(rt, session_dir: str, what: str, procs=()) -> None:
+    """Shut the cluster down, wait for the processes the phase started
+    itself (`procs`, killed after 15 s), and fail if a process of the
+    session outlived it."""
+    from ray_tpu_torch._private import isolated
+
+    try:
+        rt.shutdown()
+    finally:
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        deadline = time.monotonic() + 10.0
+        while isolated.session_processes(session_dir) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = isolated.session_processes(session_dir)
+        for pid in left:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+    check(not left, f"{what}: processes {left} outlived the cluster")
+
+
+def phase_fabric(kernels, gpt2, generate_mod) -> None:
+    """The trainer publishes, a GPU actor's engine hot-swaps (see
+    fabric_body)."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=4, _system_config=FABRIC_CONFIG)
+    try:
+        line = fabric_body(rt, kernels, gpt2, generate_mod)
+    finally:
+        end_session(rt, info["session_dir"], "fabric")
+    emit(line)
+
+
+def fabric_body(rt, kernels, gpt2, generate_mod) -> dict:
+    """`TorchTrainer(mode="spmd")` trains GPT-2 small bf16 on the card
+    (TrainStep + adamw, tokens [8, 1024], FABRIC_STEPS steps, each step's
+    launches held); every report() publishes the params. A GPU actor
+    builds its bf16 engine from version 1 and a WeightSync follows the
+    set. Per version: a request started before the swap completes its
+    full length, the actor's streams for SERVE_LENGTHS equal the
+    driver's generate() on the same params, its gpt2_loss of a fixed
+    batch equals the driver's bit for bit (its launches held), and every
+    leaf's content hash equals the driver's. Then: version 1 has left the
+    registry (weights_keep 2) and its chunks the driver's store; a tenant
+    adapter published with publish_adapter pages in over the fabric,
+    streams as a local pool of the same adapter, and a re-publish
+    hot-swaps it."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import train, weights
+    from ray_tpu_torch._private import refcount
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.serve import lora
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.train.step import TrainStep
+    from ray_tpu_torch.weights import publisher as pub_mod
+
+    w = worker_mod.global_worker
+    cfg = gpt2.GPT2Config.small()
+    per_step = train_launches_per_step(kernels, cfg,
+                                       FABRIC_TOKENS[0] * FABRIC_TOKENS[1])
+    score_launches = {**_NO_LAUNCHES, "flash_fwd": 2 * cfg.num_layers,
+                      "ce_fwd": 1}
+    batch = train_batch(cfg, *FABRIC_TOKENS, FABRIC_SEED + 1)
+    tgen = torch.Generator().manual_seed(FABRIC_SEED + 2)
+    tok_d = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen).cuda()
+    tgt_d = torch.randint(0, cfg.vocab_size, (4, 512), generator=tgen).cuda()
+    prompts = serve_prompts(cfg)
+    long_prompt = torch.randint(0, cfg.vocab_size, (FABRIC_LONG[0],),
+                                generator=tgen).tolist()
+    Actor = rt.remote(num_gpus=1, max_concurrency=8)(FabricServeActor)
+    rec = {"versions": [], "step_launches": []}
+
+    def after_publish(version: int, params, losses) -> None:
+        pub = pub_mod.publisher(FABRIC_NAME)
+        out = {"version": version, "loss": losses[-1],
+               "publish_ms": pub.publish_ms[-1],
+               "publish_bytes": pub.published_bytes[-1]}
+        if version == 1:
+            rec["v1_ids"] = pub.held_object_ids()
+            t0, t0_boot = time.perf_counter(), boot_clock()
+            rec["actor"] = Actor.remote(FABRIC_NAME)
+            where = rt.get(rec["actor"].ready.remote(), timeout=300.0)
+            out["actor_start_s"] = time.perf_counter() - t0
+            out["actor_start_split"] = cold_start_split(t0_boot, where,
+                                                        boot_clock())
+            out["fetch_ms"] = where["first_fetch_s"] * 1e3
+            out["fetch_bytes"] = where["first_fetch_bytes"]
+        a = rec["actor"]
+        if version > 1:
+            st = rt.get(a.wait_version.remote(version),
+                        timeout=SWAP_BOUND_S + 60.0)
+            check(st["serving_version"] == version,
+                  f"fabric: the actor serves {st['serving_version']}, not "
+                  f"{version}")
+            swap = next(x for x in st["swaps"] if x["version"] == version)
+            # the registry's commit time (the conductor runs in this
+            # process: one clock with the actor's)
+            commit = next(m["ts"] for m in w.conductor.call(
+                "get_weight_versions",
+                timeout=30.0)["names"][FABRIC_NAME]["versions"]
+                if m["version"] == version)
+            # the driver waits for each swap before its next step: the
+            # actor notices version v while it serves v - 1
+            check(swap["staleness_at_notice"] == 1,
+                  f"fabric: v{version} noticed at staleness "
+                  f"{swap['staleness_at_notice']}, not 1")
+            out.update(fetch_ms=swap["fetch_ms"],
+                       fetch_bytes=swap["fetched_bytes"],
+                       staleness_at_notice=swap["staleness_at_notice"],
+                       apply_ms=swap["apply_ms"],
+                       publish_to_applied_s=swap["applied_at"] - commit)
+            long = rt.get(a.long_result.remote(), timeout=660.0)
+            check("error" not in long and long["tokens"] == FABRIC_LONG[1]
+                  and long["version_at_start"] == version - 1,
+                  f"fabric: the request in flight across v{version} {long}")
+            out["in_flight"] = {k: long[k] for k in (
+                "tokens", "version_at_start", "version_at_end",
+                "swaps_during")}
+            out["in_flight"]["s"] = long["t_end"] - long["t_start"]
+        streams = rt.get(a.generate_all.remote(prompts, SERVE_NEW),
+                         timeout=600.0)
+        with torch.inference_mode():
+            want = generated(generate_mod, params, cfg, prompts)
+            loss_d = gpt2.gpt2_loss(params, tok_d, tgt_d, cfg)
+        differ = [i for i, (x, y) in enumerate(zip(streams, want)) if x != y]
+        check(not differ, f"fabric v{version}: streams {differ} of the "
+              f"actor differ from the driver's generate()")
+        loss_a, launches, plain = rt.get(a.score.remote(tok_d, tgt_d),
+                                         timeout=300.0)
+        hold_launches(f"fabric v{version}: the actor's scoring", launches,
+                      score_launches, 1)
+        check(plain == 0, f"fabric v{version}: {plain} plain-route calls")
+        check(loss_a.device.type == "cuda" and torch.equal(loss_a, loss_d),
+              f"fabric v{version}: the actor's loss {float(loss_a)!r} vs "
+              f"the driver's {float(loss_d)!r}")
+        hashes = rt.get(a.hashes.remote(), timeout=300.0)
+        check(hashes == weights.leaf_content_hashes(params),
+              f"fabric v{version}: a fetched leaf's hash differs")
+        out.update(streams_equal_generate=len(prompts),
+                   actor_launches=launches, loss_actor=float(loss_a),
+                   loss_bit_equal=True, leaves_hash_equal=len(hashes))
+        if version < FABRIC_STEPS:
+            rt.get(a.start_long.remote(long_prompt, FABRIC_LONG[1]),
+                   timeout=300.0)
+        rec["versions"].append(out)
+
+    def train_fn(config):
+        step = TrainStep(lambda p, bt: gpt2.gpt2_loss(
+            p, bt["tokens"], bt["targets"], cfg),
+            adamw(3e-4, weight_decay=0.1), device="cuda")
+        state = step.init_state(gpt2.gpt2_init(
+            cfg, torch.Generator().manual_seed(FABRIC_SEED), device="cuda"))
+        losses = []
+        for s in range(1, FABRIC_STEPS + 1):
+            reset_counts(kernels)
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            hold_launches(f"fabric: the driver's step {s}", launches,
+                          per_step, 1)
+            check_no_plain_route(f"fabric: the driver's step {s}")
+            rec["step_launches"].append(launches)
+            losses.append(float(m["loss"]))
+            train.report({"step": s, "loss": losses[-1]},
+                          publish_weights=state["params"],
+                          weights_name=FABRIC_NAME)
+            config["after_publish"](s, state["params"], losses)
+
+    storage = tempfile.mkdtemp(prefix="fabric-")
+    try:
+        t0 = time.perf_counter()
+        result = train.TorchTrainer(
+            train_fn, train_loop_config={"after_publish": after_publish},
+            run_config=train.RunConfig(name="fabric",
+                                       storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"fabric: the fit failed: "
+              f"{result.error!r}")
+        a = rec["actor"]
+        # weights_keep 2: version 1 left the registry and its chunks the
+        # driver's store
+        listing = w.conductor.call("get_weight_versions", timeout=30.0)
+        kept = [m["version"] for m in
+                listing["names"][FABRIC_NAME]["versions"]]
+        check(kept == [FABRIC_STEPS - 1, FABRIC_STEPS],
+              f"fabric: the registry keeps {kept}")
+        v1_ids = rec["v1_ids"]
+
+        def v1_gone():
+            refcount.tracker.flush()
+            return not any(w.store.contains(o) for o in v1_ids)
+
+        v1_free_s = wait_for(v1_gone, 10.0, "version 1's chunks leaving "
+                             "the store")
+        # a tenant adapter over the fabric, then its re-publish
+        ad1 = lora.make_lora_adapter(cfg, rank=LORA_RANK, seed=71,
+                                     scale=LORA_SCALE)
+        ad2 = lora.make_lora_adapter(cfg, rank=LORA_RANK, seed=72,
+                                     scale=LORA_SCALE)
+        check(lora.publish_adapter("t0", ad1) == 1,
+              "fabric: publish_adapter's first version")
+        first = rt.get(a.lora_streams.remote("t0", ad1, prompts[:2],
+                                             SERVE_NEW), timeout=600.0)
+        check(first["fabric"] == first["local"]
+              and first["resident_version"] == 1
+              and first["stats"]["page_in_bytes"] > 0,
+              f"fabric: the paged-in tenant {first}")
+        check(lora.publish_adapter("t0", ad2) == 2,
+              "fabric: publish_adapter's re-publish")
+        dirty_s = rt.get(a.wait_dirty.remote("t0"), timeout=60.0)
+        second = rt.get(a.lora_streams.remote("t0", ad2, prompts[:2],
+                                              SERVE_NEW), timeout=600.0)
+        # swaps counted from the first page-in: a version-1 notice that
+        # reached the source after it subscribed marks it dirty once
+        check(second["fabric"] == second["local"]
+              and second["resident_version"] == 2
+              and second["stats"]["swaps"]
+              == first["stats"]["swaps"] + 1,
+              f"fabric: the re-published tenant {second}")
+        stats = rt.get(a.stats.remote(), timeout=60.0)
+        check(rt.get(a.stop.remote(), timeout=60.0),
+              "fabric: the actor's engine loop still running")
+        rt.kill(a)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    samples = stats["sync"]["staleness_samples"]
+    return {
+        "phase": "fabric", "card": card_line(), "model": "gpt2-small",
+        "dtype": "bfloat16", "tokens": list(FABRIC_TOKENS),
+        "steps": FABRIC_STEPS, "system_config": FABRIC_CONFIG,
+        "fit_s": fit_s, "losses": [v["loss"] for v in rec["versions"]],
+        "driver_step_launches": rec["step_launches"],
+        "versions": rec["versions"],
+        "publish_ms": [v["publish_ms"] for v in rec["versions"]],
+        "publish_bytes": [v["publish_bytes"] for v in rec["versions"]],
+        "fetch_ms": [v["fetch_ms"] for v in rec["versions"]],
+        "publish_to_applied_s": [v.get("publish_to_applied_s")
+                                 for v in rec["versions"]],
+        "predicted_s": FABRIC_PREDICTED_S,
+        "swap_count": stats["sync"]["swap_count"],
+        "staleness_at_notice": [v.get("staleness_at_notice")
+                                for v in rec["versions"]],
+        "staleness_samples": {str(k): samples.count(k)
+                              for k in sorted(set(samples))},
+        "max_staleness": stats["sync"]["max_staleness_versions"],
+        "kept_versions": kept, "v1_chunks": len(v1_ids),
+        "v1_chunks_freed_s": v1_free_s,
+        "lora_tenant_dirty_s": dirty_s,
+        "lora_page_in_bytes": first["stats"]["page_in_bytes"],
+        "lora_streams_equal_local": 2 * len(first["fabric"])}
+
+
+def phase_train_gang() -> None:
+    """`TorchTrainer(mode="workers", num_workers=2, use_gpu=False,
+    resources_per_worker={"CPU": 1})` on the card machine's CPUs: GPT-2
+    tiny (fp32, 2 heads) on a 2-rank gloo gang, 4 steps of the mesh TrainStep
+    (dp 2), each loss against the one-process step's within
+    fabric_checks.GANG_LOSS_TOL (both fp32 on the CPU); a second
+    fit, at the same time, whose chaos plan kills rank 1 at step 2
+    restarts from pending/ and ends on the uninterrupted run's last
+    loss. One card: a gang of GPU ranks (one card each) cannot form
+    here."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import fabric_checks as fc
+    from ray_tpu_torch.util import state
+
+    info = rt.init(num_cpus=4)
+    try:
+        # the two fits run at once, a gang of 2 CPUs each
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(2) as pool:
+            full_fut = pool.submit(fc.gpt2_gang_fit)
+            chaos_fut = pool.submit(fc.gpt2_gang_fit, json.dumps(
+                [{"action": "kill", "rank": 1, "at_step": 2}]))
+            ref = fc.gpt2_reference_losses()
+            full = full_fut.result()
+            fit_s = time.perf_counter() - t0
+            chaos = chaos_fut.result()
+            chaos_s = time.perf_counter() - t0
+        tol = fc.GANG_LOSS_TOL
+        errs = [abs(x - y) for x, y in zip(full["losses"], ref)]
+        check(full["steps"] == list(range(1, fc.GANG_STEPS + 1))
+              and max(errs) <= tol
+              and all(len(set(r)) == 1 for r in full["rank_losses"]),
+              f"train_gang: losses {full} vs the one-process step's {ref}")
+        check(chaos["steps"] == list(range(3, fc.GANG_STEPS + 1))
+              and chaos["losses"][-1] == full["losses"][-1],
+              f"train_gang: the restarted fit {chaos} vs {full}")
+        counters = state.resilience_status()["counters"]
+        check(counters.get("restart", 0) == 1
+              and counters.get("recovery", 0) == 1,
+              f"train_gang: resilience counters {counters}")
+    finally:
+        end_session(rt, info["session_dir"], "train_gang")
+    emit({"phase": "train_gang", "model": "gpt2-tiny", "dtype": "float32",
+          "ranks": 2, "backend": "gloo", "device": "cpu",
+          "gpu_ranks": "not formed: one card here, a GPU rank needs a card "
+                       "of its own",
+          "steps": fc.GANG_STEPS, "tokens": list(fc.GANG_BATCH),
+          "losses": full["losses"], "reference_losses": ref,
+          "max_loss_err": max(errs), "tol": tol, "fit_s": fit_s,
+          "restarted_steps": chaos["steps"],
+          "restarted_losses": chaos["losses"], "chaos_fit_s": chaos_s,
+          "resilience_counters": counters})
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -4259,6 +4747,12 @@ def main() -> int:
     # the runtime beyond one node: a GPU actor on an agent's node, in a
     # placement group, scores (its kernels counted in its process from 0)
     phase_cluster(gpt2)
+    # the live weight fabric: the driver trains and publishes, a GPU
+    # actor's engine hot-swaps (the driver's step counted from 0 each
+    # step, the actor's scoring in its process)
+    phase_fabric(kernels, gpt2, generate_mod)
+    # the trainer's worker gang on the machine's CPUs, with a chaos kill
+    phase_train_gang()
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

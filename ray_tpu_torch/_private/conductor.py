@@ -35,15 +35,21 @@ Responsibilities:
   reports with the `resilience` broadcast and host drains;
 - the monitors: reap dead workers, expire silent agent nodes, the memory
   monitor's OOM kills, the head's log tailer (`worker_logs`);
-- persistence: KV, named actors, placement groups, jobs and the actor
-  workers' GPU bindings snapshot to the session directory; a conductor
-  started on that directory restores them before it accepts a call;
+- the weight fabric's version registry: producers send metadata-only
+  fragments, a version commits when every host's fragment is in,
+  keep-last-K GC and the reaping of torn publishes notify producers on
+  the `weights` channel (with the object ids to free), and the weight
+  event log;
+- persistence: KV, named actors, placement groups, jobs, the actor
+  workers' GPU bindings and the weight registry snapshot to the session
+  directory; a conductor started on that directory restores them before
+  it accepts a call;
 - jobs: entrypoint drivers run as subprocesses with RTT_ADDRESS and
   RTT_JOB_ID; `shutdown_cluster` ends a standalone head and raises in a
   driver that hosts the conductor.
 
-Left out (ROADMAP Queue 1): the L6 report and get methods (tracing
-spans, the weight registry, the serving and training telemetry), each
+Left out (ROADMAP Queue 1): the L6 report and get methods of subsystems
+not ported yet (tracing spans, the serving and training telemetry), each
 with its subsystem. An RPC of those is absent: calling it raises.
 """
 from __future__ import annotations
@@ -264,7 +270,13 @@ class ConductorHandler:
             exempt=(head.node_id,))
         self._resilience_events: List[Dict[str, Any]] = []
         self._resilience_counters: Dict[str, int] = {}
+        self._last_ttr_s: Optional[float] = None
         self._mem_monitor = None
+        # the weight fabric's version registry (metadata only: chunks
+        # live in their producers' stores)
+        self._weights_committed: Dict[str, Dict[int, Dict[str, Any]]] = {}
+        self._weights_pending: Dict[Tuple[str, int], Dict[str, Any]] = {}
+        self._weight_events: List[Dict[str, Any]] = []
 
         # Durable control-plane tables (reference: GCS Redis-persisted
         # tables, gcs_server.h:103-110 / gcs_table_storage.cc). Restored
@@ -1284,12 +1296,13 @@ class ConductorHandler:
 
     # ------------------------------------------------------------ resilience
     # The conductor is the authority for preemption broadcast, failure-
-    # domain quarantine and the resilience event log. The JAX package
-    # also counts each event in Prometheus; the port's metrics side waits
-    # for ROADMAP Queue 1 item 3, and get_resilience_status() carries the
-    # same counters. The trainers' event sink (report_resilience_event)
-    # and its time to recovery come with the trainer's workers mode
-    # (item 3).
+    # domain quarantine and the resilience event log, with the trainers'
+    # event sink (report_resilience_event: restarts, grace checkpoints,
+    # gang peer deaths, elastic re-forms, recoveries with their time to
+    # recovery, chaos injections). The JAX package also counts each
+    # event in Prometheus; the port's metrics side waits for ROADMAP
+    # Queue 1 item 3, and get_resilience_status() carries the same
+    # counters.
 
     _RESILIENCE_EVENTS_KEPT = 10_000
 
@@ -1304,6 +1317,8 @@ class ConductorHandler:
         kind = str(event.get("kind", "other"))
         self._resilience_counters[kind] = \
             self._resilience_counters.get(kind, 0) + 1
+        if kind == "recovery" and event.get("ttr_s") is not None:
+            self._last_ttr_s = float(event["ttr_s"])
 
     def _record_failure(self, node_id: str, kind: str, detail: str = "",
                         worker_id: Optional[str] = None) -> None:
@@ -1350,6 +1365,15 @@ class ConductorHandler:
         self.publish("resilience", event)
         return event
 
+    def report_resilience_event(self, event: Dict[str, Any]) -> None:
+        """Event sink for trainers, supervisors and chaos: restart,
+        grace_checkpoint, gang_peer_death, elastic_reform, recovery (with
+        its time to recovery `ttr_s`), chaos injections."""
+        if not isinstance(event, dict):
+            return
+        with self._lock:
+            self._resilience_record_locked(dict(event))
+
     def quarantine_node(self, node_id: str, reason: str = "manual") -> None:
         """Operator pin: exclude a node until clear_quarantine."""
         self._fd_tracker.quarantine(node_id, reason)
@@ -1380,6 +1404,7 @@ class ConductorHandler:
                 "excluded": self._fd_tracker.excluded(),
                 "head_node_id": self._head_node_id,
                 "counters": dict(self._resilience_counters),
+                "last_ttr_s": self._last_ttr_s,
                 "recent_events": self._resilience_events[-50:],
             }
 
@@ -1402,6 +1427,399 @@ class ConductorHandler:
             for k, v in available.items():
                 out[k] = out.get(k, 0) + v
         return out
+
+    # ------------------------------------------------------ weight fabric
+    # weights/: the conductor is the version registry. Producers
+    # publish their LOCAL shards into their own object stores and send
+    # only a metadata fragment here; the version commits atomically when
+    # every host's fragment is in. Keep-last-K GC and partial-publish
+    # reaping notify producers over the `weights` pubsub channel so they
+    # can free the dropped chunks they own.
+
+    _WEIGHT_EVENTS_KEPT = 10_000
+
+    def _weight_event_locked(self, event: Dict[str, Any]) -> None:
+        event.setdefault("ts", time.time())
+        self._weight_events.append(event)
+        if len(self._weight_events) > self._WEIGHT_EVENTS_KEPT:
+            del self._weight_events[
+                :len(self._weight_events) - self._WEIGHT_EVENTS_KEPT]
+
+    def report_weight_event(self, event: Dict[str, Any]) -> None:
+        """Client-side markers (fetch, swap) for the merged timeline —
+        publish/gc/reap events are recorded by the registry itself."""
+        if not isinstance(event, dict):
+            return
+        with self._lock:
+            self._weight_event_locked(dict(event))
+
+    def get_weight_events(self, limit: int = 10_000) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._weight_events[-limit:]
+
+    def weights_publish_fragment(self, name: str, version: int, host: int,
+                                 num_hosts: int, fragment: Dict[str, Any],
+                                 run_id: str = "",
+                                 step: Optional[int] = None
+                                 ) -> Dict[str, Any]:
+        """One host's share of a publish: per-leaf shard metadata (the
+        chunk ObjectIDs live in that host's store). The version flips
+        committed — and becomes fetchable — only when all `num_hosts`
+        fragments are in; until then it is invisible to subscribers and
+        a died-mid-publish producer leaves only a reapable pending
+        entry, never a torn manifest."""
+        version = int(version)
+        publish_msg = None
+        gc_msgs: List[Dict[str, Any]] = []
+        with self._cv:
+            by_ver = self._weights_committed.setdefault(name, {})
+            if version in by_ver:
+                return {"error": f"version {version} of {name!r} is "
+                                 "already committed"}
+            base_version = fragment.get("base_version")
+            if base_version is not None \
+                    and int(base_version) not in by_ver:
+                # delta against a base this registry no longer holds
+                # (GC'd between the publisher's probe and this call):
+                # reject so the publisher's full fallback runs — an
+                # inherit-from-nothing commit would be a torn manifest
+                return {"error": f"delta base {base_version} of "
+                                 f"{name!r} is gone"}
+            key = (name, version)
+            pend = self._weights_pending.get(key)
+            if pend is not None and int(num_hosts) != pend["num_hosts"]:
+                # a gang RESIZED between attempts (elastic re-form after
+                # a crash that left this version partially published):
+                # the stale pending entry can never complete under the
+                # old num_hosts, and erroring here would crash-loop the
+                # recovered gang until the TTL reaper ran — supersede
+                # it, telling the old fragments' owners to free EXACTLY
+                # those chunks (by object id: the new gang's in-flight
+                # chunks share the version number and must survive)
+                gc_msgs.append({
+                    "kind": "reaped", "name": name,
+                    "versions": [version],
+                    "object_ids": self._weights_object_ids(
+                        f["leaves"] for f in
+                        pend["fragments"].values())})
+                self._weight_event_locked(
+                    {"kind": "reap", "name": name, "version": version,
+                     "detail": f"superseded: num_hosts "
+                               f"{pend['num_hosts']} -> {num_hosts}"})
+                pend = None
+            if pend is None:
+                pend = self._weights_pending[key] = {
+                    "fragments": {}, "num_hosts": int(num_hosts),
+                    "run_id": run_id, "step": step,
+                    "started": time.monotonic()}
+            prev_frag = pend["fragments"].get(int(host))
+            if prev_frag is not None:
+                # fragment RESEND (publisher retry after an ambiguous
+                # RPC timeout): the replaced fragment's chunks are
+                # referenced by nothing from here on — reap-notice them
+                # or the producer pins a full stale shard copy forever
+                gc_msgs.append({
+                    "kind": "reaped", "name": name,
+                    "versions": [version],
+                    "object_ids": self._weights_object_ids(
+                        [prev_frag["leaves"]])})
+            pend["fragments"][int(host)] = fragment
+            self._dirty = True  # registry is a durable table: producers'
+            # chunk refs depend on gc/reap notices that only a registry
+            # remembering the version can ever send (conductor bounce)
+            committed = len(pend["fragments"]) == pend["num_hosts"]
+            error = None
+            if committed:
+                # delta commits inherit unchanged leaves from their base
+                # manifests — every named base must still be here (a
+                # fragment-time check passed, but another host's base
+                # could have been GC'd while this publish was pending)
+                gone = sorted({int(f["base_version"])
+                               for f in pend["fragments"].values()
+                               if f.get("base_version") is not None
+                               and int(f["base_version"]) not in by_ver})
+                if gone:
+                    del self._weights_pending[key]
+                    gc_msgs.append({
+                        "kind": "reaped", "name": name,
+                        "versions": [version],
+                        "object_ids": self._weights_object_ids(
+                            f["leaves"] for f in
+                            pend["fragments"].values())})
+                    self._weight_event_locked(
+                        {"kind": "reap", "name": name,
+                         "version": version,
+                         "detail": f"delta base {gone} gone"})
+                    error = (f"delta base {gone[0]} of {name!r} is "
+                             "gone")
+                else:
+                    del self._weights_pending[key]
+                    manifest = self._weights_commit_locked(name, version,
+                                                           pend)
+                    publish_msg = {"kind": "published", "name": name,
+                                   "version": version, "step": step,
+                                   "run_id": run_id,
+                                   "total_bytes":
+                                       manifest["total_bytes"]}
+                    # EXTEND: a supersede notice queued above must still
+                    # go out when the superseding fragment commits
+                    # immediately
+                    gc_msgs.extend(self._weights_gc_locked(name, None))
+            self._notify_all_locked()
+        if publish_msg is not None:
+            self.publish("weights", publish_msg)
+        for msg in gc_msgs:
+            self.publish("weights", msg)
+        if error is not None:
+            return {"error": error}
+        return {"committed": committed, "version": version}
+
+    @staticmethod
+    def _weights_object_ids(leaves_by_frag) -> List[str]:
+        """Chunk object ids referenced by fragments or manifest leaves.
+        gc/reap notices name EXPLICIT object ids so a publisher only
+        ever frees the chunks the registry actually dropped — a
+        version-scoped notice would also hit a NEW publish in flight
+        under the same version number (gang resize supersede)."""
+        out: List[str] = []
+        for leaves in leaves_by_frag:
+            for leaf in (leaves.values() if isinstance(leaves, dict)
+                         else leaves):
+                for sh in leaf.get("shards", ()):
+                    out.append(sh["object_id"])
+        return out
+
+    @staticmethod
+    def _weights_recency(manifest: Dict[str, Any]) -> Tuple[float, int]:
+        """Ordering key for GC and 'latest': commit recency, version as
+        tiebreak. By COMMIT TIME, not version number — a gang restarted
+        from an older checkpoint legitimately republishes lower version
+        numbers, and those are the weights subscribers should follow
+        (max-version ordering would instantly GC the rollback's publish
+        while 'latest' kept pointing at the dead attempt's weights)."""
+        return (float(manifest.get("ts", 0.0)),
+                int(manifest.get("version", 0)))
+
+    def _weights_latest_locked(self, name: str) -> Optional[int]:
+        by_ver = self._weights_committed.get(name, {})
+        if not by_ver:
+            return None
+        return max(by_ver.values(), key=self._weights_recency)["version"]
+
+    def weights_latest_version(self, name: str) -> Optional[int]:
+        """O(1)-payload poll target for subscribers — the full manifest
+        (per-chunk tables + treedef bytes) must not ship on every
+        staleness check."""
+        with self._lock:
+            return self._weights_latest_locked(name)
+
+    def weights_has_version(self, name: str, version: int) -> bool:
+        """O(1) committed-version probe (publishers pre-check replayed
+        steps before paying the local shard copy into the store)."""
+        with self._lock:
+            return int(version) in self._weights_committed.get(name, {})
+
+    def _weights_commit_locked(self, name: str, version: int,
+                               pend: Dict[str, Any]) -> Dict[str, Any]:
+        """Merge host fragments into the version manifest. Must hold the
+        lock; records the publish event.
+
+        Delta fragments mark unchanged leaves ``from_base``: those
+        inherit the named base manifest's chunk entries FOR THAT HOST
+        (entries are host-tagged at commit exactly so this attribution
+        survives the merge). The committed manifest is therefore always
+        self-contained — chains of deltas collapse one link per commit,
+        and a version stays fetchable no matter which of its ancestors
+        GC later drops. ``delta_bytes`` records what the publish
+        actually shipped; ``total_bytes`` stays the full resolved
+        size."""
+        frags = pend["fragments"]
+        by_ver = self._weights_committed.get(name, {})
+        n_leaves = max(int(f.get("n_leaves", 0)) for f in frags.values())
+        leaves: List[Dict[str, Any]] = []
+        total = 0
+        delta_bytes = 0
+        n_chunks = 0
+        changed: List[int] = []
+        any_delta = any(f.get("base_version") is not None
+                        for f in frags.values())
+        for i in range(n_leaves):
+            meta = None
+            shards: List[Dict[str, Any]] = []
+            leaf_changed = False
+            for host, f in sorted(frags.items()):
+                m = f["leaves"].get(str(i))
+                if m is None:
+                    continue
+                meta = meta or m
+                if m.get("from_base"):
+                    base = by_ver[int(f["base_version"])]
+                    shards.extend(
+                        s for s in base["leaves"][i]["shards"]
+                        if s.get("host", host) == host)
+                else:
+                    own = [dict(s, host=host) for s in m["shards"]]
+                    shards.extend(own)
+                    if own:
+                        leaf_changed = True
+                        delta_bytes += sum(int(s["nbytes"])
+                                           for s in own)
+            total += sum(int(s["nbytes"]) for s in shards)
+            n_chunks += len(shards)
+            if leaf_changed:
+                changed.append(i)
+            leaves.append({"shape": meta["shape"], "dtype": meta["dtype"],
+                           "hash": meta.get("hash"), "shards": shards})
+        treedef = next((f["treedef"] for _, f in sorted(frags.items())
+                        if f.get("treedef") is not None), None)
+        manifest = {"name": name, "version": version,
+                    "step": pend.get("step"), "run_id": pend.get("run_id"),
+                    "ts": time.time(), "num_hosts": pend["num_hosts"],
+                    "n_leaves": n_leaves, "n_chunks": n_chunks,
+                    "total_bytes": total, "leaves": leaves,
+                    "treedef": treedef,
+                    "delta": any_delta,
+                    "base_version": next(
+                        (int(f["base_version"]) for f in frags.values()
+                         if f.get("base_version") is not None), None),
+                    "changed_leaves": changed if any_delta else None,
+                    "delta_bytes": delta_bytes}
+        self._weights_committed[name][version] = manifest
+        self._weight_event_locked(
+            {"kind": "publish", "name": name, "version": version,
+             "step": pend.get("step"), "run_id": pend.get("run_id"),
+             "num_hosts": pend["num_hosts"], "bytes": total,
+             "delta_bytes": delta_bytes if any_delta else None,
+             "changed_leaves": len(changed) if any_delta else None})
+        return manifest
+
+    def _weights_live_ids_locked(self, name: str) -> set:
+        """Chunk object ids referenced by the KEPT manifests and pending
+        fragments of `name`. Delta manifests inherit their base's chunk
+        entries, so dropping a base version must free only the ids no
+        kept manifest still points at."""
+        live = set(self._weights_object_ids(
+            m["leaves"] for m in
+            self._weights_committed.get(name, {}).values()))
+        for (n, _v), pend in self._weights_pending.items():
+            if n == name:
+                live.update(self._weights_object_ids(
+                    f["leaves"] for f in pend["fragments"].values()))
+        return live
+
+    def _weights_gc_locked(self, name: str,
+                           keep: Optional[int]) -> List[Dict[str, Any]]:
+        """Drop committed versions beyond keep-last-K (config
+        weights_keep when `keep` is None). Returns the pubsub messages
+        telling producers which versions' chunks to free — publish them
+        AFTER releasing the lock. Ids still referenced by a kept
+        manifest (delta inheritance) are withheld from the notice."""
+        from .config import config
+
+        keep = config.weights_keep if keep is None else int(keep)
+        by_ver = self._weights_committed.get(name, {})
+        order = sorted(by_ver,
+                       key=lambda v: self._weights_recency(by_ver[v]))
+        drop = order[:-keep] if keep > 0 else order
+        msgs = []
+        for v in drop:
+            manifest = by_ver.pop(v)
+            self._dirty = True
+            self._weight_event_locked(
+                {"kind": "gc", "name": name, "version": v})
+            live = self._weights_live_ids_locked(name)
+            dead = [oid for oid in self._weights_object_ids(
+                        [manifest["leaves"]])
+                    if oid not in live]
+            msgs.append({"kind": "gc", "name": name, "versions": [v],
+                         "object_ids": dead})
+        return msgs
+
+    def weights_gc(self, name: str, keep: Optional[int] = None) -> int:
+        """Operator GC: keep only the newest
+        `keep` versions of `name`. Returns the number dropped. Only an
+        EXPLICIT keep=0 drops everything; a negative keep (operator
+        typo) is rejected rather than read as drop-all."""
+        if keep is not None and int(keep) < 0:
+            raise ValueError(f"keep must be >= 0, got {keep}")
+        with self._cv:
+            msgs = self._weights_gc_locked(name, keep)
+            self._notify_all_locked()
+        for msg in msgs:
+            self.publish("weights", msg)
+        return len(msgs)
+
+    def weights_reap(self, max_age_s: Optional[float] = None) -> int:
+        """Drop pending publishes older than `max_age_s` (config
+        weights_publish_ttl_s default) — a producer chaos-killed
+        mid-publish must never leave a forever-pending entry, and its
+        surviving peers' orphan chunks must be freed. Runs from the
+        monitor loop; tests call it with 0 for determinism."""
+        from .config import config
+
+        ttl = config.weights_publish_ttl_s if max_age_s is None \
+            else float(max_age_s)
+        now = time.monotonic()
+        msgs = []
+        with self._cv:
+            for key in [k for k, p in self._weights_pending.items()
+                        if now - p["started"] >= ttl]:
+                name, version = key
+                pend = self._weights_pending.pop(key)
+                self._dirty = True
+                self._weight_event_locked(
+                    {"kind": "reap", "name": name, "version": version})
+                msgs.append({"kind": "reaped", "name": name,
+                             "versions": [version],
+                             "object_ids": self._weights_object_ids(
+                                 f["leaves"] for f in
+                                 pend["fragments"].values())})
+            if msgs:
+                self._notify_all_locked()
+        for msg in msgs:
+            self.publish("weights", msg)
+        return len(msgs)
+
+    def weights_get_manifest(self, name: str,
+                             version: Optional[int] = None
+                             ) -> Optional[Dict[str, Any]]:
+        """The full manifest of `version` (latest committed when None),
+        or None when nothing is committed / the version was GC'd."""
+        with self._lock:
+            by_ver = self._weights_committed.get(name, {})
+            if not by_ver:
+                return None
+            v = self._weights_latest_locked(name) if version is None \
+                else int(version)
+            return by_ver.get(v)
+
+    def get_weight_versions(self) -> Dict[str, Any]:
+        """Registry state for util.state.weight_versions() — one
+        summary per name, manifests without the per-shard chunk lists."""
+        with self._lock:
+            out: Dict[str, Any] = {}
+            for name, by_ver in self._weights_committed.items():
+                if not by_ver:
+                    continue
+                out[name] = {
+                    "latest": self._weights_latest_locked(name),
+                    "versions": [
+                        {k: m.get(k) for k in (
+                            "version", "step", "run_id", "ts",
+                            "num_hosts", "n_leaves", "n_chunks",
+                            "total_bytes", "delta", "base_version",
+                            "delta_bytes")}
+                        for m in sorted(
+                            by_ver.values(),
+                            key=self._weights_recency)],
+                }
+            pending = [{"name": n, "version": v,
+                        "hosts_committed":
+                            sorted(p["fragments"]),
+                        "num_hosts": p["num_hosts"],
+                        "age_s": round(time.monotonic() - p["started"], 3)}
+                       for (n, v), p in self._weights_pending.items()]
+            return {"names": out, "pending": pending}
 
     # ------------------------------------------------------------------ jobs
     # Reference: GcsJobManager + dashboard/modules/job JobManager —
@@ -1569,6 +1987,21 @@ class ConductorHandler:
                 "pgs": list(self._pgs.values()),
                 "jobs": jobs,
                 "workers": workers,
+                # the weight registry (metadata only: chunks live in
+                # their producers' stores and survive a conductor
+                # restart; a forgotten registry could never send the
+                # gc/reap notices those chunks' lifetimes depend on)
+                "weights": {
+                    "committed": {n: dict(bv) for n, bv in
+                                  self._weights_committed.items()},
+                    "pending": [
+                        {"name": n, "version": v,
+                         "num_hosts": p["num_hosts"],
+                         "run_id": p.get("run_id", ""),
+                         "step": p.get("step"),
+                         "fragments": dict(p["fragments"])}
+                        for (n, v), p in self._weights_pending.items()],
+                },
                 # a restarted conductor mints a fresh head node id:
                 # assignments pointing at THIS id are remapped
                 "head_node_id": self._head_node_id,
@@ -1657,6 +2090,18 @@ class ConductorHandler:
                 if node_id == self._head_node_id and w.gpu_ids:
                     head.free_gpus = [g for g in head.free_gpus
                                       if g not in w.gpu_ids]
+            wstate = state.get("weights") or {}
+            self._weights_committed = {
+                n: {int(v): m for v, m in bv.items()}
+                for n, bv in (wstate.get("committed") or {}).items()}
+            for p in wstate.get("pending") or []:
+                # a fresh TTL clock: `started` is monotonic and does not
+                # survive a restart; the reaper ages them out from now
+                self._weights_pending[(p["name"], int(p["version"]))] = {
+                    "fragments": dict(p["fragments"]),
+                    "num_hosts": int(p["num_hosts"]),
+                    "run_id": p.get("run_id", ""), "step": p.get("step"),
+                    "started": now}
             for jid, meta in state.get("jobs", {}).items():
                 meta = dict(meta, proc=None)
                 if meta.get("status") == "RUNNING":
@@ -1669,8 +2114,8 @@ class ConductorHandler:
     # --------------------------------------------------------------- monitor
 
     def _monitor_loop(self) -> None:
-        """Flush the snapshot, run the memory monitor, expire silent
-        agent nodes, reap dead workers and restart their actors
+        """Flush the snapshot, reap torn weight publishes, run the
+        memory monitor, expire silent agent nodes, reap dead workers and restart their actors
         (reference gcs_health_check_manager.cc + gcs_actor_manager
         worker-death path)."""
         from .config import config
@@ -1680,6 +2125,7 @@ class ConductorHandler:
             time.sleep(0.2)
             try:
                 self._flush_state()
+                self.weights_reap()
                 refresh_ms = config.memory_monitor_refresh_ms
                 if refresh_ms > 0 and time.monotonic() - last_mem_check \
                         >= refresh_ms / 1000.0:

@@ -21,14 +21,14 @@ raises as an unknown flag instead of doing nothing:
 - the flags of subsystems not ported yet, each back with the slice
   that reads it: `node_ip` (the gang code of ROADMAP Queue 1 item 3),
   Dataset backpressure (`data_memory_budget`, `data_shm_high_water`),
-  the weight fabric (`weights_keep`, `weights_publish_ttl_s`),
   workflows (`workflow_storage`), and the trainer's restart backoff
   (`restart_backoff_base_s`, `restart_backoff_max_s`), which the
   port's trainer takes as arguments.
 
 The cluster layer's flags (remote nodes and their heartbeats,
 persistence, the memory and log monitors, the failure-domain tracker
-and the preemption watcher) are the JAX package's by name, type and
+and the preemption watcher) and the weight fabric's (`weights_keep`,
+`weights_publish_ttl_s`) are the JAX package's by name, type and
 default. A node agent takes the head's resolved table when it joins
 (`session_info`), so a flag set on the head holds on every node.
 
@@ -116,6 +116,13 @@ _FLAGS: List[Flag] = [
          "lease grants and gang formation"),
     Flag("quarantine_halflife_s", float, 600.0,
          "half-life (seconds) of a host's failure score decay"),
+    # --- weight fabric -------------------------------------------------
+    Flag("weights_keep", int, 3,
+         "committed weight versions the registry keeps per name; older "
+         "manifests are dropped and their chunks reaped"),
+    Flag("weights_publish_ttl_s", float, 120.0,
+         "age at which a partially-committed weight publish (a producer "
+         "died mid-publish) is reaped from the registry"),
 ]
 
 _BY_NAME: Dict[str, Flag] = {f.name: f for f in _FLAGS}

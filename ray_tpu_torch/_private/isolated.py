@@ -4,13 +4,14 @@
                            "config_unknown_flag_rejected": None})
     ok, text = outcomes["core_put_get"]
 
-Each named check is a function of `runtime_checks.py` or
-`cluster_checks.py` (modules of the package, so worker processes can
-import what a check pickles by reference). `run_checks` starts a fresh `python -m
+Each named check is a function of `runtime_checks.py`,
+`cluster_checks.py` or `fabric_checks.py` (modules of the package, so
+worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
 starts and stops its own), runs the check, shuts the cluster down and
-records the outcome: (True, "") or (False, traceback).
+records the outcome: (True, "") or (False, traceback); a check that
+returns a value other than None has it as JSON in place of "".
 
 The parent waits under a hard timeout and kills the driver when it
 expires. Either way it then finds every process of the run — the
@@ -167,7 +168,7 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import cluster_checks, runtime_checks
+    from . import cluster_checks, fabric_checks, runtime_checks
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -186,11 +187,12 @@ def _driver_main(payload_path: str) -> int:
     for name, init_kwargs in p["checks"]:
         try:
             fn = getattr(runtime_checks, name, None) \
-                or getattr(cluster_checks, name)
+                or getattr(cluster_checks, name, None) \
+                or getattr(fabric_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
-            fn()
-            ok, text = True, ""
+            value = fn()
+            ok, text = True, ("" if value is None else json.dumps(value))
         except Exception:  # noqa: BLE001 — reported to the parent
             ok, text = False, traceback.format_exc()
         try:

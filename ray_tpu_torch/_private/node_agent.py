@@ -19,8 +19,8 @@ Where the port differs from the JAX package's agent:
   get it through the spawn.
 - The maintenance-event file is an argument (`maintenance_event=`,
   `--maintenance-event`), off by default.
-- No chaos hook in the heartbeat (it waits for the chaos monkey, ROADMAP
-  Queue 1 item 3).
+- The chaos plan's heartbeat delay (`delay_heartbeats`) comes from the
+  `chaos_plan=` argument, never an environment variable.
 - Only a daemon agent (`main`) ends its process when the cluster is
   gone or the conductor stops it; an agent built in a library process
   stops its threads and workers and leaves the process running.
@@ -158,11 +158,15 @@ class NodeAgent:
                  worker_env: Optional[Dict[str, str]] = None,
                  node_id: Optional[str] = None,
                  gpu_ids: Optional[Sequence[str]] = None,
-                 maintenance_event: Optional[str] = None):
+                 maintenance_event: Optional[str] = None,
+                 chaos_plan: Any = None):
         """`gpu_ids`: this node's id of each GPU `resources["GPU"]`
         counts (default 0..n-1). `maintenance_event`: a file whose
         appearance announces this host's preemption (None: no
-        channel)."""
+        channel). `chaos_plan`: a `resilience.chaos.ChaosPlan` or its
+        spec, whose `delay_heartbeats` actions stretch every heartbeat
+        (None: no chaos)."""
+        from ..resilience.chaos import heartbeat_delay_s
         from .config import config
 
         self.node_id = node_id or NodeID().hex()
@@ -185,6 +189,7 @@ class NodeAgent:
         self.session_dir = session_dir
         self._conductor_machine = info.get("machine")
         self._maintenance_event = maintenance_event
+        self._heartbeat_delay_s = heartbeat_delay_s(chaos_plan)
         self._daemon = False  # set by main(): may end its process
         self._stopped = threading.Event()
         self._done = threading.Event()  # stop() finished
@@ -287,6 +292,11 @@ class NodeAgent:
         last_ok = time.monotonic()
         pending_dead: List[str] = []
         while not self._stopped.wait(_heartbeat_period()):
+            # the chaos plan's slow host: the conductor's node timeout
+            # sees the stretched beats
+            if self._heartbeat_delay_s > 0 and \
+                    self._stopped.wait(self._heartbeat_delay_s):
+                break
             with self._causes_lock:
                 causes = dict(self._pending_causes)
             pending_dead.extend(self.handler.reap_dead())

@@ -1202,7 +1202,7 @@ def config_unknown_flag_rejected():
     _raises(KeyError, config.get, "chips")
     before = config.snapshot()
     _raises(ValueError, rt.init, num_cpus=1,
-            _system_config={"weights_keep": 2})
+            _system_config={"data_memory_budget": 2})
     _raises(ValueError, rt.init, num_cpus=1,
             _system_config={"workflow_storage": "/tmp/x"})
     assert not rt.is_initialized() and config.snapshot() == before
@@ -1670,10 +1670,10 @@ def port_failed_arena_build_raises():
 # Queue 1 items 3-8)
 OMITTED_RPCS = [
     ("report_spans", ([],)),
-    ("weights_latest_version", ("w",)),
     ("get_recent_logs", ()),
     ("get_train_progress", ()),
-    ("report_resilience_event", ({"kind": "recovery"},)),
+    ("get_kvcache_stats", ()),
+    ("get_lora_status", ()),
 ]
 
 

@@ -1,0 +1,121 @@
+"""Timeline markers (part of the port of ray_tpu/observability/
+timeline.py): conductor task events, resilience events and weight-fabric
+events as chrome-trace events, merged into one sorted list.
+
+- task events: pid = job id,       tid = executing worker
+- resilience:  pid = "resilience", tid = event kind: instant markers for
+  preemptions, restarts, quarantines, grace checkpoints, chaos
+  injections and recoveries;
+- weights:     pid = "weights",    tid = event kind: instant markers for
+  publishes, fetches, hot swaps, GC and reaps.
+
+The spans and the training step records of the JAX package's merged
+trace wait for the port of `util/tracing.py` and the step timer's
+conductor flush (ROADMAP Queue 1 items 3 and 7): `merged_chrome_trace`
+refuses them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+
+def task_trace_events(task_events: List[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """Chrome-trace events for conductor task events."""
+    out: List[Dict[str, Any]] = []
+    for ev in task_events:
+        worker = ev.get("worker")
+        out.append({
+            "name": ev["name"], "cat": "task", "ph": "X",
+            "ts": ev["start"] * 1e6,
+            "dur": max(0.0, ev["end"] - ev["start"]) * 1e6,
+            "pid": ev.get("job_id", "job"),
+            "tid": f"{worker[0]}:{worker[1]}" if worker else "driver",
+            "args": {"task_id": ev["task_id"],
+                     "status": ev.get("status", "FINISHED")},
+        })
+    return out
+
+
+def resilience_trace_events(events: List[Dict[str, Any]]
+                            ) -> List[Dict[str, Any]]:
+    """One global-scope instant marker per resilience event, so failures
+    and recoveries line up against the tracks they interrupted."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        where = next((ev[k] for k in ("node_id", "run_id", "name",
+                                      "replica", "router", "host")
+                      if ev.get(k) is not None), None)
+        out.append({
+            "name": f"{kind}:{where}" if where is not None else kind,
+            "cat": "resilience", "ph": "i", "s": "g", "ts": ts * 1e6,
+            "pid": "resilience", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def weight_trace_events(events: List[Dict[str, Any]]
+                        ) -> List[Dict[str, Any]]:
+    """Instant markers for weight-fabric events under pid "weights"."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        name = ev.get("name")
+        ver = ev.get("version")
+        label = f"{kind}:{name}" if name else kind
+        if ver is not None:
+            label += f"@v{ver}"
+        out.append({
+            "name": label, "cat": "weights", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "weights", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def merged_chrome_trace(task_events: List[Dict[str, Any]],
+                        spans: List[Dict[str, Any]],
+                        step_records: List[Dict[str, Any]],
+                        resilience_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        weight_events: Optional[
+                            List[Dict[str, Any]]] = None
+                        ) -> List[Dict[str, Any]]:
+    """Merge the sources into one list sorted by time. `spans` and
+    `step_records` must be empty until their sources are ported."""
+    if spans or step_records:
+        raise NotImplementedError(
+            "spans and step records wait for the port of util/tracing.py "
+            "and the step timer's conductor flush")
+    trace = task_trace_events(task_events)
+    if resilience_events:
+        trace.extend(resilience_trace_events(resilience_events))
+    if weight_events:
+        trace.extend(weight_trace_events(weight_events))
+    trace.sort(key=lambda e: e.get("ts", 0.0))
+    return trace
+
+
+def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
+    """Pull the task, resilience and weight events from the live cluster
+    and merge them."""
+    from .._private import worker as worker_mod
+
+    w = worker_mod.global_worker
+    if w is None:
+        raise RuntimeError("ray_tpu_torch.init() must be called first")
+    w._flush_task_events()
+    return merged_chrome_trace(
+        w.conductor.call("get_task_events", limit, timeout=30.0), [], [],
+        w.conductor.call("get_resilience_events", limit, timeout=30.0),
+        w.conductor.call("get_weight_events", limit, timeout=30.0))

@@ -8,8 +8,9 @@ Before that, ranks rendezvous their slice membership (`rendezvous_slices`)
 so that ranks of one slice take contiguous process ids.
 
 The key-value store is the caller's: `kv_put(key, value, namespace=)` and
-`kv_get(key, namespace=)` on bytes (the JAX package defaults to its
-cluster conductor's KV, which the port does not have).
+`kv_get(key, namespace=)` on bytes. Inside a `TorchTrainer(mode=
+"workers")` gang, `setup_torch_distributed()` runs it over the cluster
+conductor's KV with the session's group key, rank and world size.
 """
 from __future__ import annotations
 
@@ -238,6 +239,56 @@ def initialize_torch_distributed(group_key: str, rank: int, world: int,
     return slice_info
 
 
+def is_torch_distributed_initialized() -> bool:
+    """True once this process joined a default process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def setup_torch_distributed(timeout: float = 120.0,
+                            host: Optional[str] = None) -> tuple:
+    """Inside a `TorchTrainer(mode="workers")` train_fn: rendezvous this
+    gang into one torch.distributed job and return (rank, world).
+
+    The trainer calls it before train_fn when
+    `ScalingConfig.setup_torch_distributed` (the default); calling it
+    again is a no-op. The rendezvous runs over the cluster conductor's KV
+    under the session's group key. A rank's device follows its lease: a
+    rank whose bundle leased a GPU computes on its CUDA device over NCCL,
+    one without on the CPU over gloo; nothing falls back from one to the
+    other. `timeout` bounds the rendezvous and is the group's collective
+    timeout, so a gang that lost a rank fails instead of hanging. `host`
+    is the address the other ranks reach this one on (the JAX package's
+    RAY_TPU_NODE_IP); by default the interface that reaches the
+    conductor."""
+    from .._private import worker as worker_mod
+    from ..train.session import get_context
+
+    ctx = get_context()
+    if not is_torch_distributed_initialized():
+        w = worker_mod.global_worker
+        if w is None:
+            raise RuntimeError("setup_torch_distributed needs a connected "
+                               "ray_tpu_torch worker")
+
+        def kv_put(k, v, namespace):
+            return w.conductor.call("kv_put", k, v, True, namespace,
+                                    timeout=10.0)
+
+        def kv_get(k, namespace):
+            return w.conductor.call("kv_get", k, namespace, timeout=10.0)
+
+        group_key = ctx.dist_key or f"group/{ctx.experiment_name}"
+        info = initialize_torch_distributed(
+            group_key, ctx.rank, ctx.world_size, kv_put, kv_get,
+            timeout=timeout,
+            host=host or _local_ip(w.conductor_address[0]),
+            slice_id=ctx.slice_id, device=ctx.device)
+        if info is not None:
+            ctx.slice_map = info["slices"]
+    return ctx.rank, ctx.world_size
+
+
 __all__ = ["initialize_torch_distributed",
+           "is_torch_distributed_initialized", "setup_torch_distributed",
            "publish_slice_map", "rendezvous_coordinator",
            "rendezvous_slices", "slice_process_ids"]

@@ -1,13 +1,18 @@
-"""Resilience (port of the JAX package's resilience/): the trainer's
-restart backoff, the failure-domain tracker the conductor keeps, and
-the preemption watcher of the node agent and the head. Gang
-supervision, elastic re-form and chaos wait for the trainer's workers
-mode (ROADMAP Queue 1 item 3)."""
+"""Resilience (port of the JAX package's resilience/): the failure-domain
+tracker the conductor keeps, the preemption watcher of the node agent
+and the head, gang supervision with the restart backoff and elastic
+re-form of the trainer's workers mode, and the chaos harness (its plan
+an argument, never an environment variable). The serving plane's chaos
+monkey waits for `serve/`."""
+from .chaos import (ChaosAction, ChaosError, ChaosMonkey, ChaosPlan,
+                    monkey_from_spec)
 from .domains import FailureDomainTracker
 from .preemption import (MaintenanceEvent, PreemptionWatcher,
                          install_sigterm_notifier, read_maintenance_event)
-from .supervisor import backoff_delay
+from .supervisor import GangSupervisor, backoff_delay, elastic_reform
 
-__all__ = ["FailureDomainTracker", "MaintenanceEvent", "PreemptionWatcher",
-           "backoff_delay", "install_sigterm_notifier",
+__all__ = ["ChaosAction", "ChaosError", "ChaosMonkey", "ChaosPlan",
+           "FailureDomainTracker", "GangSupervisor", "MaintenanceEvent",
+           "PreemptionWatcher", "backoff_delay", "elastic_reform",
+           "install_sigterm_notifier", "monkey_from_spec",
            "read_maintenance_event"]

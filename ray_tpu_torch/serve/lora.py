@@ -25,14 +25,16 @@ model (port of ray_tpu/serve/lora.py).
   slot on the null adapter adds an exact zero.
 - **Sources**: `LocalAdapterSource` is a host dict of adapter trees;
   ``publish()`` bumps a tenant's version and marks it dirty, and its next
-  acquire hot-swaps the row in place.
+  acquire hot-swaps the row in place. `FabricAdapterSource` pages each
+  tenant's adapter from the live weight fabric (``lora/<tenant>``,
+  published with `publish_adapter`); the ``weights`` channel marks a
+  tenant dirty the moment a new version commits. ``build_pool(lora=
+  True)`` builds a pool over it.
 
 The JAX package's knobs ``RAY_TPU_LORA_POOL_SLOTS`` and
 ``RAY_TPU_LORA_RANK_MAX`` are the ``slots=8`` and ``rank_max=8``
-arguments here. Not ported yet: the weight-fabric source
-(``FabricAdapterSource``, ``publish_adapter``; ``build_pool(lora=True)``
-raises) and the Prometheus metrics and conductor push; ``stats()`` and
-``drain_events()`` carry the same numbers.
+arguments here. Not ported yet: the Prometheus metrics and conductor
+push; ``stats()`` and ``drain_events()`` carry the same numbers.
 """
 from __future__ import annotations
 
@@ -94,6 +96,19 @@ def adapter_rank(adapter: Dict[str, Any]) -> int:
     return int(np.asarray(ab["a"]).shape[-1])
 
 
+def publish_adapter(tenant: str, adapter: Dict[str, Any], *,
+                    prefix: str = "lora/", delta: bool = True) -> int:
+    """Publish a tenant's adapter to the weight fabric under
+    ``lora/<tenant>`` (delta publication by default: a refresh usually
+    touches a subset of leaves). Every subscribed pool sees the notice,
+    marks the tenant dirty and hot-swaps on its next acquire. Returns
+    the committed version."""
+    from ..weights import publish
+
+    return int(publish(adapter, name=tenant_weights_name(tenant, prefix),
+                       delta=delta))
+
+
 # ------------------------------------------------------ adapter sources
 
 class LocalAdapterSource:
@@ -133,23 +148,109 @@ class LocalAdapterSource:
             return tenant in self._dirty
 
 
+def _worker():
+    from .._private import worker as worker_mod
+
+    return worker_mod.global_worker
+
+
+class FabricAdapterSource:
+    """Weight-fabric paging source: each tenant's adapter lives under
+    ``lora/<tenant>`` in the versioned registry (delta publications, so a
+    refresh ships only what changed). One `WeightSubscriber` per tenant,
+    made at the tenant's first fetch; the shared ``weights`` channel
+    marks a tenant dirty the moment a new version commits, so the next
+    acquire hot-swaps without polling. A fetch returns the producer's
+    tree with numpy leaves."""
+
+    def __init__(self, prefix: str = "lora/"):
+        self.prefix = str(prefix)
+        self._lock = threading.Lock()
+        self._subs: Dict[str, Any] = {}
+        self._dirty: set = set()
+        w = _worker()
+        if w is None:
+            raise RuntimeError(
+                "FabricAdapterSource needs a live cluster "
+                "(ray_tpu_torch.init()); use LocalAdapterSource without "
+                "one")
+        self._worker_ref = w
+        w.subscribe_channel("weights", self._on_weights_msg)
+
+    def _on_weights_msg(self, msg: Any) -> None:
+        if not isinstance(msg, dict) or msg.get("kind") != "published":
+            return
+        name = str(msg.get("name") or "")
+        if name.startswith(self.prefix):
+            with self._lock:
+                self._dirty.add(name[len(self.prefix):])
+
+    def _sub(self, tenant: str):
+        from ..weights import WeightSubscriber
+
+        with self._lock:
+            sub = self._subs.get(tenant)
+        if sub is not None:
+            return sub
+        # made outside the lock (it talks to the conductor, and dirty()
+        # runs on the pool's hot acquire path); a racing duplicate is
+        # closed, the winner kept
+        sub = WeightSubscriber(tenant_weights_name(tenant, self.prefix))
+        with self._lock:
+            cur = self._subs.get(tenant)
+            if cur is None:
+                self._subs[tenant] = sub
+                return sub
+        sub.close()
+        return cur
+
+    def fetch(self, tenant: str) -> Tuple[int, Dict[str, Any], int]:
+        sub = self._sub(tenant)
+        with self._lock:
+            self._dirty.discard(tenant)
+        adapter = sub.fetch()  # numpy leaves, the producer's tree
+        stats = sub.last_stats
+        ver = int(stats.version) if stats else 0
+        moved = int(stats.fetched_bytes) if stats else 0
+        return ver, adapter, moved
+
+    def dirty(self, tenant: str) -> bool:
+        with self._lock:
+            return tenant in self._dirty
+
+    def close(self) -> None:
+        try:
+            self._worker_ref.unsubscribe_channel("weights",
+                                                 self._on_weights_msg)
+        except Exception:  # noqa: BLE001 — worker already torn down
+            pass
+        with self._lock:
+            subs, self._subs = dict(self._subs), {}
+        for sub in subs.values():
+            try:
+                sub.close()
+            except Exception:  # noqa: BLE001 — teardown best effort
+                pass
+
+
 def build_pool(config: Any, lora: Any, *, slots: int = 8,
-               rank_max: int = 8,
-               device: Any = "cuda") -> Optional["AdapterPool"]:
+               rank_max: int = 8, device: Any = "cuda",
+               prefix: str = "lora/") -> Optional["AdapterPool"]:
     """The `lora=` argument of a serving replica as a pool: None or False
     -> no pool; an AdapterPool -> itself (a shared pool); a dict of host
     adapter trees -> a pool over a `LocalAdapterSource`; any other object
-    -> a pool over it as the source. True (the weight fabric) raises
-    until the fabric is ported."""
+    -> a pool over it as the source; True -> a pool paging from the
+    weight fabric (`FabricAdapterSource`, which needs a live cluster)."""
     if lora is None or lora is False:
         return None
     if isinstance(lora, AdapterPool):
         return lora
     if lora is True:
-        raise NotImplementedError(
-            "lora=True pages adapters from the weight fabric, which is not "
-            "ported yet; pass a dict of adapters or a source")
-    source = LocalAdapterSource(lora) if isinstance(lora, dict) else lora
+        source: Any = FabricAdapterSource(prefix)
+    elif isinstance(lora, dict):
+        source = LocalAdapterSource(lora)
+    else:
+        source = lora
     return AdapterPool(config, slots=slots, rank_max=rank_max,
                        source=source, device=device)
 

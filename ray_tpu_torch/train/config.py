@@ -20,6 +20,8 @@ class ScalingConfig:
     cards belong to the mesh."""
 
     num_workers: int = 1
+    # mode="workers": each rank's bundle leases one GPU unless
+    # resources_per_worker names its own count; False gives CPU ranks
     use_gpu: bool = True
     resources_per_worker: Dict[str, float] = field(default_factory=dict)
     # mode="workers": rendezvous the gang into one torch.distributed

@@ -314,8 +314,10 @@ def test_build_pool(adapters):
     assert tlora.build_pool(TCFG, pool) is pool
     src = tlora.LocalAdapterSource(dict(adapters))
     assert tlora.build_pool(TCFG, src, device="cpu").source is src
-    with pytest.raises(NotImplementedError, match="fabric"):
-        tlora.build_pool(TCFG, True)
+    # True pages from the weight fabric, which needs a live cluster (the
+    # fabric case below runs one)
+    with pytest.raises(RuntimeError, match="live cluster"):
+        tlora.build_pool(TCFG, True, device="cpu")
     assert tlora.tenant_weights_name("t0") == \
         jlora.tenant_weights_name("t0")
 
@@ -554,3 +556,22 @@ def test_tenant_adoption_decodes_under_its_adapter(model, adapters):
     assert got == want
     assert st["adopted"] == 1 and st["prefill_calls"] == 0
     assert dec.lora_pool.stats()["pinned"] == 0
+
+
+# ------------------------------------------- the weight-fabric source
+
+def test_fabric_source_and_tenant_trainer():
+    """tests/test_lora.py's fabric path on a cluster of its own (an
+    isolated driver, `fabric_checks.lora_fabric_source_pages_and_hot_
+    swaps`), adapters published with `publish_adapter` in place of
+    `TenantLoraTrainer` (its port waits for `online/`): a pool from
+    `build_pool(lora=True)` pages the newest version in, streams as a
+    pool over a LocalAdapterSource of the same adapter, and hot-swaps on
+    a re-publish's notice."""
+    from ray_tpu_torch._private import isolated
+
+    name = "lora_fabric_source_pages_and_hot_swaps"
+    outcomes = isolated.run_checks({name: {"num_cpus": 4}}, timeout=200.0)
+    for key in (name, isolated.SESSION_ENDED):
+        ok, text = outcomes[key]
+        assert ok, text

@@ -33,18 +33,19 @@ JAX_ONLY_FLAGS = {
     "pallas_interpret": "the port has no Pallas kernel",
     **{name: _NOT_PORTED for name in (
         "data_memory_budget", "data_shm_high_water",
-        "restart_backoff_base_s", "restart_backoff_max_s",
-        "weights_keep", "weights_publish_ttl_s", "node_ip",
+        "restart_backoff_base_s", "restart_backoff_max_s", "node_ip",
         "workflow_storage")},
 }
-# the flags the cluster layer brought back (they were JAX_ONLY_FLAGS
-# until then): each is read by the port, under the JAX name, type and
-# default
+# the flags the cluster layer and the weight fabric brought back (they
+# were JAX_ONLY_FLAGS until then): each is read by the port, under the
+# JAX name, type and default
 CLUSTER_FLAGS = ("node_timeout", "node_heartbeat", "node_orphan_grace",
                  "restore_grace", "memory_usage_threshold",
                  "memory_monitor_refresh_ms", "log_to_driver",
                  "preempt_grace_s", "maintenance_poll_s",
-                 "quarantine_threshold", "quarantine_halflife_s")
+                 "quarantine_threshold", "quarantine_halflife_s",
+                 # and the weight fabric's registry
+                 "weights_keep", "weights_publish_ttl_s")
 # the port's flags in place of the JAX package's environment reads, with
 # the defaults of those reads (rpc.py:92, worker_spawn.py:137,
 # worker_main.py:39)

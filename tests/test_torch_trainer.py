@@ -159,19 +159,24 @@ def test_fit_does_not_swallow_interrupts(tmp_path, exc):
 
 
 def test_workers_mode_raises_until_the_runtime_is_ported(tmp_path):
+    """The workers mode runs a gang of actor ranks (tests/
+    test_torch_train_gang.py drives it on a cluster): without one it
+    raises, naming init(), before it creates anything."""
     trainer = ttrain.TorchTrainer(
         lambda cfg: None, mode="workers",
         scaling_config=ttrain.ScalingConfig(num_workers=2),
         run_config=ttrain.RunConfig(storage_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="actor runtime"):
+    with pytest.raises(RuntimeError, match=r"ray_tpu_torch\.init\(\)"):
         trainer.fit()
+    assert not os.path.exists(trainer.run_config.resolved_storage_path())
 
 
 def test_session_surface(tmp_path):
     """Outside a session: no context, a disabled step timer, no
     preemption notice. Inside: the context, datasets sharded as JAX
-    shards them, StopTrial ends the fit cleanly, publish_weights
-    raises."""
+    shards them, StopTrial ends the fit cleanly, publish_weights without
+    a cluster raises naming init() (tests/test_torch_weights.py publishes
+    on one)."""
     with pytest.raises(RuntimeError, match="No train session"):
         ttrain.get_context()
     assert ttrain.preemption_requested() is None
@@ -189,7 +194,7 @@ def test_session_surface(tmp_path):
                     sharding=cfg["sharding_config"], lr=cfg["lr"],
                     ckpt=ttrain.get_checkpoint(),
                     timer=ttrain.get_step_timer().enabled)
-        with pytest.raises(NotImplementedError, match="actor runtime"):
+        with pytest.raises(RuntimeError, match="publishing weights"):
             ttrain.report({}, publish_weights={"w": torch.ones(1)})
         raise tsession.StopTrial()
 

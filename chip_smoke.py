@@ -75,7 +75,16 @@ from version 1 and a `WeightSync` hot-swaps it to each later version
 between decode ticks (a request in flight across each swap completes,
 the actor's streams equal `generate()` here, its loss bit-equal with its
 launches held, every leaf's hash equal; version 1 collected; a tenant
-adapter paged over the fabric and hot-swapped on a re-publish). The
+adapter paged over the fabric and hot-swapped on a re-publish).
+Disaggregated serving (`disagg`): GPT-2 small fp32 prefilled here behind
+the prefix cache and its KV published through the chunk fabric to a GPU
+decode actor (or a decode replica here), every stream equal to
+`generate()`; a fresh decode actor killed by its chaos plan mid-stream,
+the request failed over to the replica here with the same tokens and the
+card leased again; an int8 prefill tier under an evict_storm serving a
+plain engine's streams from its host arena, a second prefill server
+adopting the first's published prefix, and an export / import between
+pools on the card, byte for byte; no kernel launches in this process. The
 trainer's worker gang (`train_gang`): two fits of GPT-2 tiny on 2-rank
 gloo gangs of CPU ranks, one killed by a chaos plan and restarted from
 its checkpoint; one card holds no gang of GPU ranks. Every
@@ -4551,6 +4560,419 @@ def fabric_body(rt, kernels, gpt2, generate_mod) -> dict:
         "lora_streams_equal_local": 2 * len(first["fabric"])}
 
 
+DISAGG_TAIL = 16
+DISAGG_BATCH = 4
+DISAGG_BLOCK = 16
+# round B: the failed-over request's new tokens, the token the plan
+# kills the GPU actor at, and the router's pull size (so the router holds
+# tokens of the dead replica when it dies)
+DISAGG_FAILOVER_NEW = 64
+DISAGG_KILL_AT = 8
+DISAGG_PULL = 4
+DISAGG_ARENA = 64 << 20
+DISAGG_SEED = 80
+# the predictions for these numbers, written before the phase first ran
+# (PERF.md §6)
+DISAGG_PREDICTED = {"kv_bytes_per_transfer": 20054016,
+                    "ttft_ms": [30, 300], "colocated_ttft_ms": [15, 150],
+                    "publish_ms": [15, 120], "fetch_ms": [10, 120],
+                    "decode_tokens_per_s_ratio": [0.6, 1.6],
+                    "actor_cold_start_s": [12, 30],
+                    "kill_to_resumed_token_s": [0.05, 2.0],
+                    "tier3_export_ms": [1, 50], "tier3_import_ms": [1, 50],
+                    # written after the first run, before the split ran
+                    "decode_alone_tokens_per_s": {"local": [150, 300],
+                                                  "actor": [100, 300],
+                                                  # before the third call
+                                                  "two_local": [200, 400]}}
+
+
+def disagg_prompts(cfg, seed: int, n: int = 8) -> list:
+    """`n` prompts: one PAGED_SYSTEM-token system prompt, each with a
+    distinct DISAGG_TAIL-token tail."""
+    gen = torch.Generator().manual_seed(seed)
+    system = torch.randint(0, cfg.vocab_size, (PAGED_SYSTEM,), generator=gen)
+    return [torch.cat([system, torch.randint(
+        0, cfg.vocab_size, (DISAGG_TAIL,), generator=gen)]).tolist()
+        for _ in range(n)]
+
+
+def disagg_decode_actor(rt):
+    """The GPU decode replica's actor class: a DecodeServer that reports
+    where it runs and on which device its params are. Built here, so it
+    is pickled by value with the functions it calls."""
+    from ray_tpu_torch.serve.disagg import DecodeServer
+    from ray_tpu_torch.tree import tree_device
+
+    class DisaggDecodeActor(DecodeServer):
+        def __init__(self, *args, **kwargs):
+            self.init_at = boot_clock()
+            _no_tf32()
+            DecodeServer.__init__(self, *args, **kwargs)
+
+        def where(self) -> dict:
+            return {**_where(self.init_at),
+                    "param_device": str(tree_device(self.engine.params))}
+
+    return rt.remote(num_gpus=1, max_concurrency=16)(DisaggDecodeActor)
+
+
+class DisaggLeaseProbe:
+    """A GPU actor that only starts: the card's lease came back."""
+
+    def where(self) -> dict:
+        return _where(boot_clock())
+
+
+class RecordingPrefill:
+    """The driver's PrefillServer as the router sees it, keeping each
+    transfer record's outcome, length and reused tokens."""
+
+    def __init__(self, server):
+        self.server = server
+        self.records = []
+
+    def __getattr__(self, name):
+        return getattr(self.server, name)
+
+    def prefill(self, *args, **kwargs):
+        rec = self.server.prefill(*args, **kwargs)
+        self.records.append({k: rec[k] for k in (
+            "plen", "outcome", "reused_tokens", "transfer_id")})
+        return rec
+
+
+def route_in_order(router, prompts, new: int, **kw):
+    """Each prompt through `router.generate` on a thread of its own, the
+    next one submitted once the one before has its first token (so the
+    prefix cache sees them in order). Returns the streams, each TTFT
+    (seconds from submit) and the wall seconds."""
+    n = len(prompts)
+    out, ttft, errors, threads = [None] * n, [None] * n, [], []
+    t_start = time.perf_counter()
+
+    def run(i, first):
+        t0 = time.perf_counter()
+
+        def on_first():
+            ttft[i] = time.perf_counter() - t0
+            first.set()
+
+        try:
+            out[i] = router.generate(prompts[i], new, on_first_token=on_first,
+                                     timeout_s=300.0, **kw)
+        except Exception as err:  # noqa: BLE001 — re-raised below
+            errors.append(err)
+        first.set()
+
+    for i in range(n):
+        first = threading.Event()
+        th = threading.Thread(target=run, args=(i, first))
+        th.start()
+        threads.append(th)
+        check(first.wait(300.0), f"disagg: request {i} got no first token")
+    for th in threads:
+        th.join(600.0)
+    wall = time.perf_counter() - t_start
+    check(not errors, f"disagg: {errors!r}")
+    return out, ttft, wall
+
+
+def quantiles_ms(seconds) -> dict:
+    ms = sorted(s * 1e3 for s in seconds)
+    return {"median": statistics.median(ms),
+            "p90": ms[min(len(ms) - 1, int(round(0.9 * (len(ms) - 1))))],
+            "all": ms}
+
+
+def phase_disagg(kernels, gpt2, generate_mod) -> None:
+    """Disaggregated serving across actors (see disagg_body)."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=4)
+    try:
+        line = disagg_body(rt, kernels, gpt2, generate_mod)
+    finally:
+        end_session(rt, info["session_dir"], "disagg")
+    emit(line)
+
+
+def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
+    """GPT-2 small fp32 from a seed, KV blocks of 16. Round A: a
+    PrefillServer here (prefix cache and KV plane on) streams each
+    prompt's KV through the chunk fabric to a GPU DecodeServer actor or
+    to a DecodeServer here, 8 requests on one system prompt, each stream
+    equal to generate(); the same requests with each decode replica alone,
+    and through the colocated engine.
+    Round B: a fresh GPU decode actor killed by its chaos plan at its
+    8th token; the request fails over to the replica here, equal to
+    generate(); a new GPU actor leases the card afterwards. Round C: an
+    int8 PrefillServer with a small pool under an evict_storm, its
+    streams equal a plain int8 engine's; a second PrefillServer adopts
+    the first's published prefix (tier 3); an export / import of that
+    prefix between CUDA pools. No kernel launches in this process."""
+    from ray_tpu_torch.models import engine as engine_mod
+    from ray_tpu_torch.models import kvcache
+    from ray_tpu_torch.serve import disagg
+    from ray_tpu_torch.serve import kvplane as kvp
+    from ray_tpu_torch.tree import tree_map
+    from ray_tpu_torch.util import state
+
+    w = rt._private.worker.global_worker
+    reset_counts(kernels)
+    cfg = gpt2.GPT2Config(dtype=torch.float32)
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(2),
+                            device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    prompts = disagg_prompts(cfg, DISAGG_SEED)
+    with torch.inference_mode():
+        want = generated(generate_mod, params, cfg, prompts)
+    Actor = disagg_decode_actor(rt)
+    depth = disagg.QUEUE_DEPTH
+    # retention past the decode tier's admitted bound: 2 replicas x
+    # (max_batch + queue depth)
+    retain = 2 * 2 * (DISAGG_BATCH + depth)
+    rec: dict = {}
+
+    # ---- round A: the cross-process path
+    t0, t0_boot = time.perf_counter(), boot_clock()
+    actor = Actor.remote(cpu_params, cfg, max_batch=DISAGG_BATCH,
+                         device="cuda")
+    where = rt.get(actor.where.remote(), timeout=300.0)
+    rec["actor_cold_start_s"] = time.perf_counter() - t0
+    rec["actor_cold_start_split"] = cold_start_split(t0_boot, where,
+                                                     boot_clock())
+    check(where["param_device"].startswith("cuda"),
+          f"disagg: the GPU actor's params are on {where['param_device']}")
+    pf = RecordingPrefill(disagg.PrefillServer(
+        params, cfg, kv_block_size=DISAGG_BLOCK, retain=retain))
+    local = disagg.DecodeServer(params, cfg, max_batch=DISAGG_BATCH)
+    router = disagg.DisaggRouter(decode=[local, actor], prefill=[pf],
+                                 affinity_tokens=DISAGG_BLOCK)
+    got, ttft, wall = route_in_order(router, prompts, SERVE_NEW)
+    differ = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    check(not differ, f"disagg A: streams {differ} differ from generate()")
+    wait_for(lambda: pf.stats()["held_transfers"] == 0, 30.0,
+             "disagg A: the transfers' acks")
+    pst = pf.stats()
+    ast = rt.get(actor.stats.remote(), timeout=60.0)
+    lst = local.stats()
+    kv_bytes = pst["published_bytes"] // pst["published_transfers"]
+    check(ast["transfers"] >= 2, f"disagg A: the GPU actor adopted "
+          f"{ast['transfers']} transfers")
+    check(ast["shm_bytes"] == ast["kv_fetched_bytes"]
+          == ast["transfers"] * kv_bytes and ast["rpc_bytes"] == 0,
+          f"disagg A: the actor's fetch accounting {ast}")
+    check(ast["prefill_programs"] == 0,
+          f"disagg A: the actor ran {ast['prefill_programs']} prefills")
+    outcomes = [r["outcome"] for r in pf.records]
+    check(outcomes[0] == "miss"
+          and all(o in ("hit", "partial") for o in outcomes[1:]),
+          f"disagg A: prefix outcomes {outcomes}")
+    check(pst["reaped_unacked"] == 0 and pst["acked"] == len(prompts),
+          f"disagg A: retention {pst}")
+    check(pst["prefix_cache"]["evictions"] == 0
+          and pf.kvplane_stats()["spills"] == 0,
+          "disagg A: the fp32 pool evicted (it must hold the round)")
+    fetch_ms = rt.get(actor.fetch_times.remote(), timeout=60.0)
+    publish_ms = pf.publish_times()
+    # where the decode time goes: the same requests (prefix hits now)
+    # with each decode replica alone, the other process idle, and with two
+    # decode replicas in this process (one CUDA context on the card)
+    alone = {}
+    local2 = disagg.DecodeServer(params, cfg, max_batch=DISAGG_BATCH)
+    for name, tier in (("local", [local]), ("actor", [actor]),
+                       ("two_local", [local, local2])):
+        r = disagg.DisaggRouter(decode=tier, prefill=[pf],
+                                affinity_tokens=DISAGG_BLOCK)
+        agot, attft, awall = route_in_order(r, prompts, SERVE_NEW)
+        check(agot == want, f"disagg A: the {name} decode replica's "
+              f"streams differ from generate()")
+        alone[name] = {"decode_tokens_per_s": len(prompts) * SERVE_NEW
+                       / awall, "ttft_ms": quantiles_ms(attft)}
+    local2.stop()
+    wait_for(lambda: pf.stats()["held_transfers"] == 0, 30.0,
+             "disagg A: the transfers' acks")
+    # the same requests through the colocated engine
+    eng = engine_mod.ContinuousBatchingEngine(
+        params, cfg, max_batch=DISAGG_BATCH, kv_block_size=DISAGG_BLOCK)
+    try:
+        colo = disagg.DisaggRouter(colocated=eng)
+        cgot, cttft, cwall = route_in_order(colo, prompts, SERVE_NEW)
+    finally:
+        eng.stop()
+    check(cgot == want, "disagg A: the colocated streams differ from "
+          "generate()")
+    rt.get(actor.stop.remote(), timeout=60.0)
+    rt.kill(actor)
+    rec["A"] = {
+        "requests": len(prompts), "prompt_tokens": len(prompts[0]),
+        "new_tokens": SERVE_NEW, "streams_equal_generate": len(prompts),
+        "ttft_ms": quantiles_ms(ttft), "colocated_ttft_ms":
+            quantiles_ms(cttft),
+        "kv_bytes_per_transfer": kv_bytes,
+        "publish_ms": quantiles_ms([x / 1e3 for x in publish_ms]),
+        "actor_fetch_ms": quantiles_ms([x / 1e3 for x in fetch_ms]),
+        "local_fetch_ms": quantiles_ms(
+            [x / 1e3 for x in local.fetch_times()] or [0.0]),
+        "decode_tokens_per_s": len(prompts) * SERVE_NEW / wall,
+        "colocated_decode_tokens_per_s": len(prompts) * SERVE_NEW / cwall,
+        "decode_alone": alone,
+        "actor_transfers": ast["transfers"],
+        "local_transfers": lst["transfers"],
+        "actor_shm_bytes": ast["shm_bytes"],
+        "actor_rpc_bytes": ast["rpc_bytes"],
+        "local_chunks_local": lst["chunks_local"],
+        "actor_prefill_programs": ast["prefill_programs"],
+        "outcomes": outcomes, "reaped_unacked": pst["reaped_unacked"],
+        "retain": retain, "router": {k: router.stats()[k] for k in (
+            "dispatched", "completed", "shed", "max_pending",
+            "shm_affinity_hits", "directory_hits", "directory_misses")}}
+
+    # ---- round B: a decode actor killed mid-stream
+    plan = [{"action": "kill_replica", "role": "decode",
+             "at": f"token:{DISAGG_KILL_AT}", "replica": 0}]
+    actor_b = Actor.remote(cpu_params, cfg, max_batch=DISAGG_BATCH,
+                           chaos=plan, device="cuda")
+    rt.get(actor_b.where.remote(), timeout=300.0)
+    # ties of the free-slot refinement go to the last replica: actor_b
+    router_b = disagg.DisaggRouter(decode=[local, actor_b], prefill=[pf],
+                                   affinity_tokens=DISAGG_BLOCK,
+                                   stream_chunk_tokens=DISAGG_PULL)
+    prompt = prompts[0]
+    with torch.inference_mode():
+        want_b = generate_mod.generate(
+            params, cfg, [prompt],
+            max_new_tokens=DISAGG_FAILOVER_NEW)[0].tolist()
+    chunks_at = []
+    n_records = len(pf.records)
+    got_b = router_b.generate(
+        prompt, DISAGG_FAILOVER_NEW, timeout_s=300.0,
+        on_tokens=lambda toks: chunks_at.append((time.time(), len(toks))))
+    check(got_b == want_b, "disagg B: the failed-over stream differs from "
+          "generate()")
+    bst = router_b.stats()
+    check(bst["failovers"] == {"prefill": 0, "decode": 1}
+          and bst["failover_requests"] == 1 and bst["shed"] == 0,
+          f"disagg B: router {bst}")
+    check([r["rid"] for r in router_b.tier_replicas("decode")]
+          == [local.server_id], "disagg B: the dead actor is still routed")
+    replays = pf.records[n_records:]
+    check(len(replays) == 2 and replays[1]["reused_tokens"] > 0
+          and replays[1]["plen"] > len(prompt),
+          f"disagg B: the replay's prefill {replays}")
+    router_b.publish_servefault(force=True)
+    wait_for(lambda: state.servefault_status()["totals"]["removed_dead"]
+             ["decode"] == 1, 10.0, "disagg B: servefault_status")
+    sft = state.servefault_status()["totals"]
+    events = w.conductor.call("get_servefault_events", timeout=30.0)
+    kill = [e for e in events if e.get("kind") == "chaos"]
+    fail = [e for e in events if e.get("kind") == "failover"]
+    check(len(kill) == 1 and len(fail) == 1
+          and any(n in fail[0]["detail"] for n in (
+              "ActorDiedError", "ActorError", "WorkerCrashedError")),
+          f"disagg B: events {kill} {fail}")
+    resumed = [t for t, _ in chunks_at if t > kill[0]["ts"]]
+    check(resumed, "disagg B: no token after the kill")
+    info = w.conductor.call("get_actor_info", actor_b.actor_id, timeout=30.0)
+    check(info["state"] == "DEAD", f"disagg B: the actor is {info['state']}")
+    t0 = time.perf_counter()
+    probe = rt.remote(num_gpus=1)(DisaggLeaseProbe).remote()
+    pw = rt.get(probe.where.remote(), timeout=300.0)
+    lease_s = time.perf_counter() - t0
+    rt.kill(probe)
+    rec["B"] = {
+        "new_tokens": DISAGG_FAILOVER_NEW, "kill_at_token": DISAGG_KILL_AT,
+        "pull_tokens": DISAGG_PULL, "stream_equal_generate": True,
+        "failovers": bst["failovers"], "replay": replays[1],
+        "tokens_before_kill": sum(n for t, n in chunks_at
+                                  if t <= kill[0]["ts"]),
+        "kill_to_resumed_token_s": resumed[0] - kill[0]["ts"],
+        "failover_detail": fail[0]["detail"][:160],
+        "recovery_ms": router_b.servefault_stats()[
+            "recent_failover_recovery_ms"],
+        "servefault_totals": {k: sft[k] for k in (
+            "failovers", "failover_requests", "removed_dead")},
+        "lease_after_death_s": lease_s, "lease_pid": pw["pid"]}
+
+    # ---- round C: the KV plane under pressure, int8
+    cprompts = disagg_prompts(cfg, DISAGG_SEED + 1, 4)
+    cprompts = cprompts + cprompts
+    storm = [{"action": "evict_storm", "role": "prefill", "blocks": 128,
+              "at": "request:5"}]
+    pool = 2 * (-(-cfg.max_seq_len // DISAGG_BLOCK))  # 2 windows
+    c1 = disagg.PrefillServer(params, cfg, kv_block_size=DISAGG_BLOCK,
+                              kv_pool_blocks=pool, kv_int8=True,
+                              kvplane_arena_bytes=DISAGG_ARENA,
+                              retain=retain, chaos=storm)
+    router_c = disagg.DisaggRouter(decode=[local], prefill=[c1],
+                                   affinity_tokens=DISAGG_BLOCK)
+    plain = engine_mod.ContinuousBatchingEngine(
+        params, cfg, max_batch=DISAGG_BATCH, kv_block_size=DISAGG_BLOCK,
+        kv_pool_blocks=pool, kv_int8=True)
+    try:
+        want_c = [plain.generate(p, SERVE_NEW, timeout_s=300.0)
+                  for p in cprompts]
+    finally:
+        plain.stop()
+    got_c = [router_c.generate(p, SERVE_NEW, timeout_s=300.0)
+             for p in cprompts]
+    differ = [i for i, (x, y) in enumerate(zip(got_c, want_c)) if x != y]
+    check(not differ, f"disagg C: streams {differ} differ from the plain "
+          f"int8 engine's")
+    kst = c1.kvplane_stats()
+    check(kst["evict_storms"] == 1 and kst["spills"] > 0
+          and kst["tier2_hits"] > 0 and kst["tier3_publishes"] > 0,
+          f"disagg C: the KV plane {kst}")
+    c2 = disagg.PrefillServer(params, cfg, kv_block_size=DISAGG_BLOCK,
+                              kv_pool_blocks=pool, kv_int8=True,
+                              retain=retain)
+    entry = kvp.directory_lookup(w, None, cprompts[0], DISAGG_BLOCK)
+    check(entry is not None and entry["holder"] == c1.server_id,
+          f"disagg C: the directory holds {entry}")
+    rec_c2 = c2.prefill(cprompts[0], None, entry)
+    c2st = c2.kvplane_stats()
+    check(c2st["tier3_reused_tokens"] > 0 and rec_c2["reused_tokens"] > 0,
+          f"disagg C: tier 3 {c2st}")
+    got_c2 = local.decode_from(rec_c2, SERVE_NEW, timeout_s=300.0)
+    c2.ack(rec_c2["transfer_id"])
+    check(got_c2 == got_c[4], "disagg C: the tier-3 adopter's stream "
+          "differs from the holder's")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        packed, n_tok, digest = c1.kv_cache.export_prefix(cprompts[0])
+        export_ms = (time.perf_counter() - t0) * 1e3
+        fresh = kvcache.PagedKVCache(cfg, block_size=DISAGG_BLOCK,
+                                     num_blocks=64, int8=True)
+        t0 = time.perf_counter()
+        adopted = fresh.import_prefix(cprompts[0], packed)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        again = fresh.export_prefix(cprompts[0])
+    check(adopted == n_tok // DISAGG_BLOCK and again[2] == digest
+          and all(np.array_equal(again[0][f], packed[f])
+                  for f in ("qk", "qv", "sk", "sv", "tokens")),
+          "disagg C: export / import between CUDA pools changed bytes")
+    local.stop()
+    check_no_kernel(kernels, "the disaggregated serving path")
+    rec["C"] = {
+        "pool_blocks": pool, "arena_bytes": DISAGG_ARENA,
+        "requests": len(cprompts), "streams_equal_plain_int8": len(cprompts),
+        "storm_evicted_blocks": kst["storm_evicted_blocks"],
+        "spills": kst["spills"], "tier2_hits": kst["tier2_hits"],
+        "tier2_reused_tokens": kst["tier2_reused_tokens"],
+        "tier3_publishes": kst["tier3_publishes"],
+        "tier3_reused_tokens": c2st["tier3_reused_tokens"],
+        "tier3_fetched_bytes": c2st["tier3_fetched_bytes"],
+        "prefix_blocks": adopted, "prefix_bytes": int(sum(
+            packed[f].nbytes for f in ("qk", "qv", "sk", "sv"))),
+        "tier3_export_ms": export_ms, "tier3_import_ms": import_ms}
+    return {"phase": "disagg", "card": card_line(), "model": "gpt2-small",
+            "dtype": "float32", "kv_block_size": DISAGG_BLOCK,
+            "predicted": DISAGG_PREDICTED, **rec}
+
+
 def phase_train_gang() -> None:
     """`TorchTrainer(mode="workers", num_workers=2, use_gpu=False,
     resources_per_worker={"CPU": 1})` on the card machine's CPUs: GPT-2
@@ -4751,6 +5173,10 @@ def main() -> int:
     # actor's engine hot-swaps (the driver's step counted from 0 each
     # step, the actor's scoring in its process)
     phase_fabric(kernels, gpt2, generate_mod)
+    # disaggregated serving across actors and the KV plane: prefill here,
+    # decode in a GPU actor, a failover, the tiers under pressure (no
+    # kernel launches in this process)
+    phase_disagg(kernels, gpt2, generate_mod)
     # the trainer's worker gang on the machine's CPUs, with a chaos kill
     phase_train_gang()
     keys = ["name", "route", "source", "replaces", "launches",

@@ -40,6 +40,9 @@ Responsibilities:
   keep-last-K GC and the reaping of torn publishes notify producers on
   the `weights` channel (with the object ids to free), and the weight
   event log;
+- disaggregated serving, the global KV plane and serving fault
+  tolerance: component snapshots and markers, and the KV plane's prefix
+  directory (atomic commit, TTL reap, keep-last-K GC; not persisted);
 - persistence: KV, named actors, placement groups, jobs, the actor
   workers' GPU bindings and the weight registry snapshot to the session
   directory; a conductor started on that directory restores them before
@@ -277,6 +280,22 @@ class ConductorHandler:
         self._weights_committed: Dict[str, Dict[int, Dict[str, Any]]] = {}
         self._weights_pending: Dict[Tuple[str, int], Dict[str, Any]] = {}
         self._weight_events: List[Dict[str, Any]] = []
+        # disaggregated serving and the global KV plane (serve/disagg.py,
+        # serve/kvplane.py): component snapshots and instant markers, and
+        # the prefix directory, (namespace, chain digest) -> holder and
+        # chunk descriptor, metadata only. Not persisted, as in the JAX
+        # package: a restart empties the directory and routing falls back
+        # to the affinity hash.
+        self._disagg_stats: Dict[str, Dict[str, Any]] = {}
+        self._disagg_events: List[Dict[str, Any]] = []
+        self._kvplane_stats: Dict[str, Dict[str, Any]] = {}
+        self._kvplane_events: List[Dict[str, Any]] = []
+        self._kvplane_dir: Dict[Tuple[str, str], Dict[str, Any]] = {}
+        self._kvplane_dir_counters: Dict[str, int] = {
+            k: 0 for k in ("publishes", "republishes", "lookups",
+                           "directory_hits", "directory_misses",
+                           "reaped", "gced", "unpublished")}
+        self._servefault_stats: Dict[str, Dict[str, Any]] = {}
 
         # Durable control-plane tables (reference: GCS Redis-persisted
         # tables, gcs_server.h:103-110 / gcs_table_storage.cc). Restored
@@ -1820,6 +1839,359 @@ class ConductorHandler:
                         "age_s": round(time.monotonic() - p["started"], 3)}
                        for (n, v), p in self._weights_pending.items()]
             return {"names": out, "pending": pending}
+
+    # ------------------------------------------------ disaggregated serving
+    # Prefill servers, decode servers and routers (serve/disagg.py) push
+    # stat snapshots and kv_publish / kv_transfer / shed markers;
+    # util.state.disagg_status() and the merged timeline's `disagg` lane
+    # read them.
+
+    _DISAGG_EVENTS_KEPT = 10_000
+    _DISAGG_STATS_KEPT = 256
+    # a router's live queue depth counts only while its snapshot is this
+    # fresh (a dead router's last word must not count for ever)
+    _DISAGG_GAUGE_FRESH_S = 15.0
+
+    @staticmethod
+    def _keep_snapshot_locked(table: Dict[str, Dict[str, Any]], kept: int,
+                              worker_id: str, component_id: str,
+                              stats: Dict[str, Any]) -> None:
+        table[str(component_id)] = dict(stats, worker_id=worker_id,
+                                        component_id=str(component_id),
+                                        ts=time.time())
+        while len(table) > kept:
+            del table[min(table, key=lambda k: table[k].get("ts", 0.0))]
+
+    @staticmethod
+    def _append_event_locked(log: List[Dict[str, Any]], event: Any,
+                             kept: int) -> None:
+        if not isinstance(event, dict):
+            return
+        event = dict(event)
+        event.setdefault("ts", time.time())
+        log.append(event)
+        if len(log) > kept:
+            del log[:len(log) - kept]
+
+    def report_disagg_stats(self, worker_id: str, component_id: str,
+                            stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._disagg_stats,
+                                       self._DISAGG_STATS_KEPT, worker_id,
+                                       component_id, stats)
+
+    def get_disagg_status(self) -> Dict[str, Any]:
+        """Components by role (prefill / decode / router) and cluster
+        totals: transfers, KV bytes split shm / rpc, adoptions, sheds,
+        the live queue depth."""
+        with self._lock:
+            comps = {k: dict(v) for k, v in self._disagg_stats.items()}
+        now = time.time()
+        prefill = {k: v for k, v in comps.items()
+                   if v.get("role") == "prefill"}
+        decode = {k: v for k, v in comps.items()
+                  if v.get("role") == "decode"}
+        routers = {k: v for k, v in comps.items()
+                   if v.get("role") == "router"}
+
+        def total(group, key):
+            return sum(int(c.get(key, 0)) for c in group.values())
+
+        totals: Dict[str, Any] = {
+            "prefill_replicas": len(prefill),
+            "decode_replicas": len(decode),
+            **{k: total(prefill, k) for k in (
+                "prefills", "prefilled_tokens", "reused_tokens",
+                "published_transfers", "published_bytes")},
+            **{k: total(decode, k) for k in (
+                "transfers", "kv_fetched_bytes", "shm_bytes", "rpc_bytes",
+                "adopted", "decoded_tokens")},
+            "dispatched": total(routers, "dispatched"),
+            "shed": total(routers, "shed"),
+            "queue_depth": sum(
+                int(r.get("pending", 0)) for r in routers.values()
+                if now - float(r.get("ts", 0.0))
+                <= self._DISAGG_GAUGE_FRESH_S),
+            "max_queue_depth_seen": max(
+                (int(r.get("max_pending", 0)) for r in routers.values()),
+                default=0),
+        }
+        return {"prefill": prefill, "decode": decode, "routers": routers,
+                "totals": totals}
+
+    def report_disagg_event(self, event: Dict[str, Any]) -> None:
+        """kv_publish / kv_transfer / shed / preempt / tier_wake markers
+        for the merged timeline's disagg lane."""
+        with self._lock:
+            self._append_event_locked(self._disagg_events, event,
+                                      self._DISAGG_EVENTS_KEPT)
+
+    def get_disagg_events(self, limit: int = 10_000
+                          ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._disagg_events[-limit:]
+
+    # ------------------------------------------------------ global KV plane
+    # Prefill servers (their tier-2 arenas, tier-3 counters) and routers
+    # (directory outcomes) push snapshots and spill / tier2_hit /
+    # tier3_publish / tier3_adopt / directory_hit markers; the prefix
+    # directory lives here (the weight registry's pattern: atomic
+    # commit, TTL reap, keep-last-K GC).
+
+    _KVPLANE_EVENTS_KEPT = 10_000
+    _KVPLANE_STATS_KEPT = 256
+    _KVPLANE_DIR_KEPT = 4096
+    _KVPLANE_GAUGE_FRESH_S = 15.0
+    # a directory entry's TTL (the JAX package's RAY_TPU_KVPLANE_T3_TTL_S
+    # default); a lookup or a reap may pass its own
+    KVPLANE_T3_TTL_S = 600.0
+    _KVPLANE_TOTAL_KEYS = (
+        "spills", "spill_bytes", "tier2_hits", "tier2_probes",
+        "tier2_reused_tokens", "tier2_fetched_bytes",
+        "arena_evictions", "tier3_publishes", "tier3_adopts",
+        "tier3_adopted_blocks", "tier3_reused_tokens",
+        "tier3_fetched_bytes", "directory_hits", "directory_misses",
+        "directory_fallbacks")
+
+    def report_kvplane_stats(self, worker_id: str, component_id: str,
+                             stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._kvplane_stats,
+                                       self._KVPLANE_STATS_KEPT, worker_id,
+                                       component_id, stats)
+
+    def get_kvplane_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            comps = {k: dict(v) for k, v in self._kvplane_stats.items()}
+        now = time.time()
+        totals: Dict[str, Any] = {k: 0 for k in self._KVPLANE_TOTAL_KEYS}
+        for st in comps.values():
+            for k in self._KVPLANE_TOTAL_KEYS:
+                v = st.get(k)
+                if isinstance(v, (int, float)):
+                    totals[k] += v
+        fresh = [c for c in comps.values()
+                 if now - float(c.get("ts", 0.0))
+                 <= self._KVPLANE_GAUGE_FRESH_S]
+        totals["arena_entries"] = sum(int(c.get("entries", 0))
+                                      for c in fresh)
+        totals["arena_bytes"] = sum(int(c.get("bytes", 0)) for c in fresh)
+        probes = totals["tier2_probes"]
+        totals["tier2_hit_rate"] = (totals["tier2_hits"] / probes
+                                    if probes else 0.0)
+        looks = totals["directory_hits"] + totals["directory_misses"]
+        totals["directory_hit_rate"] = (totals["directory_hits"] / looks
+                                        if looks else 0.0)
+        return {"components": comps, "totals": totals}
+
+    def get_kvplane_status(self) -> Dict[str, Any]:
+        """Component snapshots, cluster totals and the prefix directory's
+        summary (entries, bytes, per-namespace counts, counters)."""
+        out = self.get_kvplane_stats()
+        with self._lock:
+            per_ns: Dict[str, int] = {}
+            total_bytes = 0
+            for (ns, _d), e in self._kvplane_dir.items():
+                per_ns[ns] = per_ns.get(ns, 0) + 1
+                total_bytes += int(e.get("nbytes", 0))
+            out["directory"] = {
+                "entries": len(self._kvplane_dir), "nbytes": total_bytes,
+                "namespaces": per_ns,
+                "counters": dict(self._kvplane_dir_counters)}
+        return out
+
+    def report_kvplane_event(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._append_event_locked(self._kvplane_events, event,
+                                      self._KVPLANE_EVENTS_KEPT)
+
+    def get_kvplane_events(self, limit: int = 10_000
+                           ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._kvplane_events[-limit:]
+
+    def kvplane_publish(self, namespace: str, digest: str,
+                        meta: Dict[str, Any]) -> Dict[str, Any]:
+        """Atomic, metadata-only commit of one published prefix. A digest
+        already committed returns ``status: already`` and the first
+        holder keeps serving. Error dicts, never raises."""
+        if not isinstance(meta, dict) or not meta.get("holder"):
+            return {"error": "kvplane_publish needs a holder in meta"}
+        if not digest:
+            return {"error": "kvplane_publish needs a digest"}
+        key = (str(namespace or ""), str(digest))
+        now = time.time()
+        with self._lock:
+            existing = self._kvplane_dir.get(key)
+            if existing is not None:
+                existing["republished"] = now
+                self._kvplane_dir_counters["republishes"] += 1
+                return {"status": "already",
+                        "holder": existing.get("holder")}
+            self._kvplane_dir[key] = dict(
+                meta, namespace=key[0], digest=key[1], ts=now,
+                started=time.monotonic(), last_hit=None, hits=0)
+            self._kvplane_dir_counters["publishes"] += 1
+            # the overall bound, oldest by recency first
+            while len(self._kvplane_dir) > self._KVPLANE_DIR_KEPT:
+                del self._kvplane_dir[min(
+                    self._kvplane_dir,
+                    key=lambda k: (self._kvplane_dir[k].get("last_hit")
+                                   or self._kvplane_dir[k]["ts"]))]
+                self._kvplane_dir_counters["gced"] += 1
+            self._kvplane_events.append(
+                {"kind": "tier3_publish", "namespace": key[0],
+                 "digest": key[1][:16], "holder": meta.get("holder"),
+                 "tokens": meta.get("tokens"),
+                 "nbytes": meta.get("nbytes"), "ts": now})
+        self.publish("kvplane", {"event": "publish", "digest": key[1],
+                                 "namespace": key[0],
+                                 "holder": meta.get("holder")})
+        return {"status": "committed"}
+
+    def kvplane_lookup(self, namespace: str, digests: List[str],
+                       ttl_s: Optional[float] = None
+                       ) -> Optional[Dict[str, Any]]:
+        """The longest registered prefix among `digests` (longest
+        first). An entry older than `ttl_s` (default KVPLANE_T3_TTL_S; 0
+        disables the check) is a miss and is dropped here."""
+        ns = str(namespace or "")
+        ttl = self.KVPLANE_T3_TTL_S if ttl_s is None else float(ttl_s)
+        now_m = time.monotonic()
+        with self._lock:
+            self._kvplane_dir_counters["lookups"] += 1
+            for d in list(digests or [])[:64]:
+                key = (ns, str(d))
+                e = self._kvplane_dir.get(key)
+                if e is None:
+                    continue
+                if ttl > 0 and now_m - e.get("started", now_m) > ttl:
+                    del self._kvplane_dir[key]
+                    self._kvplane_dir_counters["reaped"] += 1
+                    continue
+                e["last_hit"] = time.time()
+                e["hits"] = int(e.get("hits", 0)) + 1
+                self._kvplane_dir_counters["directory_hits"] += 1
+                return {k: v for k, v in e.items() if k != "started"}
+            self._kvplane_dir_counters["directory_misses"] += 1
+        return None
+
+    def kvplane_unpublish(self, namespace: str, digest: str) -> bool:
+        """The holder retracts an entry (its refs died)."""
+        key = (str(namespace or ""), str(digest))
+        with self._lock:
+            e = self._kvplane_dir.pop(key, None)
+            if e is not None:
+                self._kvplane_dir_counters["unpublished"] += 1
+        return e is not None
+
+    def kvplane_reap(self, max_age_s: Optional[float] = None) -> int:
+        """Drop directory entries older than `max_age_s` (default
+        KVPLANE_T3_TTL_S) on the monotonic commit clock."""
+        ttl = self.KVPLANE_T3_TTL_S if max_age_s is None \
+            else float(max_age_s)
+        now_m = time.monotonic()
+        reaped = 0
+        with self._lock:
+            for key, e in list(self._kvplane_dir.items()):
+                if now_m - e.get("started", now_m) >= ttl:
+                    del self._kvplane_dir[key]
+                    self._kvplane_dir_counters["reaped"] += 1
+                    reaped += 1
+            if reaped:
+                self._kvplane_events.append(
+                    {"kind": "reap", "entries": reaped, "ts": time.time()})
+        return reaped
+
+    def kvplane_gc(self, keep: int, namespace: Optional[str] = None) -> int:
+        """Keep the newest `keep` entries (by last hit, else commit
+        time), per namespace or over the whole directory."""
+        keep = max(0, int(keep))
+        dropped = 0
+        with self._lock:
+            keys = [k for k in self._kvplane_dir
+                    if namespace is None or k[0] == str(namespace or "")]
+            if len(keys) > keep:
+                keys.sort(key=lambda k: (self._kvplane_dir[k].get("last_hit")
+                                         or self._kvplane_dir[k]["ts"]),
+                          reverse=True)
+                for k in keys[keep:]:
+                    del self._kvplane_dir[k]
+                    self._kvplane_dir_counters["gced"] += 1
+                    dropped += 1
+            if dropped:
+                self._kvplane_events.append(
+                    {"kind": "gc", "entries": dropped, "ts": time.time()})
+        return dropped
+
+    # ------------------------------------------- serving fault tolerance
+    # Routers push failover and shed accounting (healers, the self-healing
+    # autoscaler, are not ported yet); the failover markers themselves
+    # ride the resilience event log.
+
+    _SERVEFAULT_STATS_KEPT = 128
+    _SERVEFAULT_EVENT_KINDS = ("failover", "replace", "breaker_trip",
+                               "replica_death", "chaos", "serve_drain")
+
+    def report_servefault_stats(self, worker_id: str, component_id: str,
+                                stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._servefault_stats,
+                                       self._SERVEFAULT_STATS_KEPT,
+                                       worker_id, component_id, stats)
+
+    def get_servefault_status(self) -> Dict[str, Any]:
+        """Router snapshots (failovers by phase, sheds by cause, corpses
+        removed), healer snapshots, and cluster totals."""
+        with self._lock:
+            comps = {k: dict(v) for k, v in self._servefault_stats.items()}
+        routers = {k: v for k, v in comps.items()
+                   if v.get("role") == "router"}
+        healers = {k: v for k, v in comps.items()
+                   if v.get("role") == "healer"}
+        tiers = ("prefill", "decode")
+
+        def tiered(snaps, key):
+            return {t: sum(int((s.get(key) or {}).get(t, 0))
+                           for s in snaps.values()) for t in tiers}
+
+        sheds_by_cause: Dict[str, int] = {}
+        for r in routers.values():
+            for cause, n in (r.get("sheds_by_cause") or {}).items():
+                sheds_by_cause[cause] = sheds_by_cause.get(cause, 0) + int(n)
+        totals: Dict[str, Any] = {
+            "routers": len(routers), "healers": len(healers),
+            "failovers": tiered(routers, "failovers"),
+            "failovers_total": sum(sum((r.get("failovers") or {}).values())
+                                   for r in routers.values()),
+            "failover_requests": sum(int(r.get("failover_requests", 0))
+                                     for r in routers.values()),
+            "sheds_by_cause": sheds_by_cause,
+            "removed_dead": tiered(routers, "removed_dead"),
+            "deaths": tiered(healers, "deaths"),
+            "replacements": tiered(healers, "replacements"),
+            "replacements_total": sum(
+                sum((h.get("replacements") or {}).values())
+                for h in healers.values()),
+            **{k: sum(int(h.get(k, 0)) for h in healers.values())
+               for k in ("replacements_blocked", "breaker_trips",
+                         "drains_reaped")},
+        }
+        return {"routers": routers, "healers": healers, "totals": totals}
+
+    def get_servefault_events(self, limit: int = 10_000
+                              ) -> List[Dict[str, Any]]:
+        """The servefault slice of the resilience event log."""
+        with self._lock:
+            events = list(self._resilience_events)
+        kinds = self._SERVEFAULT_EVENT_KINDS
+        return [e for e in events if e.get("kind") in kinds][-limit:]
 
     # ------------------------------------------------------------------ jobs
     # Reference: GcsJobManager + dashboard/modules/job JobManager —

@@ -5,7 +5,8 @@
     ok, text = outcomes["core_put_get"]
 
 Each named check is a function of `runtime_checks.py`,
-`cluster_checks.py` or `fabric_checks.py` (modules of the package, so
+`cluster_checks.py`, `fabric_checks.py` or `serve_checks.py` (modules of
+the package, so
 worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
@@ -168,7 +169,7 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import cluster_checks, fabric_checks, runtime_checks
+    from . import cluster_checks, fabric_checks, runtime_checks, serve_checks
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -188,7 +189,8 @@ def _driver_main(payload_path: str) -> int:
         try:
             fn = getattr(runtime_checks, name, None) \
                 or getattr(cluster_checks, name, None) \
-                or getattr(fabric_checks, name)
+                or getattr(fabric_checks, name, None) \
+                or getattr(serve_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

@@ -67,6 +67,18 @@ _DONE = object()
 _ENGINE_SEQ = itertools.count()
 _SPEC_EVENTS_KEPT = 512
 
+# `_prefill_paged` calls in this process: a process that only adopts
+# (serve/disagg.DecodeServer) keeps it at 0. The JAX package reads the
+# size of its jitted prefill's compile cache for the same purpose.
+_prefill_calls = 0
+_prefill_calls_lock = threading.Lock()
+
+
+def prefill_paged_calls() -> int:
+    """How many prefills this process has run (`_prefill_paged`)."""
+    with _prefill_calls_lock:
+        return _prefill_calls
+
 
 def _prefill_paged(params: Any, suffix: torch.Tensor, config: Any,
                    prefix_k: torch.Tensor, prefix_v: torch.Tensor):
@@ -75,6 +87,9 @@ def _prefill_paged(params: Any, suffix: torch.Tensor, config: Any,
     window, the reduction shapes of `generate()`'s prefill. Returns (the
     last position's logits [1, padded_vocab], the filled window k, v
     [L, S, H, hd])."""
+    global _prefill_calls
+    with _prefill_calls_lock:
+        _prefill_calls += 1
     fwd = _model_fns(config)[0]
     c = prefix_k.shape[1]
     shape = (prefix_k.shape[0], config.max_seq_len) + prefix_k.shape[2:]

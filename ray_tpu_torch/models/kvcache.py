@@ -36,9 +36,21 @@ defaults are the arguments' defaults here.
 token chains: a forward index (chain digest -> the full blocks extending
 it) is kept beside the prefix index.
 
-Not ported yet: the host-RAM arena and object-store tiers
-(``attach_arena``, ``export_prefix``, ``import_prefix``) and the
-Prometheus metrics; ``stats()`` carries the same numbers.
+**Tiered KV plane** (``serve/kvplane.py``): the pool is tier 1.
+``attach_arena()`` hooks a host-RAM arena into the eviction path: an
+evicted block spills its wire payload (int8 K/V plus fp32
+per-block-channel scales, ``_write_block_q``'s layout) to the arena
+instead of dying, and a later ``lookup()`` whose chain walk breaks takes
+it back through the normal insert path. An int8 pool's payload is its
+bytes verbatim, so its round trip is exact and equals the JAX pool's
+payload byte for byte; an fp pool quantizes on the way out and re-enters
+within the int8 tolerance, as the JAX package's does.
+``export_prefix()`` / ``import_prefix()`` move a whole block-aligned
+prefix in the same format (tier 3, chunk-fabric objects any replica can
+adopt). A payload is read off the device with one copy to the host.
+
+Not ported yet: the Prometheus metrics; ``stats()`` carries the same
+numbers.
 """
 from __future__ import annotations
 
@@ -147,16 +159,19 @@ def _gather_prefix(pool_k, pool_v, bids, ntok: int):
     return take(pool_k), take(pool_v)
 
 
-def _quantize(blk):
+def _quantize(blk, divide: bool = False):
     """Per-block-channel symmetric int8: [..., bs, H, hd] float -> (int8
     of the same shape, fp32 scales [..., 1, H, hd]), the amax taken over
     the block's rows. A channel whose amax is 0 takes scale 1. The same
     bytes as the JAX package's jitted pool writes: XLA compiles their
     `amax / 127.0` to a product with float32(1 / 127), and `f / scale`
-    to an IEEE division; both round half to even."""
+    to an IEEE division; both round half to even. `divide` takes the
+    scale by division instead, as the JAX package's eager spill of an fp
+    pool's block does."""
     f = blk.float()
     amax = f.abs().amax(dim=-3, keepdim=True)
-    scale = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    scale = torch.where(amax > 0, amax / 127.0 if divide
+                        else amax * (1.0 / 127.0), torch.ones_like(amax))
     q = torch.round(f / scale).clamp_(-127, 127).to(torch.int8)
     return q, scale
 
@@ -213,6 +228,13 @@ def _extract_block(ck, cv, rows, block_size: int):
         return x.reshape((x.shape[0], -1, block_size) + x.shape[2:])
 
     return take(ck), take(cv)
+
+
+def _host_tensor(arr: Any) -> torch.Tensor:
+    """A payload array (numpy, possibly a read-only view of the object
+    store) as a CPU tensor."""
+    arr = np.asarray(arr)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
 class PrefixMatch:
@@ -298,6 +320,9 @@ class PagedKVCache:
         # indexed forward by _partial_index)
         self._children: Dict[bytes, Dict[Tuple[int, ...], int]] = {}
         self._tick = itertools.count(1)
+        # the tier-2 host arena (serve/kvplane.HostArena); None is the
+        # single-tier pool
+        self._arena: Optional[Any] = None
         self._events: List[Dict[str, Any]] = []
         self._stats: Dict[str, int] = {
             k: 0 for k in ("lookups", "hits", "partial_hits", "misses",
@@ -330,7 +355,16 @@ class PagedKVCache:
                 nxt = _chain(digest, blk)
                 bid = self._full_index.get(nxt)
                 if bid is None or self._blocks[bid].tokens != blk:
-                    break
+                    # tier 2: the block may have been evicted into the
+                    # arena; take it back and keep walking
+                    bid = self._from_arena_locked(
+                        self._arena.take_full(nxt, blk)
+                        if self._arena is not None else None,
+                        bids[-1] if bids else None, now)
+                    if bid is None:
+                        break
+                # pinned as the walk goes: an arena adoption further down
+                # may evict, and an unpinned match would be a victim
                 b = self._blocks[bid]
                 b.ref += 1
                 b.last_used = now
@@ -346,6 +380,13 @@ class PagedKVCache:
                         and tuple(int(t) for t in
                                   tokens[matched:matched + k]) == ptoks):
                     partial_bid, partial_len = bid, k
+            if partial_bid is None and self._arena is not None:
+                payload = self._arena.take_partial(
+                    digest, tokens[matched:], max_tokens - matched)
+                partial_bid = self._from_arena_locked(
+                    payload, bids[-1] if bids else None, now)
+                if partial_bid is not None:
+                    partial_len = len(payload["tokens"])
             if partial_bid is not None:
                 b = self._blocks[partial_bid]
                 b.ref += 1
@@ -380,9 +421,152 @@ class PagedKVCache:
             return _gather_prefix(self._pool_k, self._pool_v, bids,
                                   match.tokens)
 
+    # ------------------------------------------------ tiered KV plane
+
+    def attach_arena(self, arena: Optional[Any]) -> None:
+        """Hook a tier-2 host arena (serve/kvplane.HostArena) into the
+        pool: evictions spill to ``arena.accept()``, and a broken lookup
+        walk asks ``arena.take_full()`` / ``take_partial()`` before
+        giving up. None detaches it."""
+        with self._lock:
+            self._arena = arena
+
+    def _payloads_locked(self, blocks: List[_Block]) -> List[Dict[str, Any]]:
+        """The tier-2/3 wire payload of each block: int8 K/V [L, bs, H,
+        hd] and fp32 scales [L, 1, H, hd] on the host (all blocks in one
+        copy off the device) plus the index identity to re-adopt it. An
+        int8 pool hands out its bytes verbatim; an fp pool quantizes."""
+        bids = self._index([b.bid for b in blocks])
+        if self.int8:
+            parts = [x.index_select(1, bids).cpu().numpy() for x in (
+                self._pool_k, self._pool_v, self._scale_k, self._scale_v)]
+        else:
+            qk, sk = _quantize(self._pool_k.index_select(1, bids), True)
+            qv, sv = _quantize(self._pool_v.index_select(1, bids), True)
+            parts = [x.cpu().numpy() for x in (qk, qv, sk, sv)]
+        return [{"index_key": b.index_key, "tokens": b.tokens,
+                 "filled": b.filled, "ns": b.ns,
+                 "parent_digest": b.parent_digest,
+                 **{name: np.ascontiguousarray(part[:, i])
+                    for name, part in zip(("qk", "qv", "sk", "sv"), parts)}}
+                for i, b in enumerate(blocks)]
+
+    def _adopt_payload_locked(self, payload: Dict[str, Any],
+                              parent: Optional[int],
+                              now: int) -> Optional[int]:
+        """Re-adopt a wire payload through the normal insert path. Returns
+        the new bid, unpinned, or None when no block could be allocated
+        (the caller gives the payload back to its tier)."""
+        key = payload.get("index_key")
+        if key is None:
+            return None
+        bid = self._alloc_locked()
+        if bid is None:
+            return None
+        dst = self._index([bid])
+        q = [_host_tensor(payload[f])[:, None].to(self.device)
+             for f in ("qk", "qv", "sk", "sv")]
+        if self.int8:
+            _write_block_qraw(self._pool_k, self._pool_v, self._scale_k,
+                              self._scale_v, dst, *q)
+        else:
+            _write_block(self._pool_k, self._pool_v, dst,
+                         (q[0].float() * q[2]).to(self.dtype),
+                         (q[1].float() * q[3]).to(self.dtype))
+        self._insert_locked(bid, key, payload["tokens"], payload["filled"],
+                            parent, now, payload.get("ns"),
+                            payload.get("parent_digest"))
+        self._blocks[bid].ref = 0
+        return bid
+
+    def _from_arena_locked(self, payload: Optional[Dict[str, Any]],
+                           parent: Optional[int], now: int) -> Optional[int]:
+        """Adopt a payload the arena handed out, or give it back when no
+        block is free."""
+        if payload is None:
+            return None
+        bid = self._adopt_payload_locked(payload, parent, now)
+        if bid is None:
+            self._arena.give_back(payload)
+        return bid
+
+    def export_prefix(self, tokens, namespace: Optional[str] = None,
+                      max_blocks: int = 32
+                      ) -> Optional[Tuple[Dict[str, Any], int, str]]:
+        """The longest cached full-block chain prefix of `tokens` in the
+        tier-3 wire format: ``(packed, n_tokens, digest_hex)``, packed =
+        stacked int8 blocks and scales plus the exact token prefix, the
+        digest the prefix directory keys it by; None when nothing is
+        cached. Nothing is pinned: tier 3 holds a copy."""
+        tokens = np.asarray(tokens).reshape(-1)
+        bs = self.block_size
+        chain: List[_Block] = []
+        with self._lock:
+            digest = _ns_root(namespace)
+            matched = 0
+            while matched + bs <= len(tokens) and len(chain) < max_blocks:
+                blk = tuple(int(t) for t in tokens[matched:matched + bs])
+                nxt = _chain(digest, blk)
+                bid = self._full_index.get(nxt)
+                if bid is None or self._blocks[bid].tokens != blk:
+                    break
+                chain.append(self._blocks[bid])
+                digest = nxt
+                matched += bs
+            if not chain:
+                return None
+            payloads = self._payloads_locked(chain)
+        packed = {f: np.stack([p[f] for p in payloads])
+                  for f in ("qk", "qv", "sk", "sv")}
+        packed["tokens"] = np.asarray(tokens[:matched], np.int64)
+        return packed, matched, digest.hex()
+
+    def import_prefix(self, tokens, packed: Dict[str, Any],
+                      namespace: Optional[str] = None) -> int:
+        """Adopt a tier-3 packed prefix (``export_prefix``'s format) into
+        this pool's index, unpinned; blocks already cached are skipped.
+        Returns the number of blocks adopted. The packed tokens must be a
+        prefix of `tokens`, or nothing is adopted."""
+        tokens = np.asarray(tokens).reshape(-1)
+        bs = self.block_size
+        ptoks = np.asarray(packed["tokens"]).reshape(-1)
+        if len(ptoks) > len(tokens) \
+                or not np.array_equal(tokens[:len(ptoks)], ptoks):
+            return 0
+        adopted: List[int] = []
+        with self._lock:
+            digest = _ns_root(namespace)
+            now = next(self._tick)
+            parent: Optional[int] = None
+            for i in range(int(np.shape(packed["qk"])[0])):
+                if (i + 1) * bs > len(ptoks):
+                    break
+                blk = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+                nxt = _chain(digest, blk)
+                bid = self._full_index.get(nxt)
+                if bid is not None and self._blocks[bid].tokens == blk:
+                    parent, digest = bid, nxt
+                    continue
+                bid = self._adopt_payload_locked(
+                    {"index_key": ("full", nxt), "tokens": blk,
+                     "filled": bs, "ns": namespace, "parent_digest": digest,
+                     **{f: packed[f][i] for f in ("qk", "qv", "sk", "sv")}},
+                    parent, now)
+                if bid is None:
+                    break
+                # pinned while the loop runs: a later adoption's alloc
+                # must not evict an earlier adopted leaf
+                self._blocks[bid].ref = 1
+                adopted.append(bid)
+                parent, digest = bid, nxt
+            for bid in adopted:
+                self._blocks[bid].ref = 0
+        return len(adopted)
+
     def force_evict(self, n: int) -> int:
         """Evict up to `n` unpinned leaf blocks in LRU order, whatever
-        the pool's pressure. Returns how many went."""
+        the pool's pressure (the chaos ``evict_storm``; with an arena
+        attached every victim spills). Returns how many went."""
         evicted = 0
         with self._lock:
             for _ in range(int(n)):
@@ -626,6 +810,13 @@ class PagedKVCache:
         return victim.bid
 
     def _evict_locked(self, b: _Block) -> None:
+        # tier-2 spill before the index drop: the payload carries the
+        # block's index identity, and accept() touches host memory only
+        if self._arena is not None and b.index_key is not None:
+            try:
+                self._arena.accept(self._payloads_locked([b])[0])
+            except Exception:  # noqa: BLE001 — a spill is best effort
+                pass
         self._drop_index_locked(b)
         if b.parent_bid is not None and b.parent_bid in self._blocks:
             self._blocks[b.parent_bid].children -= 1

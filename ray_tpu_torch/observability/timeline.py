@@ -7,7 +7,13 @@ events as chrome-trace events, merged into one sorted list.
   preemptions, restarts, quarantines, grace checkpoints, chaos
   injections and recoveries;
 - weights:     pid = "weights",    tid = event kind: instant markers for
-  publishes, fetches, hot swaps, GC and reaps.
+  publishes, fetches, hot swaps, GC and reaps;
+- disagg:      pid = "disagg",     tid = event kind: disaggregated
+  serving's kv_publish / kv_transfer / shed / preempt markers (a
+  failover is a resilience marker);
+- kvplane:     pid = "kvplane",    tid = event kind: the KV plane's
+  spill / tier2_hit / tier3_publish / tier3_adopt / directory_hit /
+  evict_storm / reap / gc markers.
 
 The spans and the training step records of the JAX package's merged
 trace wait for the port of `util/tracing.py` and the step timer's
@@ -83,12 +89,58 @@ def weight_trace_events(events: List[Dict[str, Any]]
     return out
 
 
+def _instant_events(events: List[Dict[str, Any]], lane: str,
+                    where_keys: tuple, size_keys: tuple
+                    ) -> List[Dict[str, Any]]:
+    """Instant markers under pid `lane`, tid = event kind, labelled with
+    the first of `where_keys` present and each of `size_keys`."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        label = kind
+        where = next((ev[k] for k in where_keys if ev.get(k)), None)
+        if where:
+            label += f":{where}"
+        for key, unit in size_keys:
+            if ev.get(key) is not None:
+                label += f" {ev[key]}{unit}"
+        out.append({
+            "name": label, "cat": lane, "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": lane, "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def disagg_trace_events(events: List[Dict[str, Any]]
+                        ) -> List[Dict[str, Any]]:
+    """Instant markers of disaggregated serving under pid "disagg"."""
+    return _instant_events(events, "disagg", ("server", "router"),
+                           (("bytes", "B"),))
+
+
+def kvplane_trace_events(events: List[Dict[str, Any]]
+                         ) -> List[Dict[str, Any]]:
+    """Instant markers of the global KV plane under pid "kvplane"."""
+    return _instant_events(events, "kvplane",
+                           ("replica", "holder", "router"),
+                           (("blocks", "blk"), ("nbytes", "B")))
+
+
 def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         spans: List[Dict[str, Any]],
                         step_records: List[Dict[str, Any]],
                         resilience_events: Optional[
                             List[Dict[str, Any]]] = None,
                         weight_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        disagg_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        kvplane_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
     """Merge the sources into one list sorted by time. `spans` and
@@ -102,13 +154,17 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
         trace.extend(resilience_trace_events(resilience_events))
     if weight_events:
         trace.extend(weight_trace_events(weight_events))
+    if disagg_events:
+        trace.extend(disagg_trace_events(disagg_events))
+    if kvplane_events:
+        trace.extend(kvplane_trace_events(kvplane_events))
     trace.sort(key=lambda e: e.get("ts", 0.0))
     return trace
 
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
-    """Pull the task, resilience and weight events from the live cluster
-    and merge them."""
+    """Pull the task, resilience, weight, disagg and KV-plane events
+    from the live cluster and merge them."""
     from .._private import worker as worker_mod
 
     w = worker_mod.global_worker
@@ -118,4 +174,6 @@ def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
     return merged_chrome_trace(
         w.conductor.call("get_task_events", limit, timeout=30.0), [], [],
         w.conductor.call("get_resilience_events", limit, timeout=30.0),
-        w.conductor.call("get_weight_events", limit, timeout=30.0))
+        w.conductor.call("get_weight_events", limit, timeout=30.0),
+        w.conductor.call("get_disagg_events", limit, timeout=30.0),
+        w.conductor.call("get_kvplane_events", limit, timeout=30.0))

@@ -31,9 +31,24 @@ Actions (all fields beyond ``action`` optional unless noted):
   M ms first.
 - ``{"action": "bounce_conductor", "at_step": S}``: matched by
   :meth:`ChaosPlan.external_actions`; the harness executes it.
-- The serving plane's ``kill_replica``, ``drop_connection`` and
-  ``evict_storm`` parse as in the JAX package; their executor
-  (``ServeChaosMonkey``) waits for the port of ``serve/``.
+- ``{"action": "kill_replica", "role": "prefill"|"decode", "at":
+  "token:K"|"request:N", "replica": R}``: hard ``os._exit`` of the
+  matching disaggregated-serving replica's process (``serve/disagg.py``)
+  once it has served its K-th decoded token (a death mid-stream) or at
+  the start of its N-th request. ``replica`` (default 0) is the
+  replica's creation index within its role. In a driver, where an
+  in-process replica lives beside the user's program, the fire raises
+  :class:`ChaosError` instead: nothing here ends a driver.
+- ``{"action": "evict_storm", "role": "prefill", "blocks": B, "at":
+  "request:N", "replica": R}``: force-evict B blocks of the matching
+  prefill replica's prefix pool at the start of its N-th request (with
+  the KV plane's host arena attached they spill there). Non-lethal: the
+  replica takes the count with ``take_storm()``.
+- ``drop_connection`` parses as in the JAX package; the HTTP gateway
+  that executes it is not ported yet.
+
+A plan handed to a serving replica (``chaos=``) may also be the list of
+action dicts itself.
 
 ``at_step`` compares against the step being reported (the ``step``
 metric when present, else the session's report count, 1-based).
@@ -125,6 +140,11 @@ class ChaosAction:
                    replica=int(d.get("replica", 0)),
                    blocks=int(d.get("blocks", 0)))
 
+    def at_spec(self) -> Optional[tuple]:
+        """("token"|"request", N) for a serving action."""
+        m = _AT_RE.match(self.at or "")
+        return (m.group(1), int(m.group(2))) if m else None
+
     def matches(self, step: int, rank: int, attempt: int) -> bool:
         if self.action in _PASSIVE or self.action in _SERVE:
             return False  # consulted out of band, not stepwise
@@ -172,6 +192,12 @@ class ChaosPlan:
         return sum(a.ms for a in self.actions
                    if a.action == "delay_chunk_fetch") / 1000.0
 
+    def serve_actions(self, role: str, replica: int) -> List[ChaosAction]:
+        """The serving-plane actions scoped to one replica of `role`."""
+        return [a for a in self.actions
+                if a.action in _SERVE and a.role == role
+                and a.replica == int(replica)]
+
     def external_actions(self, step: int, attempt: int = 0
                          ) -> List[ChaosAction]:
         """Actions the harness itself must execute at this step (e.g.
@@ -181,13 +207,17 @@ class ChaosPlan:
                 and a.matches(step, a.rank or 0, attempt)]
 
 
-PlanLike = Union[ChaosPlan, str, None]
+PlanLike = Union[ChaosPlan, str, List[Dict[str, Any]], None]
 
 
 def as_plan(plan: PlanLike) -> ChaosPlan:
-    """A ChaosPlan from a plan, its spec, or None (the empty plan)."""
+    """A ChaosPlan from a plan, its spec, its list of action dicts, or
+    None (the empty plan)."""
     if isinstance(plan, ChaosPlan):
         return plan
+    if isinstance(plan, (list, tuple)):
+        return ChaosPlan([ChaosAction.from_dict(d) for d in plan],
+                         json.dumps(list(plan)))
     return ChaosPlan.from_spec(plan)
 
 
@@ -290,6 +320,125 @@ def monkey_from_spec(spec: PlanLike, rank: int = 0,
     return ChaosMonkey(plan, rank=rank, attempt=attempt)
 
 
+def exit_replica(code: int) -> None:
+    """What a lethal serving action does: end this worker's process, or
+    in a driver (or with no cluster) raise ChaosError, so an in-process
+    replica never ends the program that holds it."""
+    from .._private import worker as worker_mod
+
+    w = worker_mod.global_worker
+    if w is None or w.mode == "driver":
+        raise ChaosError(f"chaos: kill_replica (exit code {code}) in a "
+                         f"driver process raises instead of exiting")
+    os._exit(code)
+
+
+class ServeChaosMonkey:
+    """Per-replica executor of a plan's serving actions.
+
+    A disaggregated-serving replica (``serve/disagg.py``) builds one with
+    its role and creation index and consults it at every request
+    (``on_request``) and every batch of served tokens (``on_tokens``).
+    Each action fires at most once; ``at`` counts are cumulative for this
+    replica. `exit_fn` is what a lethal fire does (``exit_replica`` by
+    default)."""
+
+    def __init__(self, plan: ChaosPlan, role: str, replica: int = 0,
+                 exit_fn: Optional[Callable[[int], Any]] = None):
+        self.role = str(role)
+        self.replica = int(replica)
+        self.actions = plan.serve_actions(self.role, self.replica)
+        self._exit = exit_fn if exit_fn is not None else exit_replica
+        self._lock = threading.Lock()
+        self._fired: set = set()
+        self._tokens = 0
+        self._requests = 0
+        # a fired evict_storm latches its block count here; the replica
+        # applies the eviction itself (take_storm)
+        self._pending_storm = 0
+
+    def __bool__(self) -> bool:
+        return bool(self.actions)
+
+    def take_storm(self) -> int:
+        """Pop the pending evict_storm block count (0 when none is due)."""
+        with self._lock:
+            n, self._pending_storm = self._pending_storm, 0
+        return n
+
+    def reset_counts(self) -> None:
+        """Zero the request and token counts; fired evict_storm actions
+        re-arm (a fired kill already took its process)."""
+        with self._lock:
+            self._tokens = 0
+            self._requests = 0
+            self._fired -= {i for i, a in enumerate(self.actions)
+                            if a.action == "evict_storm"}
+            self._pending_storm = 0
+
+    def on_request(self) -> None:
+        """One request admitted (a prefill call, a decode adoption)."""
+        with self._lock:
+            self._requests += 1
+            fire = self._due_locked("request", self._requests)
+        if fire is not None:
+            self._fire(fire)
+
+    def on_tokens(self, n: int = 1) -> None:
+        """`n` more tokens served by this replica."""
+        with self._lock:
+            self._tokens += int(n)
+            fire = self._due_locked("token", self._tokens)
+        if fire is not None:
+            self._fire(fire)
+
+    def _due_locked(self, kind: str, count: int) -> Optional[ChaosAction]:
+        for idx, a in enumerate(self.actions):
+            if idx in self._fired:
+                continue
+            spec = a.at_spec()
+            if spec is not None and spec[0] == kind and count >= spec[1]:
+                self._fired.add(idx)
+                return a
+        return None
+
+    def _fire(self, a: ChaosAction) -> None:
+        try:
+            from .._private import worker as worker_mod
+
+            w = worker_mod.global_worker
+            if w is not None:
+                ev = {"kind": "chaos", "action": a.action,
+                      "role": self.role, "replica": self.replica,
+                      "at": a.at, "tokens": self._tokens,
+                      "requests": self._requests}
+                if a.action == "evict_storm":
+                    ev["blocks"] = a.blocks
+                w.conductor.call("report_resilience_event", ev,
+                                 timeout=5.0)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
+        if a.action == "evict_storm":
+            with self._lock:
+                self._pending_storm += max(0, int(a.blocks))
+            return
+        self._exit(137)
+
+
+def serve_monkey_from_spec(spec: PlanLike, role: str, replica: int = 0,
+                           exit_fn: Optional[Callable[[int], Any]] = None
+                           ) -> Optional[ServeChaosMonkey]:
+    """A serving monkey when `spec` carries serving actions for this
+    (role, replica); None otherwise, so the hot path pays one None check.
+    A malformed plan raises. Nothing is read from the environment."""
+    plan = as_plan(spec)
+    if not plan:
+        return None
+    monkey = ServeChaosMonkey(plan, role, replica, exit_fn)
+    return monkey if monkey else None
+
+
 __all__ = ["ChaosAction", "ChaosError", "ChaosMonkey", "ChaosPlan",
-           "as_plan", "chunk_fetch_delay_s", "heartbeat_delay_s",
-           "monkey_from_spec"]
+           "ServeChaosMonkey", "as_plan", "chunk_fetch_delay_s",
+           "exit_replica", "heartbeat_delay_s", "monkey_from_spec",
+           "serve_monkey_from_spec"]

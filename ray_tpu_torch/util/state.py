@@ -1,8 +1,9 @@
 """Cluster state views (part of the port of ray_tpu/util/state.py): the
-weight fabric's registry and the recovery subsystem. The rest of that
-module (task, actor and serving views, the merged timeline export) waits
-for ROADMAP Queue 1 item 8; so do the CLI and dashboard surfaces of
-these two views.
+weight fabric's registry, the recovery subsystem, disaggregated serving,
+the global KV plane and serving fault tolerance. The rest of that module
+(task, actor and the other serving views, the merged timeline export)
+waits for ROADMAP Queue 1 item 8; so do the CLI, dashboard and
+Prometheus surfaces of these views.
 """
 from __future__ import annotations
 
@@ -40,4 +41,32 @@ def resilience_status() -> Dict[str, Any]:
     return _worker().conductor.call("get_resilience_status", timeout=10.0)
 
 
-__all__ = ["resilience_status", "weight_versions"]
+def disagg_status() -> Dict[str, Any]:
+    """Disaggregated serving (serve/disagg.py): the latest snapshot of
+    each prefill server (prefills, prefix reuse, published transfers and
+    bytes), decode server (transfers, KV bytes split shm / rpc,
+    adoptions, free slots, prefill programs: 0 on a pure decode replica)
+    and router (dispatched, shed, live and peak queue depth), grouped by
+    role, plus cluster totals."""
+    return _worker().conductor.call("get_disagg_status", timeout=10.0)
+
+
+def kvplane_status() -> Dict[str, Any]:
+    """The global KV plane (serve/kvplane.py): per-component snapshots
+    (the prefill servers' tier-2 arenas and tier-3 counters, the
+    routers' directory outcomes), cluster totals with the tier-2 and
+    directory hit rates, and the prefix directory's summary (entries,
+    bytes, per-namespace counts, commit / reap / GC counters)."""
+    return _worker().conductor.call("get_kvplane_status", timeout=10.0)
+
+
+def servefault_status() -> Dict[str, Any]:
+    """Serving fault tolerance: per-router failovers by phase, sheds by
+    cause, dead replicas removed and recent failover recovery times,
+    plus cluster totals. The failover markers ride the timeline's
+    resilience lane."""
+    return _worker().conductor.call("get_servefault_status", timeout=10.0)
+
+
+__all__ = ["disagg_status", "kvplane_status", "resilience_status",
+           "servefault_status", "weight_versions"]

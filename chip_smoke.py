@@ -80,15 +80,25 @@ Disaggregated serving (`disagg`): GPT-2 small fp32 prefilled here behind
 the prefix cache and its KV published through the chunk fabric to a GPU
 decode actor (or a decode replica here), every stream equal to
 `generate()`; a fresh decode actor killed by its chaos plan mid-stream,
-the request failed over to the replica here with the same tokens and the
-card leased again; an int8 prefill tier under an evict_storm serving a
-plain engine's streams from its host arena, a second prefill server
-adopting the first's published prefix, and an export / import between
-pools on the card, byte for byte; no kernel launches in this process. The
-trainer's worker gang (`train_gang`): two fits of GPT-2 tiny on 2-rank
-gloo gangs of CPU ranks, one killed by a chaos plan and restarted from
-its checkpoint; one card holds no gang of GPU ranks. Every
-phase prints one JSON line; a phase that fails ends the run with a
+the request failed over to the replica here with the same tokens, a
+`DisaggAutoscaler` watching the actor_state channel replacing the dead
+actor through its tier factory once the card's lease is back, and a
+request pinned to the replacement equal to `generate()`; the SLO policy
+scaling decode replicas here on the card from 1 to 2 under a burst and
+back to 1 when idle, nothing dropped; an int8 prefill tier under an
+evict_storm serving a plain engine's streams from its host arena, a
+second prefill server adopting the first's published prefix, and an
+export / import between pools on the card, byte for byte; no kernel
+launches in this process. The online learning loop (`online`):
+`OnlineTrainer` on GPT-2 small bf16, the learner in this process on the
+flash kernels (12 launches of each a step, no CE kernel), a
+RolloutSampler GPU actor hot-swapping each delta publication (staleness
+<= 1, `wpe` frozen, its last stream equal to `generate()` on the last
+version), then a per-tenant LoRA trainer whose adapter a fabric-backed
+pool pages in. The trainer's worker gang (`train_gang`): two fits of
+GPT-2 tiny on 2-rank gloo gangs of CPU ranks, one killed by a chaos plan
+and restarted from its checkpoint; one card holds no gang of GPU ranks.
+Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
 plain version, its time, the plain version's and the library's time and
@@ -649,20 +659,36 @@ def phase_ce(kernels, fused_ce, gen) -> dict:
                                      "bound_by", "library_ms")}}
 
 
+# the online learner's attention shape (GPT-2 small at [8, 127]): its
+# LSE and D rows start 4 bytes off a 16-byte boundary, which the backward
+# kernels' TMA of those rows must take; it draws from a generator of its
+# own so the other cases and the later phases keep their inputs
+ONLINE_FLASH_CASE = (8, 127, 127, 12, 64, True)
+
+
+def own_generator(case, gen):
+    """`gen`, or for ONLINE_FLASH_CASE a generator of its own."""
+    if case != ONLINE_FLASH_CASE:
+        return gen
+    return torch.Generator(device="cuda").manual_seed(127)
+
+
 def phase_flash_bwd(kernels, attention, gen) -> list:
     """flash_bwd_dq and flash_bwd_dkv against the plain backward, from
     the same q, k, v, dO and the forward kernel's O and LSE."""
     dev = torch.device("cuda")
     cases = [(8, 1024, 1024, 12, 64, True),   # GPT-2 small training
              (2, 300, 300, 12, 64, True),     # ragged length
+             ONLINE_FLASH_CASE,
              (2, 128, 384, 12, 64, True),     # tq < tk: end-aligned mask
              (2, 256, 256, 8, 64, False),     # non-causal
              (2, 256, 256, 8, 128, True),     # head_dim 128
              (1, 4096, 4096, 32, 128, True)]  # MoE training (Mixtral)
     results = []
     for b, tq, tk, h, d, causal in cases:
-        q, k, v = qkv(gen, b, tq, tk, h, d)
-        do = torch.randn(b, tq, h, d, generator=gen,
+        g = own_generator((b, tq, tk, h, d, causal), gen)
+        q, k, v = qkv(g, b, tq, tk, h, d)
+        do = torch.randn(b, tq, h, d, generator=g,
                          device=dev).to(torch.bfloat16)
         scale = d ** -0.5
         # the forward at the training shapes, before its O and LSE feed
@@ -882,16 +908,18 @@ def phase_flash_bwd_fused(kernels, attention, gen) -> dict:
     cases = [(4, 2048, 2048, 12, 64, True),   # Llama small training (GQA)
              (8, 1024, 1024, 12, 64, True),   # GPT-2 small training
              (2, 300, 300, 12, 64, True),     # ragged length
+             ONLINE_FLASH_CASE,
              (2, 128, 384, 12, 64, True),     # tq < tk: end-aligned mask
              (2, 256, 256, 8, 64, False),     # non-causal
              (2, 1024, 1024, 8, 128, True)]   # head_dim 128
     results, timed = [], []
     for i, (b, tq, tk, h, d, causal) in enumerate(cases):
+        g = own_generator((b, tq, tk, h, d, causal), gen)
         if i == 0:
-            q, k, v = gqa_qkv(gen, b, tq, h, 4, d)
+            q, k, v = gqa_qkv(g, b, tq, h, 4, d)
         else:
-            q, k, v = qkv(gen, b, tq, tk, h, d)
-        do = torch.randn(b, tq, h, d, generator=gen,
+            q, k, v = qkv(g, b, tq, tk, h, d)
+        do = torch.randn(b, tq, h, d, generator=g,
                          device=dev).to(torch.bfloat16)
         scale = d ** -0.5
         o, lse, fwd = held_flash_fwd(kernels, attention, q, k, v, causal,
@@ -4617,13 +4645,6 @@ def disagg_decode_actor(rt):
     return rt.remote(num_gpus=1, max_concurrency=16)(DisaggDecodeActor)
 
 
-class DisaggLeaseProbe:
-    """A GPU actor that only starts: the card's lease came back."""
-
-    def where(self) -> dict:
-        return _where(boot_clock())
-
-
 class RecordingPrefill:
     """The driver's PrefillServer as the router sees it, keeping each
     transfer record's outcome, length and reused tokens."""
@@ -4707,14 +4728,20 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
     and through the colocated engine.
     Round B: a fresh GPU decode actor killed by its chaos plan at its
     8th token; the request fails over to the replica here, equal to
-    generate(); a new GPU actor leases the card afterwards. Round C: an
+    generate(); a DisaggAutoscaler watching the actor_state channel
+    replaces the dead actor through its decode TierSpec's factory (a GPU
+    DecodeServer actor, which takes the card's lease once it comes back),
+    and a request pinned to the replacement equals generate(). Round D:
+    the SLO policy over DecodeServers here on the card: a staggered burst
+    scales decode from 1 to 2, idle drains it back to 1, every stream
+    equal to generate() and nothing dropped. Round C: an
     int8 PrefillServer with a small pool under an evict_storm, its
     streams equal a plain int8 engine's; a second PrefillServer adopts
     the first's published prefix (tier 3); an export / import of that
     prefix between CUDA pools. No kernel launches in this process."""
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.models import kvcache
-    from ray_tpu_torch.serve import disagg
+    from ray_tpu_torch.serve import autoscale, disagg
     from ray_tpu_torch.serve import kvplane as kvp
     from ray_tpu_torch.tree import tree_map
     from ray_tpu_torch.util import state
@@ -4835,11 +4862,34 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
              "at": f"token:{DISAGG_KILL_AT}", "replica": 0}]
     actor_b = Actor.remote(cpu_params, cfg, max_batch=DISAGG_BATCH,
                            chaos=plan, device="cuda")
-    rt.get(actor_b.where.remote(), timeout=300.0)
+    where_b = rt.get(actor_b.where.remote(), timeout=300.0)
     # ties of the free-slot refinement go to the last replica: actor_b
     router_b = disagg.DisaggRouter(decode=[local, actor_b], prefill=[pf],
                                    affinity_tokens=DISAGG_BLOCK,
                                    stream_chunk_tokens=DISAGG_PULL)
+    rid_b = router_b.tier_replicas("decode")[-1]["rid"]
+    heal: dict = {}
+
+    def decode_factory():
+        """The healer's replacement: a GPU decode actor without a chaos
+        plan, returned once it runs (it waits for the card's lease)."""
+        t0, t0_boot = time.perf_counter(), boot_clock()
+        a = Actor.remote(cpu_params, cfg, max_batch=DISAGG_BATCH,
+                         device="cuda")
+        where = rt.get(a.where.remote(), timeout=300.0)
+        heal.update(actor=a, where=where, ready_ts=time.time(),
+                    cold_start_s=time.perf_counter() - t0,
+                    cold_start_split=cold_start_split(t0_boot, where,
+                                                      boot_clock()))
+        return a
+
+    hold = dict(up_delay_s=3600.0, down_delay_s=3600.0)
+    healer = autoscale.DisaggAutoscaler(
+        router_b, prefill=autoscale.TierSpec(fixed_tier, min_replicas=1,
+                                             max_replicas=1, **hold),
+        decode=autoscale.TierSpec(decode_factory, min_replicas=1,
+                                  max_replicas=2, **hold),
+        interval_s=3600.0, drain_grace_s=5.0).watch()
     prompt = prompts[0]
     with torch.inference_mode():
         want_b = generate_mod.generate(
@@ -4856,8 +4906,8 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
     check(bst["failovers"] == {"prefill": 0, "decode": 1}
           and bst["failover_requests"] == 1 and bst["shed"] == 0,
           f"disagg B: router {bst}")
-    check([r["rid"] for r in router_b.tier_replicas("decode")]
-          == [local.server_id], "disagg B: the dead actor is still routed")
+    check(rid_b not in [r["rid"] for r in router_b.tier_replicas("decode")],
+          "disagg B: the dead actor is still routed")
     replays = pf.records[n_records:]
     check(len(replays) == 2 and replays[1]["reused_tokens"] > 0
           and replays[1]["plen"] > len(prompt),
@@ -4877,11 +4927,30 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
     check(resumed, "disagg B: no token after the kill")
     info = w.conductor.call("get_actor_info", actor_b.actor_id, timeout=30.0)
     check(info["state"] == "DEAD", f"disagg B: the actor is {info['state']}")
-    t0 = time.perf_counter()
-    probe = rt.remote(num_gpus=1)(DisaggLeaseProbe).remote()
-    pw = rt.get(probe.where.remote(), timeout=300.0)
-    lease_s = time.perf_counter() - t0
-    rt.kill(probe)
+    # the healer's replacement leases the card once the dead actor's
+    # lease is back, and serves a request pinned to it
+    wait_for(lambda: healer.servefault_stats()["replacements"]["decode"]
+             >= 1, 300.0, "disagg B: the healer's replacement")
+    healed = healer.servefault_stats()
+    healer.stop()
+    hold_heal("disagg B", healed, router_b.stats())
+    replacement = heal["actor"]
+    check(heal["where"]["pid"] != where_b["pid"],
+          "disagg B: the replacement runs in the dead actor's process")
+    router_r = disagg.DisaggRouter(decode=[replacement], prefill=[pf],
+                                   affinity_tokens=DISAGG_BLOCK,
+                                   stream_chunk_tokens=DISAGG_PULL)
+    got_r = router_r.generate(prompt, DISAGG_FAILOVER_NEW, timeout_s=300.0)
+    hold_stream("disagg B: the replacement", got_r, want_b)
+    rst = rt.get(replacement.stats.remote(), timeout=60.0)
+    check(rst["transfers"] == 1 and rst["prefill_programs"] == 0,
+          f"disagg B: the replacement's stats {rst}")
+    aev = {e["kind"]: e for e in w.conductor.call(
+        "get_autoscale_events", timeout=30.0)
+        if e.get("autoscaler") == healer.autoscaler_id}
+    rt.get(replacement.stop.remote(), timeout=60.0)
+    rt.kill(replacement)
+    lease_s = heal["ready_ts"] - kill[0]["ts"]
     rec["B"] = {
         "new_tokens": DISAGG_FAILOVER_NEW, "kill_at_token": DISAGG_KILL_AT,
         "pull_tokens": DISAGG_PULL, "stream_equal_generate": True,
@@ -4894,7 +4963,19 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
             "recent_failover_recovery_ms"],
         "servefault_totals": {k: sft[k] for k in (
             "failovers", "failover_requests", "removed_dead")},
-        "lease_after_death_s": lease_s, "lease_pid": pw["pid"]}
+        "lease_after_death_s": lease_s, "lease_pid": heal["where"]["pid"],
+        "healer": {k: healed[k] for k in (
+            "deaths", "replacements", "replacements_blocked",
+            "breaker_trips")},
+        "death_to_replacement_s": aev["replace"]["ts"]
+        - aev["replica_death"]["ts"],
+        "replacement_cold_start_s": heal["cold_start_s"],
+        "replacement_cold_start_split": heal["cold_start_split"],
+        "replacement_stream_equal_generate": True}
+
+    # ---- round D: the SLO policy scales decode on the card
+    rec["D"] = autoscale_round(autoscale, disagg, generate_mod, params,
+                               cfg, pf, w)
 
     # ---- round C: the KV plane under pressure, int8
     cprompts = disagg_prompts(cfg, DISAGG_SEED + 1, 4)
@@ -4971,6 +5052,397 @@ def disagg_body(rt, kernels, gpt2, generate_mod) -> dict:
     return {"phase": "disagg", "card": card_line(), "model": "gpt2-small",
             "dtype": "float32", "kv_block_size": DISAGG_BLOCK,
             "predicted": DISAGG_PREDICTED, **rec}
+
+
+def fixed_tier():
+    """The factory of a tier the loop must not scale."""
+    raise RuntimeError("this tier is fixed")
+
+
+def hold_heal(what: str, healer: dict, router: dict) -> None:
+    """The self-healer saw exactly the one decode death and replaced it
+    once, no breaker tripped and the router shed nothing."""
+    check(healer["deaths"] == {"prefill": 0, "decode": 1}
+          and healer["replacements"] == {"prefill": 0, "decode": 1}
+          and healer["replacements_blocked"] == 0
+          and healer["breaker_trips"] == 0 and router["shed"] == 0,
+          f"{what}: healer {healer}, router shed {router['shed']}")
+
+
+def hold_stream(what: str, got, want) -> None:
+    """A stream equal to generate()'s, token for token."""
+    if got != want:
+        at = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                  min(len(got), len(want)))
+        check(False, f"{what}: the stream differs from generate() at token "
+              f"{at} ({len(got)} vs {len(want)} tokens)")
+
+
+# round D of the disagg phase: a burst of AUTOSCALE_BURST requests, one
+# every AUTOSCALE_GAP_S, each paced by the router at AUTOSCALE_SLEEP_S a
+# token, against one decode replica of DISAGG_BATCH slots; the policy's
+# delays and windows are short so the round takes seconds
+AUTOSCALE_BURST = 8
+AUTOSCALE_GAP_S = 0.4
+AUTOSCALE_SLEEP_S = 0.05
+AUTOSCALE_POLICY = {"up_delay_s": 1.0, "down_delay_s": 2.0,
+                    "cooldown_s": 1.0}
+AUTOSCALE_WINDOW_S = 2.0
+AUTOSCALE_INTERVAL_S = 0.25
+# the predictions, written before the round first ran (PERF.md section 6)
+AUTOSCALE_PREDICTED = {"scale_up_after_burst_start_s": [1.5, 4.0],
+                       "scale_down_after_last_stream_s": [2.5, 8.0],
+                       "death_to_replacement_s": [10, 30],
+                       "replacement_cold_start_s": [10, 30],
+                       "kill_to_resumed_token_s": [0.05, 2.0]}
+
+
+def autoscale_round(autoscale, disagg, generate_mod, params, cfg, pf,
+                    w) -> dict:
+    """The SLO policy on the card (DisaggAutoscaler.start(), its tick
+    every AUTOSCALE_INTERVAL_S): decode replicas are DecodeServers in this
+    process (one card, one lease), the prefill tier is the round's
+    PrefillServer, held at one. The burst takes decode from 1 to 2
+    replicas, idle drains it back to 1: streams equal generate(), nothing
+    shed, one scale-up, one drain completed."""
+    made = []
+
+    def local_factory():
+        d = disagg.DecodeServer(params, cfg, max_batch=DISAGG_BATCH)
+        made.append(d)
+        return d
+
+    router = disagg.DisaggRouter(decode=[local_factory()], prefill=[pf],
+                                 affinity_tokens=DISAGG_BLOCK,
+                                 window_s=AUTOSCALE_WINDOW_S)
+    prompts = disagg_prompts(cfg, DISAGG_SEED + 2, AUTOSCALE_BURST)
+    with torch.inference_mode():
+        want = generated(generate_mod, params, cfg, prompts)
+    scaler = autoscale.DisaggAutoscaler(
+        router, prefill=autoscale.TierSpec(fixed_tier, min_replicas=1,
+                                           max_replicas=1),
+        decode=autoscale.TierSpec(local_factory, min_replicas=1,
+                                  max_replicas=2, **AUTOSCALE_POLICY),
+        interval_s=AUTOSCALE_INTERVAL_S, drain_grace_s=30.0,
+        window_s=AUTOSCALE_WINDOW_S)
+    got, errors = [None] * len(prompts), []
+    t_start = time.time()
+
+    def run(i):
+        try:
+            got[i] = router.generate(prompts[i], SERVE_NEW, timeout_s=300.0,
+                                     token_sleep_s=AUTOSCALE_SLEEP_S)
+        except Exception as err:  # noqa: BLE001 — re-raised below
+            errors.append(err)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    scaler.start()
+    try:
+        for th in threads:
+            th.start()
+            time.sleep(AUTOSCALE_GAP_S)
+        for th in threads:
+            th.join(600.0)
+        t_done = time.time()
+        wait_for(lambda: scaler.status()["drains_completed"] >= 1
+                 and scaler.status()["decode_replicas"] == 1, 120.0,
+                 "disagg D: the idle drain")
+    finally:
+        scaler.stop()
+        for d in made:
+            d.stop()
+    check(not errors, f"disagg D: {errors!r}")
+    for i, (x, y) in enumerate(zip(got, want)):
+        hold_stream(f"disagg D: request {i}", x, y)
+    st, rs = scaler.status(), router.stats()
+    check(st["scale_ups"] == {"prefill": 0, "decode": 1}
+          and st["scale_downs"] == {"prefill": 0, "decode": 1}
+          and st["drains_completed"] == 1 and st["drains_forced"] == 0,
+          f"disagg D: the loop {st}")
+    check(rs["shed"] == 0 and rs["completed"] == rs["dispatched"]
+          == len(prompts), f"disagg D: router {rs}")
+    events = [e for e in w.conductor.call("get_autoscale_events",
+                                          timeout=30.0)
+              if e.get("autoscaler") == scaler.autoscaler_id]
+    return {"requests": len(prompts), "gap_s": AUTOSCALE_GAP_S,
+            "token_sleep_s": AUTOSCALE_SLEEP_S, "new_tokens": SERVE_NEW,
+            "policy": AUTOSCALE_POLICY, "window_s": AUTOSCALE_WINDOW_S,
+            "interval_s": AUTOSCALE_INTERVAL_S,
+            "streams_equal_generate": len(prompts), "shed": rs["shed"],
+            "decisions": [{"kind": e["kind"], "tier": e.get("tier"),
+                           "at_s": e["ts"] - t_start,
+                           "reason": e.get("reason")} for e in events],
+            "last_stream_at_s": t_done - t_start,
+            "transfers": [d.stats()["transfers"] for d in made],
+            "replica_seconds": st["replica_seconds"],
+            "predicted": AUTOSCALE_PREDICTED}
+
+
+ONLINE_NAME = "online"
+ONLINE_CONFIG = {"num_samplers": 1, "num_steps": 10, "batch_size": 8,
+                 "publish_every": 2, "max_prompt_len": 64,
+                 "max_new_tokens": 64}
+ONLINE_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
+                            "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+# the sampler's greedy stream of this prompt on its last version is held
+# against generate() in the driver
+ONLINE_PROBE = [(7919 * i) % 50257 for i in range(1, 33)]
+ONLINE_PROBE_NEW = 32
+ONLINE_TIMING_STEPS = 5
+ONLINE_LORA_STEPS = 4
+ONLINE_LORA_TENANT = "tenant-0"
+ONLINE_SEED = 90
+# the predictions, written before the phase first ran (PERF.md section 6)
+ONLINE_PREDICTED = {"learner_step_ms": [20, 60],
+                    "learner_tokens_per_s": [17000, 51000],
+                    "rollouts_per_s": [0.8, 2.0], "fit_s": [45, 110],
+                    "delta_bytes": [245000000, 247434240],
+                    "full_bytes": 249007104,
+                    "publish_ms": [400, 1100],
+                    "commit_to_applied_s": [0.3, 1.5],
+                    "sampler_cold_start_s": [12, 30],
+                    "lora_step_launches": {"flash_fwd": 12,
+                                           "flash_bwd_dq": 12,
+                                           "flash_bwd_dkv": 12}}
+
+
+def online_sampler_class():
+    """The online phase's sampler actor: a RolloutSampler that reports
+    where it runs and, at stop(), its greedy stream of ONLINE_PROBE on the
+    newest version. Built here, so it is pickled by value."""
+    from ray_tpu_torch.online import RolloutSampler
+
+    class OnlineSampler(RolloutSampler):
+        def __init__(self, *args, **kwargs):
+            self.init_at = boot_clock()
+            _no_tf32()
+            RolloutSampler.__init__(self, *args, **kwargs)
+            self.where = {**_where(self.init_at), "ready_at": boot_clock()}
+
+        def stop(self) -> dict:
+            # the rollout loop ends, the engine catches up with the
+            # newest version, then answers the probe
+            self._stop.set()
+            if self._thread is not None:
+                self._thread.join(timeout=60.0)
+            latest = self.sync.status()["latest_version"]
+            self.sync.wait_for_swap(latest, timeout=120.0)
+            probe = self.engine.generate(ONLINE_PROBE, ONLINE_PROBE_NEW,
+                                         timeout_s=300.0)
+            version = self.engine.params_version
+            swaps = list(self.sync.swaps)
+            return {**RolloutSampler.stop(self), "probe_stream": probe,
+                    "probe_version": version, "swaps": swaps,
+                    "where": self.where}
+
+    return OnlineSampler
+
+
+def phase_online(kernels, gpt2, generate_mod) -> None:
+    """The online learning loop on the card (see online_body)."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=4)
+    try:
+        line = online_body(rt, kernels, gpt2, generate_mod)
+    finally:
+        end_session(rt, info["session_dir"], "online")
+    emit(line)
+
+
+def online_body(rt, kernels, gpt2, generate_mod) -> dict:
+    """`OnlineTrainer` on GPT-2 small bf16: the learner in this process on
+    the card (TrainStep, frozen_adam, the distillation loss on [8, 127]),
+    one RolloutSampler GPU actor on the card's lease, ONLINE_CONFIG.
+    Held: no error, 10 finite losses, 80 rollouts ingested, the sampler's
+    staleness <= 1 with a swap and no rpc bytes, every delta version
+    smaller than whole, `wpe` bit-equal in every version, the learner's
+    launches exactly ONLINE_LAUNCHES_PER_STEP a step (no CE kernel, no
+    plain route), and the sampler's greedy stream on its last version
+    equal to generate() on that version here. Then a TenantLoraTrainer
+    on GPT-2 small bf16 takes ONLINE_LORA_STEPS steps (its launches held
+    the same way) and publishes under lora/<tenant>; an engine whose
+    pool reads the fabric pages the adapter in, and its tenant stream
+    (fp32 copy of the base) equals generate() on the merged params."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import weights
+    from ray_tpu_torch.models import engine as engine_mod
+    from ray_tpu_torch.online import (OnlineConfig, OnlineTrainer,
+                                      TenantLoraTrainer)
+    from ray_tpu_torch.online.loop import _collate, _distill_loss_fn
+    from ray_tpu_torch.serve import lora
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.train.optim import frozen_adam
+    from ray_tpu_torch.train.step import TrainStep
+    from ray_tpu_torch.tree import tree_map
+    from ray_tpu_torch.weights import publisher as pub_mod
+
+    w = rt._private.worker.global_worker
+    cfg = gpt2.GPT2Config.small()
+    oc = OnlineConfig(weights_name=ONLINE_NAME, seed=ONLINE_SEED,
+                      **ONLINE_CONFIG)
+    steps = oc.num_steps
+    tmp = tempfile.mkdtemp(prefix="online-")
+    out: dict = {}
+    try:
+        trainer = OnlineTrainer(
+            cfg, config=oc, run_config=RunConfig(name="online",
+                                                 storage_path=tmp),
+            device="cuda", sampler_device="cuda",
+            sampler_class=online_sampler_class())
+        reset_counts(kernels)
+        t0, t0_boot = time.perf_counter(), boot_clock()
+        res = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(res.error is None, f"online: the learner failed: {res.error!r}")
+    losses = [m["loss"] for m in res.metrics_history if "loss" in m]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"online: losses {losses}")
+    check(res.metrics_history[-1]["ingested_rollouts"]
+          == steps * oc.batch_size,
+          f"online: ingested {res.metrics_history[-1]}")
+    hold_launches("online: the learner", launches, ONLINE_LAUNCHES_PER_STEP,
+                  steps)
+    check_no_plain_route("the online learner")
+    check(len(res.sampler_stats) == 1, f"online: {res.sampler_stats}")
+    smp = res.sampler_stats[0]
+    check(smp["run_error"] is None and smp["max_staleness_versions"] is not
+          None and smp["max_staleness_versions"] <= 1
+          and smp["swap_count"] >= 1 and smp["rpc_bytes"] == 0,
+          f"online: the sampler {smp}")
+    versions = res.weight_versions["names"][ONLINE_NAME]["versions"]
+    deltas = [v for v in versions if v["delta"]]
+    check(deltas and all(0 < v["delta_bytes"] < v["total_bytes"]
+                         for v in deltas), f"online: versions {versions}")
+    sub = weights.WeightSubscriber(ONLINE_NAME)
+    kept = [v["version"] for v in versions]
+    wpe = [torch.as_tensor(sub.fetch(version=v)["wpe"]) for v in kept]
+    check(all(torch.equal(x, wpe[0]) for x in wpe),
+          f"online: wpe moved across versions {kept}")
+    check(smp["probe_version"] == max(kept),
+          f"online: the sampler serves v{smp['probe_version']}, the last "
+          f"publish is v{max(kept)}")
+    template = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(1),
+                              device="cuda")
+    last = sub.fetch(version=max(kept), like=template)
+    sub.close()
+    with torch.inference_mode():
+        want = generate_mod.generate(last, cfg, [ONLINE_PROBE],
+                                     max_new_tokens=ONLINE_PROBE_NEW)[0]
+    hold_stream("online: the sampler's probe", smp["probe_stream"],
+                want.tolist())
+    commit = {m["version"]: m["ts"] for m in versions}
+    applied = [s["applied_at"] - commit[s["version"]]
+               for s in smp["swaps"] if s["version"] in commit]
+    pub = pub_mod.publisher(ONLINE_NAME)
+    # the learner's step alone, timed by CUDA events on the phase's shape
+    rng = np.random.default_rng(ONLINE_SEED)
+    rollouts = [{"prompt": rng.integers(1, cfg.vocab_size,
+                                        oc.max_prompt_len).astype(np.int32),
+                 "completion": rng.integers(
+                     1, cfg.vocab_size, oc.max_new_tokens).astype(np.int32),
+                 "weights_version": 1} for _ in range(oc.batch_size)]
+    batch = _collate(rollouts, oc.max_prompt_len + oc.max_new_tokens)
+    batch.pop("versions")
+    step = TrainStep(_distill_loss_fn(cfg),
+                     frozen_adam(oc.learning_rate, oc.frozen_leaves),
+                     device="cuda")
+    state = step.init_state(last)
+    step_ms = []
+    for i in range(ONLINE_TIMING_STEPS + 1):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append(a.elapsed_time(b))
+    del state, last, template
+    tokens = batch["tokens"].numel()
+    med = statistics.median(step_ms)
+    where = smp["where"]
+    out.update(
+        model="gpt2-small", dtype="bfloat16", config=ONLINE_CONFIG,
+        learner_tokens=list(batch["tokens"].shape), losses=losses,
+        learner_launches=launches, launches_per_step=ONLINE_LAUNCHES_PER_STEP,
+        learner_step_ms={"median": med, "all": step_ms},
+        learner_tokens_per_s=tokens / med * 1e3,
+        fit_s=fit_s, rollouts=smp["rollouts"],
+        rollouts_per_s=smp["rollouts"] / fit_s,
+        rollout_tokens=smp["rollout_tokens"],
+        sampler={k: smp[k] for k in (
+            "max_staleness_versions", "swap_count", "rpc_bytes",
+            "shm_bytes", "prefetch_bytes", "backpressure_waits")},
+        versions=[{k: v[k] for k in ("version", "delta", "delta_bytes",
+                                     "total_bytes")} for v in versions],
+        publish_ms=list(pub.publish_ms),
+        publish_bytes=list(pub.published_bytes),
+        commit_to_applied_s=applied,
+        sampler_cold_start_s=where["ready_at"] - t0_boot,
+        sampler_cold_start_split=cold_start_split(t0_boot, where,
+                                                  where["ready_at"]),
+        wpe_equal_versions=kept, probe_version=smp["probe_version"],
+        probe_equal_generate=True)
+    # ---- per-tenant LoRA on the same model
+    base = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(ONLINE_SEED),
+                          device="cuda")
+    lt = TenantLoraTrainer(base, cfg, ONLINE_LORA_TENANT, rank=8, scale=2.0,
+                           learning_rate=1e-2, publish_every=2,
+                           seed=ONLINE_SEED)
+    gen = np.random.default_rng(ONLINE_SEED + 1)
+    lbatches = [gen.integers(0, cfg.vocab_size, (oc.batch_size, 128))
+                for _ in range(ONLINE_LORA_STEPS)]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lres = lt.fit(lbatches, num_steps=ONLINE_LORA_STEPS)
+    lora_s = time.perf_counter() - t0
+    llaunches = dict(kernels.LAUNCHES)
+    hold_launches("online: the LoRA trainer", llaunches,
+                  ONLINE_LAUNCHES_PER_STEP, ONLINE_LORA_STEPS)
+    check_no_plain_route("the online LoRA trainer")
+    check(lres["published_versions"] == [1, 2]
+          and all(np.isfinite(lres["losses"])), f"online LoRA: {lres}")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    base32 = tree_map(lambda t: t.float(), base)
+    del base
+    pool = lora.build_pool(cfg32, True, slots=2, device="cuda")
+    eng = engine_mod.ContinuousBatchingEngine(base32, cfg32, max_batch=2,
+                                              lora_pool=pool)
+    try:
+        tenant = eng.generate(ONLINE_PROBE, ONLINE_PROBE_NEW,
+                              timeout_s=300.0, adapter_id=ONLINE_LORA_TENANT)
+        resident = pool.resident_version(ONLINE_LORA_TENANT)
+        pstats = pool.stats()
+    finally:
+        eng.stop()
+        pool.source.close()
+    check(resident == 2, f"online LoRA: the pool holds v{resident}")
+    ad = lt.adapter()
+    merged = generate_mod.merge_lora_params(base32, cfg32, {
+        "scale": float(ad["scale"]),
+        "targets": {n: {k: torch.from_numpy(v).cuda() for k, v in ab.items()}
+                    for n, ab in ad["targets"].items()}})
+    with torch.inference_mode():
+        want_t = generate_mod.generate(merged, cfg32, [ONLINE_PROBE],
+                                       max_new_tokens=ONLINE_PROBE_NEW)[0]
+    hold_stream("online LoRA: the tenant stream", tenant, want_t.tolist())
+    out["lora"] = {"tenant": ONLINE_LORA_TENANT, "rank": 8, "scale": 2.0,
+                   "steps": ONLINE_LORA_STEPS,
+                   "tokens": [oc.batch_size, 127], "losses": lres["losses"],
+                   "launches": llaunches, "fit_s": lora_s,
+                   "published_versions": lres["published_versions"],
+                   "page_in_bytes": pstats["page_in_bytes"],
+                   "tenant_stream_equal_generate": True}
+    return {"phase": "online", "card": card_line(),
+            "predicted": ONLINE_PREDICTED, **out}
 
 
 def phase_train_gang() -> None:
@@ -5174,9 +5646,13 @@ def main() -> int:
     # step, the actor's scoring in its process)
     phase_fabric(kernels, gpt2, generate_mod)
     # disaggregated serving across actors and the KV plane: prefill here,
-    # decode in a GPU actor, a failover, the tiers under pressure (no
-    # kernel launches in this process)
+    # decode in a GPU actor, a failover healed through the autoscaler,
+    # the SLO policy, the tiers under pressure (no kernel launches in this
+    # process)
     phase_disagg(kernels, gpt2, generate_mod)
+    # the online learning loop: the learner here on the flash kernels (its
+    # launches counted from 0), a GPU sampler actor, then per-tenant LoRA
+    phase_online(kernels, gpt2, generate_mod)
     # the trainer's worker gang on the machine's CPUs, with a chaos kill
     phase_train_gang()
     keys = ["name", "route", "source", "replaces", "launches",

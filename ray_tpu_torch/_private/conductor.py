@@ -296,6 +296,13 @@ class ConductorHandler:
                            "directory_hits", "directory_misses",
                            "reaped", "gced", "unpublished")}
         self._servefault_stats: Dict[str, Dict[str, Any]] = {}
+        # the serving autoscaler (serve/autoscale.py) and the online
+        # learning loop (online/): snapshots and instant markers, in
+        # memory as in the JAX package
+        self._autoscale_stats: Dict[str, Dict[str, Any]] = {}
+        self._autoscale_events: List[Dict[str, Any]] = []
+        self._online_stats: Dict[str, Dict[str, Any]] = {}
+        self._online_events: List[Dict[str, Any]] = []
 
         # Durable control-plane tables (reference: GCS Redis-persisted
         # tables, gcs_server.h:103-110 / gcs_table_storage.cc). Restored
@@ -2129,9 +2136,10 @@ class ConductorHandler:
         return dropped
 
     # ------------------------------------------- serving fault tolerance
-    # Routers push failover and shed accounting (healers, the self-healing
-    # autoscaler, are not ported yet); the failover markers themselves
-    # ride the resilience event log.
+    # Routers push failover and shed accounting, healers (the autoscaler's
+    # self-healer) deaths, replacements and breaker trips; the failover,
+    # replica_death, replace and breaker_trip markers themselves ride the
+    # resilience event log.
 
     _SERVEFAULT_STATS_KEPT = 128
     _SERVEFAULT_EVENT_KINDS = ("failover", "replace", "breaker_trip",
@@ -2192,6 +2200,134 @@ class ConductorHandler:
             events = list(self._resilience_events)
         kinds = self._SERVEFAULT_EVENT_KINDS
         return [e for e in events if e.get("kind") in kinds][-limit:]
+
+    # ---------------------------------------------------- serving autoscaler
+    # Autoscale loops (serve/autoscale.py) push status snapshots and
+    # scale_up / drain / scale_down markers; util.state.autoscaler_status()
+    # reads the aggregate, the timeline's autoscale lane the markers.
+
+    _AUTOSCALE_STATS_KEPT = 64
+    _AUTOSCALE_EVENTS_KEPT = 10_000
+
+    def report_autoscale_stats(self, worker_id: str, autoscaler_id: str,
+                               stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._autoscale_stats,
+                                       self._AUTOSCALE_STATS_KEPT,
+                                       worker_id, autoscaler_id, stats)
+            self._autoscale_stats[str(autoscaler_id)]["autoscaler_id"] = \
+                str(autoscaler_id)
+
+    def get_autoscale_status(self) -> Dict[str, Any]:
+        """Per-loop snapshots and cluster totals: decisions by direction,
+        drains, replica-seconds and active replicas per tier."""
+        with self._lock:
+            loops = {k: dict(v) for k, v in self._autoscale_stats.items()}
+        tiers = ("prefill", "decode")
+        totals: Dict[str, Any] = {
+            "autoscalers": len(loops),
+            "scale_ups": sum(sum(s.get("scale_ups", {}).values())
+                             for s in loops.values()),
+            "scale_downs": sum(sum(s.get("scale_downs", {}).values())
+                               for s in loops.values()),
+            "drains_completed": sum(int(s.get("drains_completed", 0))
+                                    for s in loops.values()),
+            "drains_forced": sum(int(s.get("drains_forced", 0))
+                                 for s in loops.values()),
+            "replica_seconds": {
+                t: round(sum(float(s.get("replica_seconds", {}).get(t, 0.0))
+                             for s in loops.values()), 3) for t in tiers},
+            "active_replicas": {
+                t: sum(int(s.get(f"{t}_active", 0)) for s in loops.values())
+                for t in tiers},
+        }
+        return {"autoscalers": loops, "totals": totals}
+
+    def report_autoscale_event(self, event: Dict[str, Any]) -> None:
+        """scale_up / scale_down / drain / scale_from_zero / replica_death
+        / replace markers for the timeline's autoscale lane."""
+        with self._lock:
+            self._append_event_locked(self._autoscale_events, event,
+                                      self._AUTOSCALE_EVENTS_KEPT)
+
+    def get_autoscale_events(self, limit: int = 10_000
+                             ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._autoscale_events[-limit:]
+
+    # ------------------------------------------------- online learning loop
+    # Samplers, the rollout buffer and the learner (online/) push
+    # snapshots and rollout / ingest / publish / swap markers;
+    # util.state.online_status() reads the aggregate, the timeline's
+    # online lane the markers.
+
+    _ONLINE_EVENTS_KEPT = 10_000
+    _ONLINE_STATS_KEPT = 256
+
+    def report_online_stats(self, worker_id: str, component_id: str,
+                            stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._online_stats,
+                                       self._ONLINE_STATS_KEPT, worker_id,
+                                       component_id, stats)
+
+    def get_online_status(self) -> Dict[str, Any]:
+        """Components by role (sampler / buffer / learner) and cluster
+        totals: rollouts, rollout tokens, swaps, buffer occupancy, the
+        learner's ingest and the worst sampler staleness."""
+        with self._lock:
+            comps = {k: dict(v) for k, v in self._online_stats.items()}
+        samplers = {k: v for k, v in comps.items()
+                    if v.get("role") == "sampler"}
+        buffers = {k: v for k, v in comps.items()
+                   if v.get("role") == "buffer"}
+        learners = {k: v for k, v in comps.items()
+                    if v.get("role") == "learner"}
+
+        def total(group, key):
+            return sum(int(c.get(key, 0)) for c in group.values())
+
+        totals: Dict[str, Any] = {
+            "samplers": len(samplers),
+            "rollouts": total(samplers, "rollouts"),
+            "rollout_tokens": total(samplers, "rollout_tokens"),
+            "swaps": total(samplers, "swap_count"),
+            "buffer_occupancy": total(buffers, "occupancy"),
+            "buffer_capacity": total(buffers, "capacity"),
+            "buffer_rejected": total(buffers, "rejected"),
+            "ingested_rollouts": total(learners, "ingested_rollouts"),
+            "ingested_tokens": total(learners, "ingested_tokens"),
+            "learner_steps": max((int(v.get("steps", 0))
+                                  for v in learners.values()), default=0),
+            "published_versions": max(
+                (int(v.get("published_version", 0))
+                 for v in learners.values()), default=0),
+        }
+        stale = [s.get("staleness_versions") for s in samplers.values()
+                 if s.get("staleness_versions") is not None]
+        totals["staleness_versions"] = max(stale) if stale else None
+        high = [s.get("max_staleness_versions") for s in samplers.values()
+                if s.get("max_staleness_versions") is not None]
+        totals["max_staleness_versions"] = max(high + stale) \
+            if (high or stale) else None
+        return {"samplers": samplers, "buffers": buffers,
+                "learners": learners, "totals": totals}
+
+    def report_online_event(self, event: Dict[str, Any]) -> None:
+        """rollout / ingest / publish / swap markers for the timeline's
+        online lane."""
+        with self._lock:
+            self._append_event_locked(self._online_events, event,
+                                      self._ONLINE_EVENTS_KEPT)
+
+    def get_online_events(self, limit: int = 10_000
+                          ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._online_events[-limit:]
 
     # ------------------------------------------------------------------ jobs
     # Reference: GcsJobManager + dashboard/modules/job JobManager —

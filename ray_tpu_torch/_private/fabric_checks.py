@@ -517,26 +517,29 @@ def port_weights_sync_streams():
 # -------------------------------------- tests/test_lora.py, fabric path
 
 def lora_fabric_source_pages_and_hot_swaps():
-    """Adapters published with publish_adapter page into a pool over
-    FabricAdapterSource (build_pool(lora=True)); its streams equal a pool
-    over a LocalAdapterSource of the same adapter; a re-publish marks the
-    tenant dirty and hot-swaps it."""
+    """A TenantLoraTrainer publishes adapter deltas; a pool over
+    FabricAdapterSource (build_pool(lora=True)) pages the newest version
+    in, streams as a pool over a LocalAdapterSource of the trainer's
+    adapter, and hot-swaps on a third publish's notice."""
     import dataclasses
 
     import torch
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.engine import ContinuousBatchingEngine
+    from ray_tpu_torch.online import TenantLoraTrainer
     from ray_tpu_torch.serve import lora
 
-    cfg = dataclasses.replace(llama.LlamaConfig.tiny(),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
     params = llama.llama_init(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
-    ad1 = lora.make_lora_adapter(cfg, rank=2, seed=1, scale=6.0)
-    ad2 = lora.make_lora_adapter(cfg, rank=2, seed=2, scale=6.0)
-    assert lora.publish_adapter("fabt", ad1) == 1
-    assert lora.publish_adapter("fabt", ad2) == 2
+    trainer = TenantLoraTrainer(params, cfg, "fabt", rank=2,
+                                publish_every=1, learning_rate=1e-2, seed=0)
+    rng = np.random.default_rng(0)
+    batch = rng.integers(1, cfg.vocab_size, (2, 16)).astype(np.int32)
+    res = trainer.fit([batch, batch], num_steps=2)
+    assert res["published_versions"] == [1, 2], res
+    assert len(res["losses"]) == 2
     pool = lora.build_pool(cfg, True, slots=2, device="cpu")
     assert isinstance(pool.source, lora.FabricAdapterSource)
     row = pool.acquire("fabt")
@@ -544,7 +547,8 @@ def lora_fabric_source_pages_and_hot_swaps():
     assert pool.resident_version("fabt") == 2
     assert pool.stats()["page_in_bytes"] > 0
     pool.release("fabt")
-    local = lora.build_pool(cfg, {"fabt": ad2}, slots=2, device="cpu")
+    local = lora.build_pool(cfg, {"fabt": trainer.adapter()}, slots=2,
+                            device="cpu")
     prompt = [3, 1, 4, 1, 5, 9, 2, 6]
     streams = []
     for p in (pool, local):
@@ -555,17 +559,17 @@ def lora_fabric_source_pages_and_hot_swaps():
         finally:
             eng.stop()
     assert streams[0] == streams[1], streams
-    # a third publish marks the tenant dirty; the next acquire swaps
-    # (counted from here: a notice of version 1 or 2 that reached the
-    # source after it subscribed has marked it dirty once already)
     swaps = pool.stats()["swaps"]
-    assert lora.publish_adapter("fabt", ad1) == 3
-    _wait_until(lambda: pool.source.dirty("fabt"), timeout=10.0)
+    trainer.step(batch)
+    assert trainer.publish() == 3
+    _wait_until(lambda: pool.source.dirty("fabt"), 10.0,
+                "the third publish's notice never landed")
     pool.acquire("fabt")
     pool.release("fabt")
     assert pool.resident_version("fabt") == 3
     assert pool.stats()["swaps"] == swaps + 1
     pool.source.close()
+    return {"losses": trainer.losses}
 
 
 # ---------------------------------------------- tests/test_train_gang.py

@@ -5,7 +5,8 @@ test_torch_disagg.py, test_torch_kvplane.py and test_torch_servefault.py
 make each one a test case).
 
 The twins of the JAX package's cluster cases (tests/test_disagg.py,
-test_kvplane.py) carry their names; the `port_*` ones check what the
+test_kvplane.py, test_autoscale.py, test_servefault.py) carry their
+names; the `port_*` ones check what the
 JAX tests leave to other layers: a decode ACTOR killed by a chaos plan
 mid-stream failing over to a replica in the driver, and one set of
 numbers across the state views, the servers' stats() and the timeline's
@@ -253,6 +254,292 @@ def kvplane_chunk_fetcher_caller_attribution():
     assert reads(chunks.caller_totals("kvplane")) == after
     assert chunks.ChunkFetcher(w).stats()["caller"] == "unlabeled"
     del refs
+
+
+# ------------------------------------------------ tests/test_autoscale.py
+
+class _ForcedPolicy:
+    """decide() returns fixed targets: the loop's scale-up and drain
+    mechanics without shaping real load."""
+
+    target_p99_ms = 1500.0
+
+    def __init__(self, targets):
+        self.targets = dict(targets)
+
+    def decide(self, signals, current, now=None):
+        return {tier: (self.targets.get(tier, cur),
+                       "forced" if self.targets.get(tier, cur) != cur
+                       else "hold")
+                for tier, cur in current.items()}
+
+
+def _stop_local(router) -> None:
+    for tier in ("prefill", "decode"):
+        for r in router.tier_replicas(tier):
+            stop = getattr(r["target"], "stop", None)
+            if callable(stop) and getattr(stop, "remote", None) is None:
+                stop()
+
+
+def autoscale_scale_down_drains_zero_dropped_inflight():
+    """A forced decode scale-down while both replicas hold a slow request
+    stops dispatch to the victim (the newest: an ACTOR, with real
+    chunk-fabric transfers) but lets its request finish and every KV
+    transfer be acked before the actor is killed: nothing dropped,
+    nothing forced."""
+    from ray_tpu_torch.serve.autoscale import DisaggAutoscaler, TierSpec
+    from ray_tpu_torch.serve.disagg import (DecodeServer, DisaggRouter,
+                                            PrefillServer)
+
+    cfg, params = tiny_llama()
+    pf = PrefillServer(params, cfg, kv_block_size=BS, kv_pool_blocks=32,
+                       device="cpu")
+    dec_local = DecodeServer(params, cfg, max_batch=1, device="cpu")
+    dec_actor = rt.remote(DecodeServer).options(max_concurrency=6).remote(
+        params, cfg, max_batch=1, device="cpu")
+    rt.get(dec_actor.stats.remote(), timeout=120.0)
+    router = DisaggRouter(decode=[dec_local, dec_actor], prefill=[pf],
+                          max_queue_depth=0, affinity_tokens=BS)
+    scaler = DisaggAutoscaler(
+        router,
+        prefill=TierSpec(lambda: PrefillServer(params, cfg, device="cpu"),
+                         min_replicas=1, max_replicas=2),
+        decode=TierSpec(lambda: DecodeServer(params, cfg, max_batch=1,
+                                             device="cpu"),
+                        min_replicas=1, max_replicas=2),
+        policy=_ForcedPolicy({"decode": 1, "prefill": 1}),
+        interval_s=3600, drain_grace_s=60)
+    shared = [21, 22, 23, 24, 25, 26, 27, 28]
+    router.generate(shared, 2)  # lands on the actor (ties go last)
+    results = []
+    admitted = [threading.Event(), threading.Event()]
+
+    def one(i):
+        results.append(router.generate(
+            shared + [40 + i], 6, on_first_token=admitted[i].set,
+            token_sleep_s=0.25))
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for ev in admitted:
+            assert ev.wait(60.0)
+        actions = scaler.tick()
+        assert [a["kind"] for a in actions] == ["drain"], actions
+        victim = actions[0]["replica"]
+        reps = {r["rid"]: r for r in router.tier_replicas("decode")}
+        assert reps[victim]["draining"]
+        assert reps[victim]["inflight"] == 1
+        assert not any(a["kind"] == "scale_down" for a in scaler.tick())
+        for t in threads:
+            t.join(timeout=120)
+        assert sorted(len(r) for r in results) == [6, 6]
+        deadline = time.monotonic() + 60.0
+        final = []
+        while time.monotonic() < deadline:
+            final = scaler.tick()
+            if any(a["kind"] == "scale_down" for a in final):
+                break
+            time.sleep(0.05)
+        down = [a for a in final if a["kind"] == "scale_down"]
+        assert down and down[0]["replica"] == victim, final
+        assert down[0]["drained"] is True
+        st = scaler.status()
+        assert st["drains_completed"] == 1 and st["drains_forced"] == 0, st
+        assert len(router.tier_replicas("decode")) == 1
+        pf_stats = pf.stats()
+        assert pf_stats["held_transfers"] == 0
+        assert pf_stats["acked"] == pf_stats["published_transfers"] == 3, \
+            pf_stats
+        rs = router.stats()
+        assert rs["completed"] == rs["dispatched"]
+        deadline = time.monotonic() + 30.0
+        dead = False
+        while time.monotonic() < deadline and not dead:
+            try:
+                rt.get(dec_actor.stats.remote(), timeout=5.0)
+                time.sleep(0.2)
+            except Exception:  # noqa: BLE001 — the kill landed
+                dead = True
+        assert dead, "the drained actor is still alive"
+    finally:
+        for t in threads:
+            t.join(timeout=60)
+        scaler.stop()
+        _stop_local(router)
+
+
+def autoscale_all_surfaces_report_consistent_numbers():
+    """One scale-up, drain and scale-down sequence: autoscaler_status()
+    carries the loop's own status (totals included) and the timeline's
+    autoscale lane one marker per decision, the drain also in the
+    resilience lane as serve_drain."""
+    from ray_tpu_torch.observability import timeline
+    from ray_tpu_torch.serve.autoscale import DisaggAutoscaler, TierSpec
+    from ray_tpu_torch.serve.disagg import (DecodeServer, DisaggRouter,
+                                            PrefillServer)
+    from ray_tpu_torch.util import state
+
+    cfg, params = tiny_llama()
+    router = DisaggRouter(
+        decode=[DecodeServer(params, cfg, max_batch=1, device="cpu")],
+        prefill=[PrefillServer(params, cfg, kv_block_size=BS,
+                               kv_pool_blocks=32, device="cpu")],
+        max_queue_depth=1, affinity_tokens=BS)
+    scaler = DisaggAutoscaler(
+        router,
+        prefill=TierSpec(lambda: PrefillServer(params, cfg, device="cpu"),
+                         min_replicas=1, max_replicas=2),
+        decode=TierSpec(lambda: DecodeServer(params, cfg, max_batch=1,
+                                             device="cpu"),
+                        min_replicas=1, max_replicas=2),
+        policy=_ForcedPolicy({"decode": 2, "prefill": 1}),
+        interval_s=3600, drain_grace_s=30)
+    try:
+        router.generate([61, 62, 63, 64, 65], 2)
+        up = scaler.tick()
+        assert [a["kind"] for a in up] == ["scale_up"], up
+        scaler.policy = _ForcedPolicy({"decode": 1, "prefill": 1})
+        mid = scaler.tick()
+        assert [a["kind"] for a in mid] == ["drain"], mid
+        deadline = time.monotonic() + 30.0
+        done = []
+        while time.monotonic() < deadline:
+            done = scaler.tick()
+            if any(a["kind"] == "scale_down" for a in done):
+                break
+            time.sleep(0.05)
+        assert any(a["kind"] == "scale_down" for a in done)
+        local = scaler.status()
+        assert local["scale_ups"]["decode"] == 1
+        assert local["scale_downs"]["decode"] == 1
+        assert local["drains_completed"] == 1
+    finally:
+        scaler.publish_telemetry(force=True)
+        _stop_local(router)
+
+    def landed():
+        st = state.autoscaler_status()
+        mine = st["autoscalers"].get(scaler.autoscaler_id)
+        return mine is not None and mine.get("drains_completed") == 1
+
+    _wait_until(landed, 10.0, "autoscaler_status never caught up")
+    st = state.autoscaler_status()
+    mine = st["autoscalers"][scaler.autoscaler_id]
+    totals = st["totals"]
+    assert totals["scale_ups"] >= 1 and totals["scale_downs"] >= 1
+    assert totals["drains_completed"] == 1 and totals["autoscalers"] == 1
+    assert mine["scale_ups"] == local["scale_ups"]
+    assert mine["scale_downs"] == local["scale_downs"]
+    assert mine["replica_seconds"]["decode"] > 0
+    assert totals["active_replicas"]["decode"] == 1
+    trace = timeline.merged_timeline()
+    markers = [e for e in trace if e.get("cat") == "autoscale"
+               and e["args"].get("autoscaler") == scaler.autoscaler_id]
+    assert sorted(m["tid"] for m in markers) \
+        == ["drain", "scale_down", "scale_up"], markers
+    assert all(m["ph"] == "i" and m["pid"] == "autoscale" for m in markers)
+    resil = [e for e in trace if e.get("cat") == "resilience"
+             and e.get("tid") == "serve_drain"]
+    assert len(resil) == 1
+    return {"totals": totals}
+
+
+# ----------------------------------------------- tests/test_servefault.py
+
+def servefault_actor_decode_kill_mid_stream_heals_and_completes():
+    """ONE decode actor killed by its chaos plan at its 4th token; the
+    self-healer (watch(): the actor_state channel, no tick) replaces it
+    through the tier factory while the router's failover waits for the
+    survivor and replays the prompt with the dead replica's tokens: the
+    stream equals an uninterrupted run's, nothing is dropped, the death
+    and the replacement are counted, and a second request runs entirely
+    on the replacement."""
+    from ray_tpu_torch.serve.autoscale import DisaggAutoscaler, TierSpec
+    from ray_tpu_torch.serve.disagg import (DecodeServer, DisaggRouter,
+                                            PrefillServer)
+    from ray_tpu_torch.util import state
+
+    cfg, params = tiny_llama()
+    p = [21, 22, 23, 24, 25, 26, 27, 28]
+    colo = _engine(params, cfg)
+    try:
+        want = colo.generate(p, 10)
+    finally:
+        colo.stop()
+    plan = [{"action": "kill_replica", "role": "decode", "at": "token:4",
+             "replica": 0}]
+    made = {"n": 0}
+
+    def decode_factory():
+        idx = made["n"]
+        made["n"] += 1
+        a = rt.remote(DecodeServer).options(max_concurrency=8).remote(
+            params, cfg, max_batch=2, chaos=plan, chaos_replica=idx,
+            device="cpu")
+        rt.get(a.stats.remote(), timeout=120.0)
+        return a
+
+    def prefill_factory():
+        a = rt.remote(PrefillServer).options(max_concurrency=4).remote(
+            params, cfg, kv_block_size=BS, kv_pool_blocks=32, device="cpu")
+        rt.get(a.stats.remote(), timeout=120.0)
+        return a
+
+    pf = prefill_factory()
+    dec0 = decode_factory()
+    router = DisaggRouter(decode=[dec0], prefill=[pf], max_queue_depth=4,
+                          affinity_tokens=BS, failover_wait_s=90.0)
+    hold = dict(min_replicas=1, max_replicas=2, up_delay_s=3600.0,
+                down_delay_s=3600.0)
+    scaler = DisaggAutoscaler(
+        router, prefill=TierSpec(prefill_factory, **hold),
+        decode=TierSpec(decode_factory, **hold),
+        interval_s=3600.0, drain_grace_s=5.0)
+    try:
+        scaler.watch()
+        got = router.generate(p, 10, timeout_s=120.0)
+        assert got == want, (got, want)
+        st = router.stats()
+        assert st["failovers"]["decode"] >= 1, st
+        assert st["failover_requests"] == 1 and st["shed"] == 0, st
+        _wait_until(lambda: scaler.servefault_stats()["replacements"]
+                    ["decode"] >= 1, 30.0, "the healer never replaced")
+        hs = scaler.servefault_stats()
+        assert hs["deaths"]["decode"] == 1, hs
+        assert hs["replacements"]["decode"] == 1, hs
+        assert hs["breaker_trips"] == 0, hs
+        reps = router.tier_replicas("decode")
+        assert len(reps) == 1 and reps[0]["target"] is not dec0
+        info = _conductor().call("get_actor_info", dec0.actor_id,
+                                 timeout=5.0)
+        assert info["state"] == "DEAD", info
+        again = router.generate(p, 10, timeout_s=120.0)
+        assert again == want
+        # the replay of the failed-over request waited for the
+        # replacement, and the second request ran there too
+        assert rt.get(reps[0]["target"].stats.remote(),
+                      timeout=30.0)["transfers"] == 2
+        _wait_until(lambda: rt.get(pf.stats.remote(), timeout=10.0)
+                    ["held_transfers"] == 0, 15.0, "a transfer is held")
+        scaler.publish_servefault(force=True)
+        _wait_until(lambda: state.servefault_status()["totals"]
+                    ["replacements"]["decode"] == 1, 10.0,
+                    "servefault_status never counted the replacement")
+        kinds = [e["kind"] for e in
+                 _conductor().call("get_servefault_events")]
+        assert "replica_death" in kinds and "replace" in kinds, kinds
+    finally:
+        scaler.stop()
+        for t in ("prefill", "decode"):
+            for r in router.tier_replicas(t):
+                try:
+                    rt.kill(r["target"])
+                except Exception:  # noqa: BLE001 — already dead
+                    pass
+    return {"streams": [got, again]}
 
 
 # ------------------------------------------------------------- the port

@@ -472,6 +472,26 @@ inline int encode_2d(CUtensorMap* map, const void* base, long long rows,
   return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
 }
 
+// A map of fp32 [rows, cols] (row stride `ld` elements, a multiple of 4:
+// TMA takes only 16-byte row strides) whose box is `len` columns of one
+// row; columns past `cols` read as zero. A box may start at any column.
+inline int encode_f32_rows(CUtensorMap* map, const void* base,
+                           long long rows, long long cols, long long ld,
+                           int len) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return TMAP_ERROR;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)len, 1};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
+}
+
 // A map of n contiguous fp32 values whose box is `len` of them; values
 // past n read as zero.
 inline int encode_f32_1d(CUtensorMap* map, const void* base, long long n,

@@ -225,9 +225,8 @@ flash_bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       tma_load_4d(smem + C::OFF_O + half * C::BQ * 128, &maps.o, &bar[0],
                   half * 64, h, q0, b);
     }
-    const int row = bh * Tq + q0;
-    tma_load_1d(smem + C::OFF_LSE, &maps.lse, &bar[0], row);
-    tma_load_1d(smem + C::OFF_DCOR, &maps.dcor, &bar[0], row);
+    tma_load_2d(smem + C::OFF_LSE, &maps.lse, &bar[0], q0, bh);
+    tma_load_2d(smem + C::OFF_DCOR, &maps.dcor, &bar[0], q0, bh);
     for (int s = 0; s < STAGES - 1 && s < n_tiles; ++s) {
       load_dq_kv<D>(smem, maps, &bar[1 + s], s, s, b, h);
     }
@@ -416,11 +415,10 @@ __device__ __forceinline__ void load_stage(unsigned char* smem,
     tma_load_4d(sq + half * BT * 128, &m.q, full, half * 64, h, qt * BT, b);
     tma_load_4d(so + half * BT * 128, &m.o, full, half * 64, h, qt * BT, b);
   }
-  const int row = bh * Tq + qt * BT;
-  tma_load_1d(smem + C::off_lse(WITH_DQ) + stage * C::ROW_BYTES, &m.lse,
-              full, row);
-  tma_load_1d(smem + C::off_dcor(WITH_DQ) + stage * C::ROW_BYTES, &m.dcor,
-              full, row);
+  tma_load_2d(smem + C::off_lse(WITH_DQ) + stage * C::ROW_BYTES, &m.lse,
+              full, qt * BT, bh);
+  tma_load_2d(smem + C::off_dcor(WITH_DQ) + stage * C::ROW_BYTES, &m.dcor,
+              full, qt * BT, bh);
 }
 
 template <int D, bool WITH_DQ>
@@ -665,8 +663,8 @@ flash_bwd_kv_kernel(const __grid_constant__ KvMaps maps,
 template <int D>
 int launch_dq(int device, const bf16* q, const bf16* k, const bf16* v,
               const bf16* dout, const float* lse, const float* dcor,
-              bf16* dq, int B, int H, int Tq, int Tk, const Strides& st,
-              int causal, float scale_log2, float scale,
+              bf16* dq, int B, int H, int Tq, int Tk, int ls,
+              const Strides& st, int causal, float scale_log2, float scale,
               cudaStream_t stream) {
   typedef DqCfg<D> C;
   static bool done[MAX_DEVICES] = {};
@@ -682,9 +680,9 @@ int launch_dq(int device, const bf16* q, const bf16* k, const bf16* v,
                               C::BK);
   if (!bad) bad = encode_bthd(&m.v, v, B, Tk, H, D, st.vb, st.vt, st.vh,
                               C::BK);
-  const long long rows = (long long)B * H * Tq;
-  if (!bad) bad = encode_f32_1d(&m.lse, lse, rows, C::BQ);
-  if (!bad) bad = encode_f32_1d(&m.dcor, dcor, rows, C::BQ);
+  const long long rows = (long long)B * H;
+  if (!bad) bad = encode_f32_rows(&m.lse, lse, rows, Tq, ls, C::BQ);
+  if (!bad) bad = encode_f32_rows(&m.dcor, dcor, rows, Tq, ls, C::BQ);
   if (bad) return bad;
   dim3 grid(B * H, n_qt);
   flash_bwd_dq_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
@@ -698,8 +696,8 @@ template <int D, bool WITH_DQ>
 int launch_kv(int device, const bf16* q, const bf16* k, const bf16* v,
               const bf16* dout, const float* lse, const float* dcor,
               float* dq, bf16* dk, bf16* dv, int B, int H, int Tq, int Tk,
-              const Strides& st, int causal, float scale_log2, float scale,
-              cudaStream_t stream) {
+              int ls, const Strides& st, int causal, float scale_log2,
+              float scale, cudaStream_t stream) {
   typedef KvCfg<D> C;
   static bool done[MAX_DEVICES] = {};
   constexpr int bytes = C::smem_bytes(WITH_DQ);
@@ -714,9 +712,9 @@ int launch_kv(int device, const bf16* q, const bf16* k, const bf16* v,
                               C::BN);
   if (!bad) bad = encode_bthd(&m.v, v, B, Tk, H, D, st.vb, st.vt, st.vh,
                               C::BN);
-  const long long rows = (long long)B * H * Tq;
-  if (!bad) bad = encode_f32_1d(&m.lse, lse, rows, BT);
-  if (!bad) bad = encode_f32_1d(&m.dcor, dcor, rows, BT);
+  const long long rows = (long long)B * H;
+  if (!bad) bad = encode_f32_rows(&m.lse, lse, rows, Tq, ls, BT);
+  if (!bad) bad = encode_f32_rows(&m.dcor, dcor, rows, Tq, ls, BT);
   if (bad) return bad;
   dim3 grid((Tk + C::BN - 1) / C::BN, B * H);
   flash_bwd_kv_kernel<D, WITH_DQ><<<grid, C::THREADS, bytes, stream>>>(
@@ -728,15 +726,17 @@ int launch_kv(int device, const bf16* q, const bf16* k, const bf16* v,
 
 // q, dO [B, Tq, H, D] and k, v [B, Tk, H, D] bf16 with unit stride on D and
 // the given (batch, time, head) strides in elements; lse (natural log) and
-// dcor = rowsum(dO * O) [B*H, Tq] fp32; dq [B, Tq, H, D] contiguous bf16,
-// on CUDA device `device`; lse and dcor 16-byte aligned. scale_log2 =
+// dcor = rowsum(dO * O) [B*H, Tq] fp32, each row `ls` values apart (ls a
+// multiple of 4: a TMA row stride is a multiple of 16 bytes) from a
+// 16-byte aligned start; dq [B, Tq, H, D] contiguous bf16, on CUDA device
+// `device`. scale_log2 =
 // sm_scale * log2(e). Returns the CUDA error of the launch (0 =
 // launched), or 10000 + the driver's error if a TMA map of the inputs was
 // refused.
 extern "C" int flash_bwd_dq_bf16(
     int device, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* dcor, void* dq, int B,
-    int H, int Tq, int Tk, int D, long long qsb, long long qst,
+    int H, int Tq, int Tk, int D, int ls, long long qsb, long long qst,
     long long qsh, long long ksb, long long kst, long long ksh,
     long long vsb, long long vst, long long vsh, long long osb,
     long long ost, long long osh, int causal, float scale_log2, float scale,
@@ -758,11 +758,11 @@ extern "C" int flash_bwd_dq_bf16(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
     return launch_dq<64>(device, qp, kp, vp, op, lp, dp, out, B, H, Tq, Tk,
-                         st, causal, scale_log2, scale, s);
+                         ls, st, causal, scale_log2, scale, s);
   }
   if (D == 128) {
     return launch_dq<128>(device, qp, kp, vp, op, lp, dp, out, B, H, Tq, Tk,
-                          st, causal, scale_log2, scale, s);
+                          ls, st, causal, scale_log2, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -773,7 +773,7 @@ template <bool WITH_DQ>
 int launch_kv_bf16(int device, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dcor,
                    void* dq, void* dk, void* dv, int B, int H, int Tq,
-                   int Tk, int D, const Strides& st, int causal,
+                   int Tk, int D, int ls, const Strides& st, int causal,
                    float scale_log2, float scale, void* stream) {
   if (device < 0 || device >= MAX_DEVICES) {
     return static_cast<int>(cudaErrorInvalidDevice);
@@ -792,13 +792,13 @@ int launch_kv_bf16(int device, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
     return launch_kv<64, WITH_DQ>(device, qp, kp, vp, op, lp, dp, dqp, dkp,
-                                  dvp, B, H, Tq, Tk, st, causal, scale_log2,
-                                  scale, s);
+                                  dvp, B, H, Tq, Tk, ls, st, causal,
+                                  scale_log2, scale, s);
   }
   if (D == 128) {
     return launch_kv<128, WITH_DQ>(device, qp, kp, vp, op, lp, dp, dqp, dkp,
-                                   dvp, B, H, Tq, Tk, st, causal, scale_log2,
-                                   scale, s);
+                                   dvp, B, H, Tq, Tk, ls, st, causal,
+                                   scale_log2, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -811,7 +811,7 @@ int launch_kv_bf16(int device, const void* q, const void* k, const void* v,
 extern "C" int flash_bwd_dkv_bf16(
     int device, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* dcor, void* dk,
-    void* dv, int B, int H, int Tq, int Tk, int D, long long qsb,
+    void* dv, int B, int H, int Tq, int Tk, int D, int ls, long long qsb,
     long long qst, long long qsh, long long ksb, long long kst,
     long long ksh, long long vsb, long long vst, long long vsh,
     long long osb, long long ost, long long osh, int causal,
@@ -819,7 +819,8 @@ extern "C" int flash_bwd_dkv_bf16(
   const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
                    osb, ost, osh};
   return launch_kv_bf16<false>(device, q, k, v, dout, lse, dcor, nullptr, dk,
-                               dv, B, H, Tq, Tk, D, st, causal, scale_log2,
+                               dv, B, H, Tq, Tk, D, ls, st, causal,
+                               scale_log2,
                                scale, stream);
 }
 
@@ -830,7 +831,7 @@ extern "C" int flash_bwd_dkv_bf16(
 extern "C" int flash_bwd_fused_bf16(
     int device, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* dcor, void* dq,
-    void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+    void* dk, void* dv, int B, int H, int Tq, int Tk, int D, int ls,
     long long qsb, long long qst, long long qsh, long long ksb,
     long long kst, long long ksh, long long vsb, long long vst,
     long long vsh, long long osb, long long ost, long long osh, int causal,
@@ -838,7 +839,8 @@ extern "C" int flash_bwd_fused_bf16(
   const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
                    osb, ost, osh};
   return launch_kv_bf16<true>(device, q, k, v, dout, lse, dcor, dq, dk, dv,
-                              B, H, Tq, Tk, D, st, causal, scale_log2, scale,
+                              B, H, Tq, Tk, D, ls, st, causal, scale_log2,
+                              scale,
                               stream);
 }
 

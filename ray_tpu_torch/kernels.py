@@ -63,12 +63,12 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
                 + [ll] * 9 + [i, f, p]),
                (lib.flash_fwd_smem, [i])]
     elif name == "flash_bwd":
-        fns = [(lib.flash_bwd_dq_bf16, [i] + [p] * 7 + [i] * 5 + [ll] * 12
+        fns = [(lib.flash_bwd_dq_bf16, [i] + [p] * 7 + [i] * 6 + [ll] * 12
                 + [i, f, f, p]),
                (lib.flash_bwd_dq_smem, [i]),
-               (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 5 + [ll] * 12
+               (lib.flash_bwd_dkv_bf16, [i] + [p] * 8 + [i] * 6 + [ll] * 12
                 + [i, f, f, p]),
-               (lib.flash_bwd_fused_bf16, [i] + [p] * 9 + [i] * 5
+               (lib.flash_bwd_fused_bf16, [i] + [p] * 9 + [i] * 6
                 + [ll] * 12 + [i, f, f, p]),
                (lib.flash_bwd_kv_keys, [i]),
                (lib.flash_bwd_kv_smem, [i, i])]
@@ -224,10 +224,24 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """[rows, n] fp32 with each row starting 16 bytes after a multiple of
+    16: the tensor itself when n is a multiple of 4, else a copy whose rows
+    are padded to the next multiple of 4 (TMA reads a row at any column,
+    but only from rows a multiple of 16 bytes apart)."""
+    n = t.shape[1]
+    if n % 4 == 0:
+        return t
+    out = t.new_zeros(t.shape[0], -(-n // 4) * 4)
+    out[:, :n] = t
+    return out
+
+
 def _flash_bwd_args(kernel: str, q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                     dcor: torch.Tensor, causal: bool) -> tuple:
-    """Checks of the backward kernels' inputs; returns (shape, strides)."""
+    """Checks of the backward kernels' inputs; returns (shape, strides,
+    the LSE and dcor rows as the kernels read them)."""
     b, tq, tk, h, d = _flash_check(kernel, q, k, v, causal)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"{kernel}: dO must match q, got "
@@ -240,7 +254,8 @@ def _flash_bwd_args(kernel: str, q: torch.Tensor, k: torch.Tensor,
                              f"aligned fp32 [{b * h}, {tq}] on q's device")
     strides = sum((_bthd_strides(t, kernel, name) for name, t in
                    (("q", q), ("k", k), ("v", v), ("dO", do))), ())
-    return (b, h, tq, tk, d), strides
+    lse, dcor = _tma_rows(lse), _tma_rows(dcor)
+    return (b, h, tq, tk, d, lse.shape[1]), strides, lse, dcor
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -251,8 +266,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's natural-log LSE and
     dcor = rowsum(dO * O), both [B*H, Tq] fp32. Returns dQ [B, Tq, H, D]
     bf16."""
-    shape, strides = _flash_bwd_args("flash_bwd_dq", q, k, v, do, lse,
-                                     dcor, causal)
+    shape, strides, lse, dcor = _flash_bwd_args(
+        "flash_bwd_dq", q, k, v, do, lse, dcor, causal)
     dev = q.device
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     err = _lib("flash_bwd").flash_bwd_dq_bf16(
@@ -270,8 +285,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV on the card, inputs as `flash_bwd_dq`. Returns (dK, dV)
     [B, Tk, H, D] bf16."""
-    shape, strides = _flash_bwd_args("flash_bwd_dkv", q, k, v, do, lse,
-                                     dcor, causal)
+    shape, strides, lse, dcor = _flash_bwd_args(
+        "flash_bwd_dkv", q, k, v, do, lse, dcor, causal)
     dev = q.device
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
@@ -316,8 +331,8 @@ def flash_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     summed by the kernel with atomics, so its last bits vary from run to
     run; the caller casts it, as the JAX package does outside its kernel)
     and dK, dV [B, Tk, H, D] bf16, bit-equal to `flash_bwd_dkv`'s."""
-    shape, strides = _flash_bwd_args("flash_bwd_fused", q, k, v, do, lse,
-                                     dcor, causal)
+    shape, strides, lse, dcor = _flash_bwd_args(
+        "flash_bwd_fused", q, k, v, do, lse, dcor, causal)
     dev = q.device
     dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)

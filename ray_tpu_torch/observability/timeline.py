@@ -13,7 +13,14 @@ events as chrome-trace events, merged into one sorted list.
   failover is a resilience marker);
 - kvplane:     pid = "kvplane",    tid = event kind: the KV plane's
   spill / tier2_hit / tier3_publish / tier3_adopt / directory_hit /
-  evict_storm / reap / gc markers.
+  evict_storm / reap / gc markers;
+- autoscale:   pid = "autoscale",  tid = event kind: the serving
+  autoscaler's scale_up / drain / scale_down / scale_from_zero /
+  replica_death / replace markers (drains, deaths, replacements and
+  breaker trips are resilience markers too);
+- online:      pid = "online",     tid = the sampler id, or the event
+  kind for the learner's: the online loop's rollout / swap / ingest /
+  publish markers.
 
 The spans and the training step records of the JAX package's merged
 trace wait for the port of `util/tracing.py` and the step timer's
@@ -131,6 +138,57 @@ def kvplane_trace_events(events: List[Dict[str, Any]]
                            (("blocks", "blk"), ("nbytes", "B")))
 
 
+def autoscale_trace_events(events: List[Dict[str, Any]]
+                           ) -> List[Dict[str, Any]]:
+    """Instant markers of the serving autoscaler under pid "autoscale",
+    labelled kind:tier->target."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        label = kind
+        if ev.get("tier"):
+            label += f":{ev['tier']}"
+        if ev.get("to") is not None:
+            label += f"->{ev['to']}"
+        out.append({
+            "name": label, "cat": "autoscale", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "autoscale", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def online_trace_events(events: List[Dict[str, Any]]
+                        ) -> List[Dict[str, Any]]:
+    """Instant markers of the online loop under pid "online": one lane
+    per sampler, the learner's events on lanes of their kind."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        label = kind
+        if ev.get("sampler"):
+            label += f":{ev['sampler']}"
+        if ev.get("weights_version") is not None:
+            label += f"@v{ev['weights_version']}"
+        elif ev.get("version") is not None:
+            label += f"@v{ev['version']}"
+        out.append({
+            "name": label, "cat": "online", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "online",
+            "tid": str(ev.get("sampler") or kind),
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
 def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         spans: List[Dict[str, Any]],
                         step_records: List[Dict[str, Any]],
@@ -141,6 +199,10 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         disagg_events: Optional[
                             List[Dict[str, Any]]] = None,
                         kvplane_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        autoscale_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        online_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
     """Merge the sources into one list sorted by time. `spans` and
@@ -158,13 +220,17 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
         trace.extend(disagg_trace_events(disagg_events))
     if kvplane_events:
         trace.extend(kvplane_trace_events(kvplane_events))
+    if autoscale_events:
+        trace.extend(autoscale_trace_events(autoscale_events))
+    if online_events:
+        trace.extend(online_trace_events(online_events))
     trace.sort(key=lambda e: e.get("ts", 0.0))
     return trace
 
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
-    """Pull the task, resilience, weight, disagg and KV-plane events
-    from the live cluster and merge them."""
+    """Pull the task, resilience, weight, disagg, KV-plane, autoscale
+    and online events from the live cluster and merge them."""
     from .._private import worker as worker_mod
 
     w = worker_mod.global_worker
@@ -176,4 +242,6 @@ def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
         w.conductor.call("get_resilience_events", limit, timeout=30.0),
         w.conductor.call("get_weight_events", limit, timeout=30.0),
         w.conductor.call("get_disagg_events", limit, timeout=30.0),
-        w.conductor.call("get_kvplane_events", limit, timeout=30.0))
+        w.conductor.call("get_kvplane_events", limit, timeout=30.0),
+        w.conductor.call("get_autoscale_events", limit, timeout=30.0),
+        w.conductor.call("get_online_events", limit, timeout=30.0))

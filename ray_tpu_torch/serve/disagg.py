@@ -39,7 +39,9 @@ same replay.
 
 Where the port differs: the JAX package's knobs are arguments with its
 defaults (``RAY_TPU_DISAGG_QUEUE_DEPTH`` 8, ``RAY_TPU_DISAGG_RETRY_AFTER_S``
-1.0, ``RAY_TPU_FAILOVER_ATTEMPTS`` 2, the KV plane's); servers take
+1.0, ``RAY_TPU_FAILOVER_ATTEMPTS`` 2, the KV plane's,
+``RAY_TPU_AUTOSCALE_WINDOW_S`` 30 as the router's ``window_s``, the span
+of its recent-signal windows); servers take
 ``device=`` (CUDA unless the caller asks for the CPU; without CUDA they
 raise) and move the params there; ``prefill_programs()`` counts prefills
 run in the process (``models.engine.prefill_paged_calls``), as the port
@@ -57,9 +59,11 @@ HTTP gateway's hooks (``generate(cancel_event=)``, its preemption
 metrics), the load harness's (``reset_signal_windows``, the servers'
 ``reset_chaos_counts``), the servers' local adapter publish
 (``publish_adapter`` / ``refresh_adapter``; a replica's tenants come
-from its ``lora=``), the kvcache and LoRA telemetry pushes, and the
-autoscaler that drives ``add_*`` / ``begin_drain`` / ``remove`` and
-``set_tier_waker`` (``serve/autoscale.py``'s ``DisaggAutoscaler``).
+from its ``lora=``), and the kvcache and LoRA telemetry pushes. The
+replica-set operations (``add_*``, ``begin_drain``, ``drained``,
+``remove``, ``remove_dead``, ``set_tier_waker``) are what
+``serve/autoscale.py``'s ``DisaggAutoscaler`` drives: SLO scaling,
+graceful drains and the self-healer.
 """
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ from ..device import resolve_device
 from ..exceptions import ActorError, WorkerCrashedError
 from ..tree import tree_map
 from . import kvplane as kvp
-from .autoscale import TARGET_P99_MS, SlidingWindow
+from .autoscale import TARGET_P99_MS, WINDOW_S, SlidingWindow
 from .handle import Counter, Gauge, RequestShedError, shed_counter
 
 _SERVER_SEQ = itertools.count()
@@ -983,6 +987,7 @@ class DisaggRouter:
                  failover_wait_s: float = 15.0,
                  stream_chunk_tokens: int = 32,
                  directory: bool = True,
+                 window_s: float = WINDOW_S,
                  router_id: Optional[str] = None):
         if prefill and not decode:
             raise ValueError(
@@ -1017,10 +1022,10 @@ class DisaggRouter:
                 colocated, f"{self.router_id}-colocated",
                 int(colocated.max_batch))]
         self._push_retention_hint()
-        self._ttft_win = SlidingWindow()
-        self._depth_win = SlidingWindow()
-        self._pf_inflight_win = SlidingWindow()
-        self._cache_win = SlidingWindow()
+        self._ttft_win = SlidingWindow(window_s)
+        self._depth_win = SlidingWindow(window_s)
+        self._pf_inflight_win = SlidingWindow(window_s)
+        self._cache_win = SlidingWindow(window_s)
         self._pf_inflight = 0
         self._stats = {k: 0 for k in (
             "dispatched", "completed", "shed", "max_pending",

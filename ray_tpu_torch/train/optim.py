@@ -1,4 +1,5 @@
-"""AdamW with `optax.adamw`'s semantics and defaults, in place.
+"""AdamW with `optax.adamw`'s semantics and defaults, in place, and an
+Adam whose frozen top-level leaves get no update and no state.
 
 optax.adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
 weight_decay=1e-4) is the chain scale_by_adam -> add_decayed_weights ->
@@ -20,6 +21,13 @@ stand-in for JAX's buffer donation), with PyTorch's multi-tensor
 (`_foreach`) operations over all leaves at once. DTensor params and
 moments (the mesh form of `train.step.TrainStep`) are updated on each
 rank's blocks: the ZeRO-3 update.
+
+`FrozenAdam` is what the JAX package's online loop builds with
+``optax.multi_transform({"train": optax.adam(lr), "freeze":
+optax.set_to_zero()}, label_fn)``: the Adam update above with weight
+decay 0 on every leaf under a top-level key not in `frozen`, and nothing
+at all on the others: they keep no moments and stay bit-identical across
+steps (which is what lets a delta publication skip them).
 """
 from __future__ import annotations
 
@@ -88,3 +96,49 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     """`optax.adamw` with its defaults (weight_decay 1e-4, not
     torch.optim.AdamW's 1e-2)."""
     return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay)
+
+
+@dataclass(frozen=True)
+class FrozenAdam:
+    learning_rate: float
+    frozen: tuple = ()
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    eps_root: float = 0.0
+
+    def _adam(self) -> AdamW:
+        return AdamW(self.learning_rate, self.b1, self.b2, self.eps,
+                     self.eps_root, weight_decay=0.0)
+
+    def trained(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The top-level entries the optimizer updates."""
+        return {k: v for k, v in params.items() if k not in self.frozen}
+
+    def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Zero moments for the trained entries only."""
+        return self._adam().init(self.trained(params))
+
+    def update_(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
+                params: Dict[str, Any]) -> None:
+        """One step: `grads` in the order of `tree_leaves(params)` (a
+        frozen leaf's gradient is ignored); the trained leaves and their
+        moments are updated in place."""
+        grads = list(grads)
+        kept, i = [], 0
+        for k, v in params.items():
+            n = len(tree_leaves(v))
+            if k not in self.frozen:
+                kept.extend(grads[i:i + n])
+            i += n
+        if i != len(grads):
+            raise ValueError(f"{len(grads)} grads for {i} params")
+        self._adam().update_(kept, state, self.trained(params))
+
+
+def frozen_adam(learning_rate: float, frozen: Sequence[str] = (),
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                eps_root: float = 0.0) -> FrozenAdam:
+    """`optax.adam` on every top-level entry not in `frozen`,
+    `optax.set_to_zero` on those."""
+    return FrozenAdam(learning_rate, tuple(frozen), b1, b2, eps, eps_root)

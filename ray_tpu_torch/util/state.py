@@ -1,6 +1,7 @@
 """Cluster state views (part of the port of ray_tpu/util/state.py): the
 weight fabric's registry, the recovery subsystem, disaggregated serving,
-the global KV plane and serving fault tolerance. The rest of that module
+the global KV plane, serving fault tolerance, the serving autoscaler and
+the online learning loop. The rest of that module
 (task, actor and the other serving views, the merged timeline export)
 waits for ROADMAP Queue 1 item 8; so do the CLI, dashboard and
 Prometheus surfaces of these views.
@@ -68,5 +69,24 @@ def servefault_status() -> Dict[str, Any]:
     return _worker().conductor.call("get_servefault_status", timeout=10.0)
 
 
-__all__ = ["disagg_status", "kvplane_status", "resilience_status",
-           "servefault_status", "weight_versions"]
+def autoscaler_status() -> Dict[str, Any]:
+    """The serving autoscaler (serve/autoscale.py): each loop's latest
+    status (per-tier active replicas and bounds, scale-up / scale-down
+    decisions, drain outcomes, replica-seconds, the last decision's
+    reason, the self-healer's deaths and replacements) plus cluster
+    totals. The decisions' markers ride the timeline's autoscale lane."""
+    return _worker().conductor.call("get_autoscale_status", timeout=10.0)
+
+
+def online_status() -> Dict[str, Any]:
+    """The online learning loop (online/): the latest snapshot of each
+    sampler (rollouts, tokens, serving and latest version, staleness and
+    its high-water mark), rollout buffer (occupancy, capacity, rejected
+    puts) and learner (steps, ingested rollouts and tokens, the last
+    published version), grouped by role, plus cluster totals."""
+    return _worker().conductor.call("get_online_status", timeout=10.0)
+
+
+__all__ = ["autoscaler_status", "disagg_status", "kvplane_status",
+           "online_status", "resilience_status", "servefault_status",
+           "weight_versions"]

@@ -17,7 +17,11 @@ line. The MoE and sequence-parallel gates: `hold_routing` refuses a
 routing that drops a token it should keep, `hold_output` refuses a ring
 that skips a block (the port's `ring_attention` over 4 emulated ranks),
 `hold_launches` refuses a launch count off by one either way, and
-`RoutingTape` makes a replayed pass take the recorded experts."""
+`RoutingTape` makes a replayed pass take the recorded experts. The
+serving control loop's and the online loop's gates: `hold_heal` refuses
+a replacement or death count off by one, a breaker trip or a shed;
+`hold_stream` refuses a stream one token off; the online learner's
+launch gate refuses a flash count off by one and any CE launch."""
 from __future__ import annotations
 
 import numpy as np
@@ -434,3 +438,68 @@ def test_routing_tape_replays_the_recorded_experts():
     assert idx.tolist() == [[0], [2]]
     assert torch.equal(vals, b.gather(-1, idx))
     assert moe_ops.top_k_stable(b, 1)[1].tolist() == [[1], [2]]
+
+
+def _healed(**over):
+    st = {"deaths": {"prefill": 0, "decode": 1},
+          "replacements": {"prefill": 0, "decode": 1},
+          "replacements_blocked": 0, "breaker_trips": 0}
+    st.update(over)
+    return st
+
+
+@pytest.mark.parametrize("fault", [
+    {"replacements": {"prefill": 0, "decode": 0}},
+    {"replacements": {"prefill": 0, "decode": 2}},
+    {"deaths": {"prefill": 0, "decode": 2}},
+    {"breaker_trips": 1}, {"replacements_blocked": 1}, "shed"])
+def test_heal_gate_refuses_a_count_off_by_one(fault):
+    """`hold_heal` (the disagg phase's self-healer): one decode death
+    replaced once passes; a replacement or death count off by one, a
+    breaker trip, a blocked replacement or a shed request fails."""
+    chip_smoke.hold_heal("disagg B", _healed(), {"shed": 0})
+    healer, router = _healed(), {"shed": 0}
+    if fault == "shed":
+        router["shed"] = 1
+    else:
+        healer = _healed(**fault)
+    with pytest.raises(AssertionError, match="healer"):
+        chip_smoke.hold_heal("disagg B", healer, router)
+
+
+@pytest.mark.parametrize("at", [0, 17, 63])
+def test_stream_gate_refuses_one_token_off(at):
+    """`hold_stream`: equal streams pass; one token changed, or one token
+    short, fails and names the first differing index."""
+    want = list(range(100, 164))
+    chip_smoke.hold_stream("online", list(want), want)
+    bad = list(want)
+    bad[at] += 1
+    with pytest.raises(AssertionError, match=f"at token {at} "):
+        chip_smoke.hold_stream("online", bad, want)
+    with pytest.raises(AssertionError, match="at token 63 "):
+        chip_smoke.hold_stream("online", want[:-1], want)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv", "ce_fwd", "ce_probs",
+                                  "ce_dx", "ce_dw"])
+def test_online_launch_gate_refuses_off_by_one_and_ce(name):
+    """The online learner's and the LoRA trainer's launch gate: exactly 12
+    of each flash kernel a step pass; one flash launch more or fewer, or
+    any CE kernel launch on the learner, fails."""
+    per_step = chip_smoke.ONLINE_LAUNCHES_PER_STEP
+    steps = chip_smoke.ONLINE_CONFIG["num_steps"]
+    exact = {k: n * steps for k, n in per_step.items()}
+    assert exact["flash_fwd"] == exact["flash_bwd_dq"] \
+        == exact["flash_bwd_dkv"] == 12 * steps
+    assert not any(exact[k] for k in ("ce_fwd", "ce_probs", "ce_dx",
+                                      "ce_dw"))
+    chip_smoke.hold_launches("online", exact, per_step, steps)
+    for off in (-1, 1):
+        if exact[name] + off < 0:
+            continue
+        with pytest.raises(AssertionError, match="launches"):
+            chip_smoke.hold_launches("online", {**exact,
+                                                name: exact[name] + off},
+                                     per_step, steps)

@@ -14,12 +14,11 @@ attribution) as checks of `_private/serve_checks.py` in a driver of
 their own. Parity: `prefix_digests`, an int8 pool's payload and export
 byte for byte with JAX's for the same rows (fp32 within the fp32 op
 tolerance), a JAX export adopted by a port pool, the arena's LRU and
-byte accounting under one script.
+byte accounting under one script. The speculation discount of the
+autoscaler's DisaggPolicy (serve/autoscale.py), each case on both
+packages' policies, their decisions compared.
 
-Not twinned: test_speculation_discount_never_over_scales and
-test_speculation_discount_spares_queue_not_busy_slots wait for
-DisaggPolicy (serve/autoscale.py); test_all_surfaces_report_consistent_
-numbers' CLI, dashboard and Prometheus legs wait for those surfaces (its
+Not twinned: test_all_surfaces_report_consistent_numbers' CLI, dashboard and Prometheus legs wait for those surfaces (its
 state-API and timeline legs are serve_checks.port_disagg_one_set_of_
 numbers, run by tests/test_torch_disagg.py).
 """
@@ -497,3 +496,53 @@ def test_evict_storm_action_validation(cls):
     with pytest.raises(ValueError):
         cls.from_dict({"action": "evict_storm", "role": "decode",
                        "blocks": 2, "at": "request:1"})
+
+
+# ------------------------------- speculation-aware autoscaler demand
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_speculation_discount_never_over_scales(pkg):
+    """The decode backlog is divided by the measured tokens per verify
+    step before the policy sizes the tier; no signal (or a factor <= 1)
+    leaves every decision unchanged. Both packages decide the same."""
+    from ray_tpu.serve import autoscale as jas
+    from ray_tpu_torch.serve import autoscale as tas
+
+    pol = (tas if pkg == "port" else jas).DisaggPolicy(target_p99_ms=500.0)
+    other = (jas if pkg == "port" else tas).DisaggPolicy(target_p99_ms=500.0)
+    base = {"queue_depth_p99": 12.0, "decode_cap_per_replica": 4,
+            "decode_busy_p99": 4.0}
+    want_up = pol.desired_decode(dict(base), 1)
+    assert want_up[0] == 3
+    n_spec, _ = pol.desired_decode(dict(base, spec_tokens_per_verify=3.0), 1)
+    assert n_spec == 1 and n_spec <= want_up[0]
+    n_mid, reason_mid = pol.desired_decode(
+        dict(base, spec_tokens_per_verify=2.0), 1)
+    assert n_mid == 2 < want_up[0]
+    assert "speculation" in reason_mid
+    for f in (None, 0.0, 1.0, 0.6):
+        sig = dict(base)
+        if f is not None:
+            sig["spec_tokens_per_verify"] = f
+        assert pol.desired_decode(sig, 1) == want_up
+        assert other.desired_decode(dict(sig), 1) == want_up
+    assert other.desired_decode(dict(base, spec_tokens_per_verify=2.0),
+                                1) == (n_mid, reason_mid)
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_speculation_discount_spares_queue_not_busy_slots(pkg):
+    """Only queued demand is discounted: busy slots block a scale-down
+    at any factor, a queue-only backlog may drain."""
+    from ray_tpu.serve import autoscale as jas
+    from ray_tpu_torch.serve import autoscale as tas
+
+    pol = (tas if pkg == "port" else jas).DisaggPolicy(target_p99_ms=500.0)
+    busy = {"decode_busy_p99": 10.0, "decode_cap_per_replica": 4,
+            "queue_depth_p99": 0.0, "spec_tokens_per_verify": 4.0}
+    n, _ = pol.desired_decode(dict(busy), 3)
+    assert n == 3
+    queued = {"decode_cap_per_replica": 4, "queue_depth_p99": 10.0,
+              "spec_tokens_per_verify": 4.0}
+    n2, reason2 = pol.desired_decode(queued, 3)
+    assert n2 == 2, reason2

@@ -563,11 +563,10 @@ def test_tenant_adoption_decodes_under_its_adapter(model, adapters):
 def test_fabric_source_and_tenant_trainer():
     """tests/test_lora.py's fabric path on a cluster of its own (an
     isolated driver, `fabric_checks.lora_fabric_source_pages_and_hot_
-    swaps`), adapters published with `publish_adapter` in place of
-    `TenantLoraTrainer` (its port waits for `online/`): a pool from
-    `build_pool(lora=True)` pages the newest version in, streams as a
-    pool over a LocalAdapterSource of the same adapter, and hot-swaps on
-    a re-publish's notice."""
+    swaps`): a `TenantLoraTrainer` publishes its adapter every step, a
+    pool from `build_pool(lora=True)` pages the newest version in,
+    streams as a pool over a LocalAdapterSource of the trainer's
+    adapter, and hot-swaps on a third publish's notice."""
     from ray_tpu_torch._private import isolated
 
     name = "lora_fabric_source_pages_and_hot_swaps"

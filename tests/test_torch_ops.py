@@ -473,3 +473,24 @@ def test_linear_cross_entropy_grad_matches_autograd():
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [124, 125, 126, 127, 128, 1, 3])
+def test_backward_row_tables_start_on_16_byte_rows(n):
+    """The attention backward kernels read each row of the LSE and dcor
+    tables by TMA, which takes rows only 16 bytes apart: `_tma_rows`
+    passes a table of a multiple of 4 columns through as it is and pads
+    any other to the next multiple of 4 (the values kept, the padding
+    zero). Lengths not a multiple of 4 made the kernels fault on the card
+    (the online learner's [8, 127])."""
+    from ray_tpu_torch import kernels
+
+    t = torch.arange(6 * n, dtype=torch.float32).reshape(6, n)
+    out = kernels._tma_rows(t)
+    if n % 4 == 0:
+        assert out is t
+    else:
+        assert out.shape == (6, -(-n // 4) * 4)
+        assert (out.stride(0) * 4) % 16 == 0
+        assert torch.equal(out[:, :n], t)
+        assert not out[:, n:].any()

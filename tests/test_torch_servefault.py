@@ -16,17 +16,24 @@ driver process of its own).
 test_chunk_fetcher_retries_with_backoff and
 test_delay_chunk_fetch_stretches_pulls have their twin in
 tests/test_torch_weights.py::test_chunk_fetch_retries_and_chaos_delay.
-Not twinned: test_self_heal_replaces_and_breaker_trips,
-test_drain_death_race_reaps_the_drain_record and
-test_actor_decode_kill_mid_stream_heals_and_completes wait for
-DisaggAutoscaler (serve/autoscale.py); test_generic_replica_drain_
-rejects_with_cause for serve/replica.py; test_all_surfaces_report_one_
-set_of_numbers' CLI, dashboard and Prometheus legs for those surfaces.
+The tier self-healer (serve/autoscale.py's DisaggAutoscaler): a death
+replaced 1-for-1 through the tier factory and the per-host breaker
+tripping once (its threshold the `breaker_threshold` argument, where the
+JAX test sets RAY_TPU_SERVE_BREAKER_THRESHOLD), the drain / death race
+reaping the drain record, and a decode ACTOR killed mid-stream healed
+through its factory while the stream completes (`serve_checks.
+servefault_actor_decode_kill_mid_stream_heals_and_completes`, its
+streams held against the JAX engine).
+
+Not twinned: test_generic_replica_drain_rejects_with_cause waits for
+serve/replica.py; test_all_surfaces_report_one_set_of_numbers' CLI,
+dashboard and Prometheus legs for those surfaces.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +60,9 @@ JCFG = dataclasses.replace(JLlamaConfig.tiny(), dtype=jnp.float32)
 TCFG = dataclasses.replace(tllama.LlamaConfig.tiny(), dtype=torch.float32)
 BS = serve_checks.BS
 CLUSTER = {"num_cpus": 4, "_system_config": serve_checks.SYSTEM_CONFIG}
-CHECKS = {"port_servefault_actor_decode_kill_fails_over": CLUSTER}
+CHECKS = {name: CLUSTER for name in (
+    "port_servefault_actor_decode_kill_fails_over",
+    "servefault_actor_decode_kill_mid_stream_heals_and_completes")}
 
 
 @pytest.fixture(scope="module")
@@ -329,3 +338,115 @@ def test_batch_stream_preempted_by_interactive_resumes_bit_identical(models):
     assert st["preemptions"] == 1 and st["preempted_requests"] == 1
     assert st["shed"] == 0 and st["completed"] == 2
     assert eng.cancelled_by_reason.get("preempt") == 1
+
+
+def test_actor_heal_streams_match_jax(outcomes):
+    """The healed request's stream and the replacement's equal the JAX
+    engine's on the check's weights."""
+    name = "servefault_actor_decode_kill_mid_stream_heals_and_completes"
+    ok, text = outcomes[name]
+    assert ok, text
+    _, params = serve_checks.tiny_llama()
+    jp = jax.tree.map(jnp.asarray, tree_map(lambda p: p.numpy(), params))
+    want = _jax_reference(jp, [21, 22, 23, 24, 25, 26, 27, 28], 10)
+    assert json.loads(text)["streams"] == [want, want]
+
+
+# ------------------------------------------------------ tier self-healing
+
+def _mk_scaler(router, factory, threshold=3.0):
+    from ray_tpu_torch.serve.autoscale import DisaggAutoscaler, TierSpec
+
+    hold = dict(min_replicas=1, max_replicas=4, up_delay_s=3600.0,
+                down_delay_s=3600.0)
+    return DisaggAutoscaler(
+        router, prefill=TierSpec(factory["prefill"], **hold),
+        decode=TierSpec(factory["decode"], **hold),
+        interval_s=3600.0, drain_grace_s=1.0,
+        breaker_threshold=threshold)
+
+
+def test_self_heal_replaces_and_breaker_trips(models):
+    """A death: the corpse leaves the router and a 1-for-1 replacement
+    comes from the tier factory, outside hysteresis. Repeated deaths on
+    one host trip the breaker (counted once per OPEN edge) and stop the
+    replacements for that host; a death on another host still heals."""
+    _, tp = models
+    made = []
+
+    def decode_factory():
+        d = DecodeServer(tp, TCFG, max_batch=2, device="cpu")
+        made.append(d)
+        return d
+
+    router = DisaggRouter(decode=[decode_factory()], prefill=[_prefill(tp)],
+                          max_queue_depth=2, affinity_tokens=BS)
+    # between 1 and 2: the second death trips although the first one's
+    # score decayed a little meanwhile
+    scaler = _mk_scaler(router, {"prefill": lambda: _prefill(tp),
+                                 "decode": decode_factory}, threshold=1.5)
+    try:
+        rep = router.tier_replicas("decode")[0]
+        scaler._handle_replica_death(
+            "decode", {"rid": rep["rid"], "machine": "hostA"})
+        st = scaler.status()
+        assert st["deaths"]["decode"] == 1
+        assert st["replacements"]["decode"] == 1
+        assert st["breaker_trips"] == 0
+        assert len(router.tier_replicas("decode")) == 1
+        rep = router.tier_replicas("decode")[0]
+        scaler._handle_replica_death(
+            "decode", {"rid": rep["rid"], "machine": "hostA"})
+        st = scaler.status()
+        assert st["deaths"]["decode"] == 2
+        assert st["replacements"]["decode"] == 1
+        assert st["replacements_blocked"] == 1
+        assert st["breaker_trips"] == 1
+        assert "hostA" in st["breaker_open"]
+        assert "breaker open" in st["last_reason"]["decode"]
+        scaler._replace("decode", "seed")
+        rep = router.tier_replicas("decode")[-1]
+        scaler._handle_replica_death(
+            "decode", {"rid": rep["rid"], "machine": "hostB"})
+        st = scaler.status()
+        assert st["replacements"]["decode"] == 3
+        assert st["breaker_trips"] == 1
+        sf = scaler.servefault_stats()
+        assert sf["deaths"] == st["deaths"]
+        assert sf["replacements"] == st["replacements"]
+        assert sf["breaker_trips"] == st["breaker_trips"]
+        assert sf["role"] == "healer" and sf["breaker_threshold"] == 1.5
+    finally:
+        for d in made:
+            d.stop()
+
+
+def test_drain_death_race_reaps_the_drain_record(models):
+    """begin_drain, then death: the healer reaps the corpse, finalizes
+    the drain record (drains_reaped) and does not replace it."""
+    from ray_tpu_torch.serve.autoscale import _Draining
+
+    _, tp = models
+    d0 = DecodeServer(tp, TCFG, max_batch=2, device="cpu")
+    d1 = DecodeServer(tp, TCFG, max_batch=2, device="cpu")
+    router = DisaggRouter(decode=[d0, d1], prefill=[_prefill(tp)],
+                          max_queue_depth=2, affinity_tokens=BS)
+    scaler = _mk_scaler(router, {
+        "prefill": lambda: _prefill(tp),
+        "decode": lambda: DecodeServer(tp, TCFG, max_batch=2,
+                                       device="cpu")})
+    try:
+        assert router.begin_drain("decode", d0.server_id)
+        scaler._draining.append(
+            _Draining("decode", d0.server_id, time.monotonic(), 30.0))
+        scaler._handle_replica_death(
+            "decode", {"rid": d0.server_id, "machine": "hostX"})
+        st = scaler.status()
+        assert st["drains_reaped"] == 1
+        assert st["draining"] == []
+        assert st["replacements"]["decode"] == 0
+        assert [r["rid"] for r in router.tier_replicas("decode")] \
+            == [d1.server_id]
+    finally:
+        d0.stop()
+        d1.stop()

@@ -95,7 +95,15 @@ flash kernels (12 launches of each a step, no CE kernel), a
 RolloutSampler GPU actor hot-swapping each delta publication (staleness
 <= 1, `wpe` frozen, its last stream equal to `generate()` on the last
 version), then a per-tenant LoRA trainer whose adapter a fabric-backed
-pool pages in. The trainer's worker gang (`train_gang`): two fits of
+pool pages in. MPMD pipelines (`pipeline`): Llama small bf16 as a
+two-stage `PipelineTrainer` (1F1B, [8, 1024] in 4 microbatches, adamw)
+whose stage 0 (the embedding) is a CPU actor and stage 1 (the blocks,
+norm_f, lm_head and the loss) a GPU actor on the flash kernels, each
+loss against a dense reference on the card, each launch counted in the
+stage's process; the same under GPipe on a `PipelineConductor`, then
+stage 0 killed mid-run (the run raises at once), then a new pipeline
+under that name on the card's lease again. The trainer's worker gang
+(`train_gang`): two fits of
 GPT-2 tiny on 2-rank gloo gangs of CPU ranks, one killed by a chaos plan
 and restarted from its checkpoint; one card holds no gang of GPU ranks.
 Every phase prints one JSON line; a phase that fails ends the run with a
@@ -3905,7 +3913,8 @@ def wait_for(pred, bound_s: float, what: str) -> float:
     t0 = time.perf_counter()
     while not pred():
         check(time.perf_counter() - t0 <= bound_s,
-              f"cluster: {what} not within {bound_s} s")
+              f"cluster: {what() if callable(what) else what} not within "
+              f"{bound_s} s")
         time.sleep(0.01)
     return time.perf_counter() - t0
 
@@ -5445,6 +5454,430 @@ def online_body(rt, kernels, gpt2, generate_mod) -> dict:
             "predicted": ONLINE_PREDICTED, **out}
 
 
+PIPELINE_NAME = "llama-pipeline"
+PIPELINE_B_NAME = "llama-pipeline-b"
+PIPELINE_TOKENS = (8, 1024)
+PIPELINE_M = 4
+PIPELINE_STEPS = 4
+PIPELINE_B_STEPS = 2
+PIPELINE_LR = 1e-3
+PIPELINE_SEED = 95
+PIPELINE_DEVICES = ["cpu", "cuda"]
+# the GPU stage's launches a step: its loss-and-grad recomputes the
+# forward of each microbatch, 12 layers x M 4
+PIPELINE_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 48,
+                              "flash_bwd_fused": 48}
+# step 0 precedes any update: the pipeline's loss is the dense one
+PIPELINE_FIRST_LOSS_TOL = 1e-4
+PIPELINE_KILL_BOUND_S = 25.0
+PIPELINE_LEASE_BOUND_S = 60.0
+# the predictions, written before the phase first ran (PERF.md section 6)
+PIPELINE_PREDICTED = {"stage_step_ms": [200, 700],
+                      "pipeline_tokens_per_s": [11700, 41000],
+                      "dense_step_ms": [80, 200],
+                      "dense_tokens_per_s": [41000, 102400],
+                      "bubble_fraction": [0.15, 0.8],
+                      "activation_bytes_per_step": 25165824,
+                      "gpu_stage_cold_start_s": [12, 35],
+                      "kill_to_raise_s": [0.05, 3.0],
+                      "lease_back_s": [12, 40],
+                      "phase_s": [80, 180]}
+
+
+def pipeline_stage0(params, tokens):
+    """Stage 0 of the Llama pipeline: the embedding lookup."""
+    return params["tok_emb"][tokens]
+
+
+def pipeline_stage1(params, x):
+    """Stage 1: Llama small's 12 blocks, norm_f and the LM head (fp32
+    logits), as `llama_forward` runs them after the embedding."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.layers import fp32_logits, rms_norm
+
+    cfg = llama.LlamaConfig.small()
+    cos, sin = llama._rope(cfg, x.device)
+    for p in params["blocks"]:
+        x = llama.llama_block(x, p, cos, sin, cfg)
+    return fp32_logits(rms_norm(x, params["norm_f"]["scale"]),
+                       params["lm_head"])
+
+
+def pipeline_loss(logits, targets):
+    """`llama_loss`'s tail: the padded vocabulary masked, log-softmax,
+    the mean next-token cross-entropy over the microbatch."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.small()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def pipeline_data(step):
+    """Step `step`'s tokens [8, 1024] and next tokens, from the phase's
+    own seed."""
+    from ray_tpu_torch.models import llama
+
+    b, t = PIPELINE_TOKENS
+    seq = np.random.default_rng(PIPELINE_SEED + step).integers(
+        0, llama.LlamaConfig.small().vocab_size, (b, t + 1))
+    return seq[:, :-1], seq[:, 1:]
+
+
+def pipeline_slow_data(step):
+    time.sleep(0.05)
+    return pipeline_data(step)
+
+
+def pipeline_stage_class():
+    """The stages' actor class: a StageActor that turns TF32 off, records
+    where and when it became ready, and counts its own process's kernel
+    launches and plain-route attention calls from 0 over each run. Built
+    here, so it is pickled by value."""
+    from ray_tpu_torch.mpmd.stage import StageActor
+
+    class PipelineStage(StageActor):
+        def __init__(self, *args, **kwargs):
+            self.init_at = boot_clock()
+            _no_tf32()
+            StageActor.__init__(self, *args, **kwargs)
+            self.where = None
+
+        def setup(self, *args, **kwargs):
+            out = StageActor.setup(self, *args, **kwargs)
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+                self.where = {**_where(self.init_at),
+                              "ready_at": boot_clock()}
+            else:
+                self.where = {"pid": os.getpid(), "ready_at": boot_clock()}
+            return out
+
+        def run_steps(self, *args, **kwargs):
+            from ray_tpu_torch import kernels
+            from ray_tpu_torch.ops import attention
+
+            kernels.reset_launches()
+            attention.PLAIN_CALLS["attention"] = 0
+            out = StageActor.run_steps(self, *args, **kwargs)
+            out.update(launches=dict(kernels.LAUNCHES),
+                       plain_calls=attention.PLAIN_CALLS["attention"],
+                       where=self.where)
+            return out
+
+    return PipelineStage
+
+
+def pipeline_params():
+    """Llama small bf16 from the phase's seed on the CPU, split by stage:
+    the embedding; the blocks, norm_f and the untied lm_head."""
+    from ray_tpu_torch.models import llama
+
+    params = llama.llama_init(llama.LlamaConfig.small(),
+                              torch.Generator().manual_seed(PIPELINE_SEED),
+                              device="cpu")
+    return params, [{"tok_emb": params["tok_emb"]},
+                    {"blocks": params["blocks"], "norm_f": params["norm_f"],
+                     "lm_head": params["lm_head"]}]
+
+
+def pipeline_dense_reference(params, steps: int) -> dict:
+    """The dense reference on the card: the same params, the same
+    microbatch split, `llama_loss` per microbatch, gradients summed (in
+    their dtype) and divided by M, the same adamw; each step timed
+    between CUDA events."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.tree import tree_leaves, tree_map
+
+    cfg = llama.LlamaConfig.small()
+    ref = tree_map(lambda t: t.to("cuda", copy=True).requires_grad_(True),
+                   params)
+    leaves = tree_leaves(ref)
+    opt = adamw(PIPELINE_LR)
+    state = opt.init(ref)
+    losses, step_ms = [], []
+    for step in range(steps):
+        x, t = pipeline_data(step)
+        xs = torch.from_numpy(x).cuda().reshape(PIPELINE_M, -1, x.shape[1])
+        ts = torch.from_numpy(t).cuda().reshape(PIPELINE_M, -1, t.shape[1])
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        acc, mb_losses = None, []
+        for i in range(PIPELINE_M):
+            loss = llama.llama_loss(ref, xs[i], ts[i], cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            mb_losses.append(loss.detach())
+            acc = list(grads) if acc is None else \
+                [u + v for u, v in zip(acc, grads)]
+        opt.update_([g / float(PIPELINE_M) for g in acc], state, ref)
+        b.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(np.mean([float(v) for v in mb_losses])))
+    del ref, leaves, state, acc, grads
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms}
+
+
+def hold_pipeline_losses(what: str, losses: list, want: list) -> None:
+    """Step 0 within PIPELINE_FIRST_LOSS_TOL of the dense reference's
+    (no update yet), every later step within MESH_LOSS_TOL (the fused
+    backward's atomics vary run to run)."""
+    check(len(losses) == len(want) and all(np.isfinite(losses)),
+          f"{what}: losses {losses}")
+    errs = [abs(a - b) for a, b in zip(losses, want)]
+    check(errs[0] <= PIPELINE_FIRST_LOSS_TOL
+          and all(e <= MESH_LOSS_TOL["llama-small"] for e in errs[1:]),
+          f"{what}: losses {losses} against the dense reference's {want}")
+
+
+def hold_pipeline_stages(what: str, stages: list, steps: int) -> dict:
+    """The GPU stage launched exactly PIPELINE_LAUNCHES_PER_STEP a step
+    and no attention call took the plain route; the CPU stage launched
+    nothing. Returns the GPU stage's launches."""
+    check([s["where"] is not None for s in stages] == [True, True]
+          and stages[1]["where"].get("device") is not None,
+          f"{what}: stage placement {[s['where'] for s in stages]}")
+    hold_launches(f"{what}: the GPU stage", stages[1]["launches"],
+                  PIPELINE_LAUNCHES_PER_STEP, steps)
+    check(not any(stages[0]["launches"].values()),
+          f"{what}: the CPU stage launched {stages[0]['launches']}")
+    check(stages[1]["plain_calls"] == 0 and stages[0]["plain_calls"] == 0,
+          f"{what}: plain-route calls "
+          f"{[s['plain_calls'] for s in stages]}")
+    return stages[1]["launches"]
+
+
+def phase_pipeline() -> None:
+    """MPMD pipelines on the card (see pipeline_body)."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=4)
+    try:
+        line = pipeline_body(rt)
+    finally:
+        end_session(rt, info["session_dir"], "pipeline")
+    emit(line)
+
+
+def pipeline_body(rt) -> dict:
+    """Llama small bf16, full width, as a two-stage pipeline: stage 0 (the
+    embedding) on a CPU actor, stage 1 (the blocks, norm_f, lm_head and
+    the loss) on a GPU actor holding the card's lease. Round A: a
+    `PipelineTrainer`, 1F1B, [8, 1024] in M 4 microbatches, adamw(1e-3),
+    4 steps, against the dense reference run here first; held: the
+    losses, the registry (formed, slices {0, 1}, bubble estimate 0.2,
+    4 steps a stage, prefetch hits), the activation bytes, the GPU
+    stage's launches (48 + 48 a step, nothing else, no plain route), the
+    merged timeline's step markers and pipeline lane. Round B: a
+    `PipelineConductor`, GPipe, 2 steps, held the same way; then a long
+    run whose stage 0 is killed 1 s in: the run raises within
+    PIPELINE_KILL_BOUND_S, a stage_death event, both actors dead. Round
+    C: a PipelineTrainer under round B's name takes a step on the card's
+    lease within PIPELINE_LEASE_BOUND_S of round B's close."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.mpmd import PipelineConductor
+    from ray_tpu_torch.observability.timeline import merged_timeline
+    from ray_tpu_torch.train import PipelineTrainer, RunConfig
+    from ray_tpu_torch.train.optim import adamw
+    from ray_tpu_torch.util import state
+
+    w = rt._private.worker.global_worker
+    b, t = PIPELINE_TOKENS
+    tokens = b * t
+    params, split = pipeline_params()
+    dense = pipeline_dense_reference(params, PIPELINE_STEPS)
+    del params
+    stage_cls = pipeline_stage_class()
+    fns = [pipeline_stage0, pipeline_stage1]
+    # bf16 activations forward and their gradients back, per microbatch
+    d_model = llama.LlamaConfig.small().d_model
+    per_step_bytes = 2 * PIPELINE_M * (b // PIPELINE_M) * t * d_model * 2
+
+    # ---- round A: PipelineTrainer, 1F1B
+    trainer = PipelineTrainer(
+        fns, split, pipeline_loss, adamw(PIPELINE_LR),
+        data_fn=pipeline_data, num_microbatches=PIPELINE_M,
+        num_steps=PIPELINE_STEPS, schedule="1f1b",
+        run_config=RunConfig(name=PIPELINE_NAME), device=PIPELINE_DEVICES,
+        stage_class=stage_cls)
+    t0_boot, t0 = boot_clock(), time.perf_counter()
+    res = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    check(res.error is None, f"pipeline: round A failed: {res.error!r}")
+    losses = [m["loss"] for m in res.metrics_history]
+    hold_pipeline_losses("pipeline round A", losses, dense["losses"])
+    stages = trainer.stages
+    launches = hold_pipeline_stages("pipeline round A", stages,
+                                    PIPELINE_STEPS)
+    rec = state.pipeline_status(PIPELINE_NAME)["pipelines"][PIPELINE_NAME]
+    check(rec["formed"] and {v["slice_id"] for v in rec["stages"].values()}
+          == {0, 1} and abs(rec["bubble_estimate"] - 0.2) < 1e-12,
+          f"pipeline: the registry {rec}")
+    check(set(rec["stats"]) == {0, 1} and all(
+        s["steps"] == PIPELINE_STEPS for s in rec["stats"].values())
+        and sum(s["prefetch_hits"] for s in rec["stats"].values()) > 0,
+        f"pipeline: the stages' stats {rec['stats']}")
+    check(rec["totals"]["activation_bytes"]
+          == PIPELINE_STEPS * per_step_bytes,
+          f"pipeline: activation bytes {rec['totals']} against "
+          f"{per_step_bytes} a step")
+    run_id = rec["run_id"]
+    marks: list = []
+    lanes: set = set()
+
+    def timeline_in():
+        trace = merged_timeline()
+        marks[:] = [e for e in trace if e.get("cat") == "train_step"
+                    and e.get("ph") == "X"
+                    and e.get("pid") == f"train:{run_id}"]
+        lanes.clear()
+        lanes.update(e["tid"] for e in trace if e.get("cat") == "pipeline"
+                     and e["args"].get("pipeline") == PIPELINE_NAME)
+        return len(marks) >= 2 * PIPELINE_STEPS and \
+            {"stage 0", "stage 1"} <= lanes
+
+    wait_for(timeline_in, 15.0, "pipeline: the timeline's markers")
+    check(len(marks) == 2 * PIPELINE_STEPS
+          and {e["tid"] for e in marks} == {"rank 0", "rank 1"}
+          and any(e["args"].get("bubble_wait_ms", 0) > 0 for e in marks),
+          f"pipeline: step markers {[e['args'] for e in marks]}")
+    by_rank = {r: sorted((e for e in marks if e["tid"] == f"rank {r}"),
+                         key=lambda e: e["ts"]) for r in (0, 1)}
+    step_ms = {r: [e["args"]["total_ms"] for e in by_rank[r]]
+               for r in (0, 1)}
+    bubble = {r: [e["args"]["bubble_wait_ms"] / e["args"]["total_ms"]
+                  for e in by_rank[r]] for r in (0, 1)}
+    med = {r: statistics.median(step_ms[r][1:]) for r in (0, 1)}
+    pipe_ms = max(med.values())
+    gpu_where = stages[1]["where"]
+
+    # ---- round B: PipelineConductor, GPipe, then stage 0 killed
+    pipe = PipelineConductor(
+        PIPELINE_B_NAME, fns, split, adamw(PIPELINE_LR), pipeline_loss,
+        num_microbatches=PIPELINE_M, schedule="gpipe",
+        device=PIPELINE_DEVICES, stage_class=stage_cls)
+    outcome: dict = {}
+    try:
+        pipe.form()
+        out_b = pipe.run(PIPELINE_B_STEPS, pipeline_data)
+        hold_pipeline_losses("pipeline round B", out_b["losses"],
+                             dense["losses"][:PIPELINE_B_STEPS])
+        launches_b = hold_pipeline_stages("pipeline round B",
+                                          out_b["stages"], PIPELINE_B_STEPS)
+        run_b = pipe.run_id
+        actors = [a.actor_id for a in pipe._actors]
+
+        def drive():
+            t_start = time.monotonic()
+            try:
+                pipe.run(500, pipeline_slow_data, recv_timeout=120.0)
+                outcome["error"] = None
+            except Exception as e:  # noqa: BLE001 — the expected outcome
+                outcome["error"] = e
+            outcome["raised_at"] = time.monotonic()
+
+        runner = threading.Thread(target=drive, daemon=True)
+        runner.start()
+        time.sleep(1.0)
+        killed_at = time.monotonic()
+        rt.kill(pipe._actors[0])
+        runner.join(timeout=PIPELINE_KILL_BOUND_S + 5.0)
+        check(not runner.is_alive() and outcome.get("error") is not None,
+              f"pipeline: the run did not raise after stage 0's kill "
+              f"({outcome})")
+        kill_to_raise = outcome["raised_at"] - killed_at
+        check(kill_to_raise <= PIPELINE_KILL_BOUND_S,
+              f"pipeline: raised {kill_to_raise:.1f} s after the kill")
+        states: list = []
+
+        def both_dead():
+            states[:] = [w.conductor.call("get_actor_info", a,
+                                          timeout=10.0)["state"]
+                         for a in actors]
+            return states == ["DEAD", "DEAD"]
+
+        wait_for(both_dead, 15.0,
+                 lambda: f"pipeline: both stages dead (states {states})")
+        events = w.conductor.call("get_pipeline_events", 1000, timeout=10.0)
+        check(any(e.get("kind") == "stage_death"
+                  and e.get("pipeline") == PIPELINE_B_NAME for e in events),
+              "pipeline: no stage_death event")
+    finally:
+        pipe.close()
+    closed_at = boot_clock()
+
+    # ---- round C: the lease comes back to a new pipeline of that name
+    trainer_c = PipelineTrainer(
+        fns, split, pipeline_loss, adamw(PIPELINE_LR),
+        data_fn=pipeline_data, num_microbatches=PIPELINE_M, num_steps=1,
+        schedule="1f1b", run_config=RunConfig(name=PIPELINE_B_NAME),
+        device=PIPELINE_DEVICES, stage_class=stage_cls)
+    res_c = trainer_c.fit()
+    check(res_c.error is None and len(res_c.metrics_history) == 1
+          and np.isfinite(res_c.metrics_history[0]["loss"]),
+          f"pipeline: round C {res_c.error!r} {res_c.metrics_history}")
+    lease_back = trainer_c.stages[1]["where"]["ready_at"] - closed_at
+    check(lease_back <= PIPELINE_LEASE_BOUND_S,
+          f"pipeline: the GPU stage was ready {lease_back:.1f} s after "
+          "round B's close")
+    rec_c = state.pipeline_status(PIPELINE_B_NAME)["pipelines"][
+        PIPELINE_B_NAME]
+    check(rec_c["formed"] and rec_c["run_id"] != run_b,
+          f"pipeline: round C's registry {rec_c['run_id']} vs {run_b}")
+    dense_ms = statistics.median(dense["step_ms"][1:])
+    stats = rec["stats"]
+    return {
+        "phase": "pipeline", "card": card_line(), "model": "llama-small",
+        "dtype": "bfloat16", "tokens": list(PIPELINE_TOKENS),
+        "microbatches": PIPELINE_M, "devices": PIPELINE_DEVICES,
+        "predicted": PIPELINE_PREDICTED,
+        "round_a": {
+            "schedule": "1f1b", "losses": losses,
+            "dense_losses": dense["losses"],
+            "loss_errs": [abs(a - b) for a, b in zip(losses,
+                                                      dense["losses"])],
+            "launches": launches,
+            "launches_per_step": PIPELINE_LAUNCHES_PER_STEP,
+            "plain_calls": stages[1]["plain_calls"],
+            "stage_step_ms": {f"stage {r}": step_ms[r] for r in (0, 1)},
+            "stage_step_ms_median": {f"stage {r}": med[r] for r in (0, 1)},
+            "stage_bubble_by_step": {f"stage {r}": bubble[r]
+                                     for r in (0, 1)},
+            "stage_bubble_fraction": {
+                f"stage {s}": stats[s]["bubble_fraction"] for s in (0, 1)},
+            "bubble_estimate": rec["bubble_estimate"],
+            "activation_bytes_per_step":
+                rec["totals"]["activation_bytes"] / PIPELINE_STEPS,
+            "channel_wait_s": {f"stage {s}": stats[s]["channel_wait_s"]
+                               for s in (0, 1)},
+            "prefetch_hits": {f"stage {s}": stats[s]["prefetch_hits"]
+                              for s in (0, 1)},
+            "pipeline_step_ms": pipe_ms,
+            "pipeline_tokens_per_s": tokens / pipe_ms * 1e3,
+            "dense_step_ms": dense["step_ms"],
+            "dense_step_ms_median": dense_ms,
+            "dense_tokens_per_s": tokens / dense_ms * 1e3,
+            "fit_s": fit_s,
+            "gpu_stage_cold_start_s": gpu_where["ready_at"] - t0_boot,
+            "gpu_stage_cold_start_split": cold_start_split(
+                t0_boot, gpu_where, gpu_where["ready_at"]),
+        },
+        "round_b": {"schedule": "gpipe", "losses": out_b["losses"],
+                    "launches": launches_b,
+                    "kill_to_raise_s": kill_to_raise,
+                    "error": type(outcome["error"]).__name__},
+        "round_c": {"loss": res_c.metrics_history[0]["loss"],
+                    "close_to_gpu_stage_ready_s": lease_back,
+                    "run_id": rec_c["run_id"]},
+    }
+
+
 def phase_train_gang() -> None:
     """`TorchTrainer(mode="workers", num_workers=2, use_gpu=False,
     resources_per_worker={"CPU": 1})` on the card machine's CPUs: GPT-2
@@ -5653,6 +6086,10 @@ def main() -> int:
     # the online learning loop: the learner here on the flash kernels (its
     # launches counted from 0), a GPU sampler actor, then per-tenant LoRA
     phase_online(kernels, gpt2, generate_mod)
+    # MPMD pipelines: Llama small's stage 1 in a GPU actor on the flash
+    # kernels (its launches counted in its process from 0), stage 0 on a
+    # CPU actor; a stage killed mid-run; the lease back to a new pipeline
+    phase_pipeline()
     # the trainer's worker gang on the machine's CPUs, with a chaos kill
     phase_train_gang()
     keys = ["name", "route", "source", "replaces", "launches",

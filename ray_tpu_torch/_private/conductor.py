@@ -303,6 +303,15 @@ class ConductorHandler:
         self._autoscale_events: List[Dict[str, Any]] = []
         self._online_stats: Dict[str, Dict[str, Any]] = {}
         self._online_events: List[Dict[str, Any]] = []
+        # the flight recorder's step records, run_id -> {"steps": {step:
+        # {rank: record}}, "updated": ts}, and the MPMD pipelines'
+        # registry, channel mailbox (descriptors only: the payloads stay
+        # in the senders' stores) and instant markers; in memory as in
+        # the JAX package
+        self._train_runs: Dict[str, Dict[str, Any]] = {}
+        self._pipelines: Dict[str, Dict[str, Any]] = {}
+        self._pipeline_mailbox: Dict[str, Dict[str, Any]] = {}
+        self._pipeline_events: List[Dict[str, Any]] = []
 
         # Durable control-plane tables (reference: GCS Redis-persisted
         # tables, gcs_server.h:103-110 / gcs_table_storage.cc). Restored
@@ -2328,6 +2337,331 @@ class ConductorHandler:
                           ) -> List[Dict[str, Any]]:
         with self._lock:
             return self._online_events[-limit:]
+
+    # ------------------------------------------------------ flight recorder
+    # Gang-wide step telemetry (observability/): every rank's StepTimer
+    # ships per-step records here; the per-run ring buffer is the source
+    # for straggler detection (util.state.train_progress) and the merged
+    # timeline's step markers.
+
+    _TRAIN_STEPS_KEPT = 1024   # per-run step window
+    _TRAIN_RUNS_KEPT = 16      # oldest runs evicted past this
+
+    def report_train_steps(self, run_id: str, rank: int,
+                           records: List[Dict[str, Any]]) -> None:
+        with self._lock:
+            run = self._train_runs.setdefault(
+                run_id, {"steps": {}, "updated": 0.0})
+            steps = run["steps"]
+            for rec in records:
+                step = int(rec.get("step", 0))
+                steps.setdefault(step, {})[int(rank)] = rec
+            if len(steps) > self._TRAIN_STEPS_KEPT:
+                for s in sorted(steps)[:len(steps)
+                                       - self._TRAIN_STEPS_KEPT]:
+                    del steps[s]
+            run["updated"] = time.time()
+            if len(self._train_runs) > self._TRAIN_RUNS_KEPT:
+                oldest = sorted(self._train_runs,
+                                key=lambda r:
+                                self._train_runs[r]["updated"])
+                for r in oldest[:len(self._train_runs)
+                                - self._TRAIN_RUNS_KEPT]:
+                    del self._train_runs[r]
+
+    def get_train_progress(self) -> Dict[str, Any]:
+        """Per-run gang summaries (per-rank stats, skew, stragglers) —
+        aggregation math lives in observability.gang. Step
+        records are write-once (inserted/replaced, never mutated), so a
+        two-level shallow copy isolates the summarizer without paying a
+        deep copy of up to 16k records inside the conductor lock."""
+        from ..observability import gang
+
+        with self._lock:
+            snapshot = {
+                run_id: {s: dict(by_rank)
+                         for s, by_rank in run["steps"].items()}
+                for run_id, run in self._train_runs.items()}
+        return {run_id: gang.summarize_run(steps)
+                for run_id, steps in snapshot.items()}
+
+    def get_train_steps(self, limit: int = 10_000) -> List[Dict[str, Any]]:
+        """Raw step records, flattened newest-last with run_id attached —
+        the merged-timeline source (observability.timeline). Only a
+        two-level shallow snapshot happens under the lock (records are
+        write-once, see get_train_progress); the flatten/sort over
+        potentially ~1M records runs outside it."""
+        with self._lock:
+            snapshot = {
+                run_id: {s: dict(by_rank)
+                         for s, by_rank in run["steps"].items()}
+                for run_id, run in self._train_runs.items()}
+        out: List[Dict[str, Any]] = []
+        for run_id, steps in snapshot.items():
+            for step in sorted(steps):
+                for rank, rec in sorted(steps[step].items()):
+                    out.append(dict(rec, run_id=run_id, rank=rank))
+        out.sort(key=lambda r: r.get("t_start") or 0.0)
+        return out[-limit:]
+
+    # ------------------------------------------------------ MPMD pipelines
+    # mpmd/: stage registry, channel mailbox, per-stage stats and
+    # instant markers. util.state.pipeline_status() reads
+    # get_pipeline_status, the timeline's pipeline lane the markers.
+
+    _PIPELINE_EVENTS_KEPT = 10_000
+    _PIPELINE_MAILBOX_CAP = 65_536
+    _PIPELINES_KEPT = 16  # closed records retained (open ones never evict)
+
+    def _pipeline_event_locked(self, event: Dict[str, Any]) -> None:
+        event.setdefault("ts", time.time())
+        self._pipeline_events.append(event)
+        if len(self._pipeline_events) > self._PIPELINE_EVENTS_KEPT:
+            del self._pipeline_events[
+                :len(self._pipeline_events)
+                - self._PIPELINE_EVENTS_KEPT]
+
+    def pipeline_open(self, name: str,
+                      spec: Dict[str, Any]) -> Dict[str, Any]:
+        """Create (or replace) a pipeline registry entry. Reopening a
+        name drops the previous generation's stages, stats, and any
+        stale mailbox entries — a restarted driver must not deliver the
+        dead run's activations."""
+        num_stages = int(spec.get("num_stages", 0))
+        if num_stages < 2:
+            return {"error": f"num_stages must be >= 2, got "
+                             f"{num_stages}"}
+        if "/ch/" in name or name.endswith("/ch"):
+            # "/ch/" delimits channel keys (pipeline_channel_put parses
+            # the name back out of the key at its FIRST occurrence, and
+            # a name ending in "/ch" would shift that occurrence)
+            return {"error": f"pipeline name {name!r} must not "
+                             "contain '/ch/' or end with '/ch'"}
+        with self._lock:
+            # "/ch/" delimiter (not a bare "/") so purging "train"
+            # never touches a live "train/eval" pipeline's entries
+            prefix = f"{name}/ch/"
+            for key in [k for k in self._pipeline_mailbox
+                        if k.startswith(prefix)]:
+                del self._pipeline_mailbox[key]
+            self._pipelines[name] = {
+                "name": name,
+                "num_stages": num_stages,
+                "schedule": spec.get("schedule", "1f1b"),
+                "num_microbatches": spec.get("num_microbatches"),
+                "bubble_estimate": spec.get("bubble_estimate"),
+                "run_id": spec.get("run_id", ""),
+                "created": time.time(),
+                "formed": False,
+                "closed": False,
+                "stages": {},
+                "stats": {},
+            }
+            self._pipeline_event_locked(
+                {"kind": "open", "pipeline": name,
+                 "num_stages": num_stages,
+                 "schedule": spec.get("schedule")})
+        return {"ok": True}
+
+    def pipeline_register_stage(self, name: str, stage: int,
+                                info: Dict[str, Any]) -> Dict[str, Any]:
+        """One stage-gang's registration. The pipeline flips formed=True
+        atomically when the LAST of num_stages stages is in — partial
+        pipelines are never visible as formed (the weights-fragment
+        commit pattern)."""
+        formed_now = False
+        with self._lock:
+            rec = self._pipelines.get(name)
+            if rec is None or rec.get("closed"):
+                return {"error": f"no open pipeline {name!r} — call "
+                                 "pipeline_open first"}
+            stage = int(stage)
+            if not 0 <= stage < rec["num_stages"]:
+                return {"error": f"stage {stage} out of range for "
+                                 f"{rec['num_stages']}-stage pipeline"}
+            reg_run = (info or {}).get("run_id")
+            if rec.get("run_id") and reg_run is not None and \
+                    reg_run != rec["run_id"]:
+                # a stage from a DEAD generation (driver restarted and
+                # reopened the name) must not count toward — or flip —
+                # this generation's formation
+                return {"error":
+                        f"stage {stage} belongs to generation "
+                        f"{reg_run!r}, not {rec['run_id']!r}"}
+            rec["stages"][stage] = dict(info or {}, ts=time.time())
+            self._pipeline_event_locked(
+                {"kind": "stage_registered", "pipeline": name,
+                 "stage": stage,
+                 "slice_id": (info or {}).get("slice_id")})
+            if not rec["formed"] and \
+                    len(rec["stages"]) == rec["num_stages"]:
+                rec["formed"] = True
+                formed_now = True
+                self._pipeline_event_locked(
+                    {"kind": "formed", "pipeline": name,
+                     "num_stages": rec["num_stages"]})
+            formed = rec["formed"]
+        if formed_now:
+            self.publish("pipeline", {"kind": "formed", "name": name})
+        return {"ok": True, "formed": formed}
+
+    def pipeline_get(self, name: str) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            rec = self._pipelines.get(name)
+            if rec is None:
+                return None
+            out = dict(rec)
+            out["stages"] = {s: dict(v)
+                             for s, v in rec["stages"].items()}
+            out["stats"] = {s: dict(v) for s, v in rec["stats"].items()}
+            return out
+
+    def pipeline_close(self, name: str) -> bool:
+        """Mark the pipeline closed and drop its mailbox entries (the
+        senders' chunk refs die with the stage actors)."""
+        with self._lock:
+            rec = self._pipelines.get(name)
+            if rec is None:
+                return False
+            rec["closed"] = True
+            prefix = f"{name}/ch/"
+            dropped = [k for k in self._pipeline_mailbox
+                       if k.startswith(prefix)]
+            for key in dropped:
+                del self._pipeline_mailbox[key]
+            self._pipeline_event_locked(
+                {"kind": "closed", "pipeline": name,
+                 "dropped_mailbox": len(dropped)})
+            # keep-last-K of CLOSED records (the weights-registry GC
+            # pattern): a sweep of uniquely-named runs must not grow
+            # the registry — and every status payload — forever
+            closed = sorted(
+                (n for n, r in self._pipelines.items()
+                 if r.get("closed")),
+                key=lambda n: self._pipelines[n].get("created", 0.0))
+            for n in closed[:max(0, len(closed) - self._PIPELINES_KEPT)]:
+                del self._pipelines[n]
+        return True
+
+    def pipeline_channel_put(self, key: str,
+                             desc: Dict[str, Any]) -> Dict[str, Any]:
+        """Register one microbatch payload's chunk descriptor
+        (metadata only). Single-slot per key: the schedules never
+        produce the same (step, mb, kind) twice."""
+        if not isinstance(desc, dict):
+            return {"error": "descriptor must be a dict"}
+        from ..util.runtime import pipeline_run_token
+
+        name, _, rest = str(key).partition("/ch/")
+        with self._lock:
+            rec = self._pipelines.get(name)
+            if rec is None or rec.get("closed"):
+                # a stage-gang of a closed/GC-evicted (dead) generation
+                # must fail its sends instead of leaking undeliverable
+                # entries toward the global mailbox cap
+                return {"error": f"pipeline {name!r} is not open — "
+                                 "pipeline_open must precede channel "
+                                 "sends"}
+            run = rest.split("/", 1)[0]
+            want = pipeline_run_token(str(rec["run_id"])) \
+                if rec.get("run_id") else ""
+            if want and run != want:
+                # same generation fencing as stage registration: an
+                # orphaned old gang's sends must fail fast, not pile
+                # up as undeliverable entries under the live name
+                return {"error":
+                        f"channel key belongs to generation {run!r}, "
+                        f"not {want!r}"}
+            if len(self._pipeline_mailbox) >= self._PIPELINE_MAILBOX_CAP:
+                return {"error":
+                        f"pipeline mailbox full "
+                        f"({self._PIPELINE_MAILBOX_CAP} entries) — "
+                        "receiver stages dead or wedged?"}
+            self._pipeline_mailbox[str(key)] = desc
+        self.publish("pipeline", {"kind": "channel_put", "key": key})
+        return {"ok": True}
+
+    def pipeline_channel_pending(self, keys: List[str]) -> List[str]:
+        """Which of `keys` are still undelivered (the sender-side
+        drain barrier — see ActivationChannel.drain)."""
+        with self._lock:
+            return [k for k in keys if str(k) in self._pipeline_mailbox]
+
+    def pipeline_channel_discard(self, keys: List[str]) -> None:
+        """Drop undelivered descriptors whose chunks the sender is
+        about to free (retention pruning / channel close): a
+        descriptor naming freed chunks must not stay deliverable —
+        a late recv would die in an opaque fetch timeout — nor leak
+        toward the mailbox cap."""
+        with self._lock:
+            for k in keys:
+                self._pipeline_mailbox.pop(str(k), None)
+
+    def pipeline_channel_take(self, key: str) -> Optional[Dict[str, Any]]:
+        """Pop a descriptor (None while not yet delivered — receivers
+        poll with a pubsub wakeup)."""
+        with self._lock:
+            return self._pipeline_mailbox.pop(str(key), None)
+
+    def report_pipeline_stats(self, name: str, stage: int,
+                              stats: Dict[str, Any]) -> None:
+        """Per-stage run summary (bubble fraction, channel bytes,
+        steps) from the stage-gangs — the one set of numbers every
+        surface reports."""
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            rec = self._pipelines.get(name)
+            if rec is None:
+                return
+            run = stats.get("run_id")
+            if rec.get("run_id") and run is not None and \
+                    run != rec["run_id"]:
+                # a dead generation must not overwrite the live run's
+                # numbers (generation fencing, as registration)
+                return
+            rec["stats"][int(stage)] = dict(stats, ts=time.time())
+
+    def get_pipeline_status(self) -> Dict[str, Any]:
+        """State-API/dashboard view: every pipeline's registry record
+        plus cross-stage totals (activation bytes, mean/max bubble)."""
+        with self._lock:
+            pipelines = {}
+            for name, rec in self._pipelines.items():
+                out = dict(rec)
+                out["stages"] = {s: dict(v)
+                                 for s, v in rec["stages"].items()}
+                out["stats"] = {s: dict(v)
+                                for s, v in rec["stats"].items()}
+                pipelines[name] = out
+            mailbox_depth = len(self._pipeline_mailbox)
+        for rec in pipelines.values():
+            stats = rec["stats"].values()
+            fracs = [s.get("bubble_fraction") for s in stats
+                     if s.get("bubble_fraction") is not None]
+            rec["totals"] = {
+                "activation_bytes": sum(int(s.get("sent_bytes") or 0)
+                                        for s in stats),
+                "bubble_fraction_mean": (sum(fracs) / len(fracs)
+                                         if fracs else None),
+                "bubble_fraction_max": max(fracs) if fracs else None,
+                "steps": max((int(s.get("steps") or 0) for s in stats),
+                             default=0),
+            }
+        return {"pipelines": pipelines, "mailbox_depth": mailbox_depth}
+
+    def report_pipeline_event(self, event: Dict[str, Any]) -> None:
+        """Instant markers (formed / stage_report / stage_death /
+        closed) for the merged timeline's pipeline lane."""
+        if not isinstance(event, dict):
+            return
+        with self._lock:
+            self._pipeline_event_locked(dict(event))
+
+    def get_pipeline_events(self, limit: int = 10_000
+                            ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._pipeline_events[-limit:]
 
     # ------------------------------------------------------------------ jobs
     # Reference: GcsJobManager + dashboard/modules/job JobManager —

@@ -5,8 +5,8 @@
     ok, text = outcomes["core_put_get"]
 
 Each named check is a function of `runtime_checks.py`,
-`cluster_checks.py`, `fabric_checks.py`, `serve_checks.py` or
-`online_checks.py` (modules of
+`cluster_checks.py`, `fabric_checks.py`, `serve_checks.py`,
+`online_checks.py` or `mpmd_checks.py` (modules of
 the package, so
 worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
@@ -170,8 +170,8 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import (cluster_checks, fabric_checks, online_checks,
-                   runtime_checks, serve_checks)
+    from . import (cluster_checks, fabric_checks, mpmd_checks,
+                   online_checks, runtime_checks, serve_checks)
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -193,7 +193,8 @@ def _driver_main(payload_path: str) -> int:
                 or getattr(cluster_checks, name, None) \
                 or getattr(fabric_checks, name, None) \
                 or getattr(serve_checks, name, None) \
-                or getattr(online_checks, name)
+                or getattr(online_checks, name, None) \
+                or getattr(mpmd_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

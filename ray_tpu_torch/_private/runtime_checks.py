@@ -1671,7 +1671,6 @@ def port_failed_arena_build_raises():
 OMITTED_RPCS = [
     ("report_spans", ([],)),
     ("get_recent_logs", ()),
-    ("get_train_progress", ()),
     ("get_kvcache_stats", ()),
     ("get_lora_status", ()),
 ]
@@ -1705,11 +1704,10 @@ def port_omitted_parts_raise():
     assert "ROADMAP" in str(e), e
     _raises(NotImplementedError, rt.remote(f).bind)
     c = Counter.remote()
-    for hook in ("__ray_tpu_col_init__", "__ray_tpu_compiled_loop__"):
-        e = _raises(exc.TaskError, rt.get, c._invoke(hook, (), {}),
-                    timeout=30.0)
-        assert isinstance(e.cause, NotImplementedError), e
-        assert "ROADMAP Queue 1" in str(e.cause), e
+    e = _raises(exc.TaskError, rt.get,
+                c._invoke("__ray_tpu_compiled_loop__", (), {}), timeout=30.0)
+    assert isinstance(e.cause, NotImplementedError), e
+    assert "ROADMAP Queue 1" in str(e.cause), e
     assert rt.get(c.incr.remote()) == 1  # the actor goes on
     w = [rec for rec in conductor.call("list_workers", timeout=10.0)
          if rec["address"]][0]

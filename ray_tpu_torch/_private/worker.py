@@ -1588,7 +1588,15 @@ class ActorRuntime:
         try:
             if method in _UNPORTED_HOOKS:
                 raise NotImplementedError(_UNPORTED_HOOKS[method])
-            fn = getattr(self.instance, method)
+            if method == "__ray_tpu_col_init__":
+                # the universal hook that lets create_collective_group
+                # init a group on any actor class (reference declarative
+                # mode, collective.py:151)
+                from ..util import collective as _collective
+
+                fn = _collective.init_collective_group
+            else:
+                fn = getattr(self.instance, method)
             args = tuple(self.worker._materialize(a) for a in args)
             kwargs = {k: self.worker._materialize(v)
                       for k, v in kwargs.items()}
@@ -1649,9 +1657,6 @@ _PROFILER_NOT_PORTED = ("device profiles of a worker are not ported yet "
 # actor methods the JAX package answers on every actor, whose targets
 # are not ported yet
 _UNPORTED_HOOKS = {
-    "__ray_tpu_col_init__":
-        "collective groups are not ported yet (ROADMAP Queue 1 item 3: "
-        "the collective actors of util/collective.py)",
     "__ray_tpu_compiled_loop__":
         "compiled DAGs are not ported yet (ROADMAP Queue 1 item 8: dag/)",
 }

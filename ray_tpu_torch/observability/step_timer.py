@@ -9,15 +9,23 @@ the timer it is given; the loop closes each step with `end_step()`,
 whose record is kept in `records` (the newest `KEEP`). A loop that
 wants no timing passes no timer; a disabled timer (`enabled=False`, what
 `train.session.get_step_timer()` gives outside a session) records
-nothing. Shipping records to a cluster
-conductor comes with the port of the runtime.
+nothing.
+
+Closed records are also buffered and shipped to the conductor in
+batches (`report_train_steps`, the JAX package's cadence: every
+`_FLUSH_EVERY` records or `_FLUSH_INTERVAL_S`, and at `close()`), where
+`observability.gang` builds the gang-wide skew and straggler views
+(`util.state.train_progress`) and the merged timeline its step markers.
+Without a connected worker nothing is shipped and the buffer keeps the
+newest `_PENDING_CAP` records. The JAX package's RAY_TPU_STEP_TELEMETRY
+switch is `enabled=`: the port reads no environment.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import time
-from typing import Any, Deque, Dict, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 from . import flops as _flops
 
@@ -28,6 +36,10 @@ PHASES = ("data_wait", "bubble_wait", "compile", "device_step",
 
 _EMA_ALPHA = 0.3  # trailing EMA weight of the newest step
 KEEP = 4096       # step records kept
+
+_FLUSH_EVERY = 16          # records per conductor batch
+_FLUSH_INTERVAL_S = 2.0    # the JAX package's metric / span cadence
+_PENDING_CAP = 4096        # clusterless runs keep only this many records
 
 
 def percentile(sorted_vals, q: float) -> float:
@@ -84,14 +96,22 @@ _NULL_CM = contextlib.nullcontext()
 
 
 class StepTimer:
-    """Step clock of one training loop."""
+    """Step clock of one training loop: rank `rank` of `world_size` in
+    run `run_id` (the conductor's key for its records)."""
 
-    def __init__(self, enabled: bool = True):
+    def __init__(self, run_id: str = "", rank: int = 0,
+                 world_size: int = 1, enabled: bool = True):
+        self.run_id = run_id or "default"
+        self.rank = rank
+        self.world_size = world_size
         self.enabled = enabled
         self.records: Deque[Dict[str, Any]] = collections.deque(maxlen=KEEP)
         self._step_index = 0
         self._step_start: Optional[float] = None
+        self._step_start_wall: Optional[float] = None
         self._acc: Dict[str, float] = {}
+        self._pending: List[Dict[str, Any]] = []
+        self._last_flush = 0.0
         # MFU inputs, filled in by TrainStep at its first step
         self.tokens_per_step: Optional[int] = None
         self.flops_per_step: Optional[float] = None
@@ -109,6 +129,7 @@ class StepTimer:
         if self._step_start is None:
             self._begin_step()
             self._step_start -= seconds
+            self._step_start_wall -= seconds
         self._acc[name] = self._acc.get(name, 0.0) + seconds
 
     def ensure_step_open(self) -> None:
@@ -118,6 +139,7 @@ class StepTimer:
 
     def _begin_step(self) -> None:
         self._step_start = _now()
+        self._step_start_wall = time.time()
         self._acc = {}
 
     def set_tokens_per_step(self, n: int) -> None:
@@ -138,9 +160,11 @@ class StepTimer:
         known (MFU against the device-step time)."""
         if not self.enabled or self._step_start is None:
             return None
-        total_s = _now() - self._step_start
-        rec: Dict[str, Any] = {"step": self._step_index,
-                               "total_ms": total_s * 1e3}
+        now, wall = _now(), time.time()
+        total_s = now - self._step_start
+        rec: Dict[str, Any] = {"step": self._step_index, "rank": self.rank,
+                               "t_start": self._step_start_wall,
+                               "t_end": wall, "total_ms": total_s * 1e3}
         accounted = 0.0
         for name in PHASES:
             s = self._acc.get(name, 0.0)
@@ -156,6 +180,40 @@ class StepTimer:
             rec["mfu"] = m
         self._step_index += 1
         self._step_start = None
+        self._step_start_wall = None
         self._acc = {}
         self.records.append(rec)
+        self._pending.append(rec)
+        if len(self._pending) >= _FLUSH_EVERY or \
+                now - self._last_flush > _FLUSH_INTERVAL_S:
+            self.flush()
         return rec
+
+    def flush(self) -> None:
+        """Ship the buffered records to the conductor (best effort:
+        without a connected worker they stay buffered, the newest
+        `_PENDING_CAP` of them)."""
+        if not self._pending:
+            return
+        self._last_flush = _now()
+        batch, self._pending = self._pending, []
+        from .._private import worker as worker_mod
+
+        w = worker_mod.global_worker
+        if w is None:
+            self._pending = batch[-_PENDING_CAP:]
+            return
+        try:
+            w.conductor.notify("report_train_steps", self.run_id,
+                               self.rank, batch)
+        except Exception:  # noqa: BLE001 — cluster shutting down
+            pass
+
+    def close(self) -> None:
+        """Teardown: flush the record tail. A step still open is dropped,
+        not closed: a teardown-length pseudo-step would skew the gang's
+        statistics."""
+        self._step_start = None
+        self._step_start_wall = None
+        self._acc = {}
+        self.flush()

@@ -1,8 +1,13 @@
 """Timeline markers (part of the port of ray_tpu/observability/
-timeline.py): conductor task events, resilience events and weight-fabric
-events as chrome-trace events, merged into one sorted list.
+timeline.py): conductor task events, training step records, resilience
+events, weight-fabric events and the other subsystems' markers as
+chrome-trace events, merged into one sorted list.
 
 - task events: pid = job id,       tid = executing worker
+- step markers: pid = "train:<run_id>", tid = "rank <r>": one X event
+  per step carrying the phase breakdown in args (`bubble_wait_ms` of a
+  pipeline stage among them), plus a counter series for tokens/s and
+  MFU; the records come from the step timer's conductor flush;
 - resilience:  pid = "resilience", tid = event kind: instant markers for
   preemptions, restarts, quarantines, grace checkpoints, chaos
   injections and recoveries;
@@ -20,11 +25,13 @@ events as chrome-trace events, merged into one sorted list.
   breaker trips are resilience markers too);
 - online:      pid = "online",     tid = the sampler id, or the event
   kind for the learner's: the online loop's rollout / swap / ingest /
-  publish markers.
+  publish markers;
+- pipeline:    pid = "pipeline",   tid = "stage <s>" (or the event
+  kind): one lane per MPMD stage-gang, its formation, run reports and
+  death.
 
-The spans and the training step records of the JAX package's merged
-trace wait for the port of `util/tracing.py` and the step timer's
-conductor flush (ROADMAP Queue 1 items 3 and 7): `merged_chrome_trace`
+The spans of the JAX package's merged trace wait for the port of
+`util/tracing.py` (ROADMAP Queue 1 item 7): `merged_chrome_trace`
 refuses them.
 """
 from __future__ import annotations
@@ -47,6 +54,41 @@ def task_trace_events(task_events: List[Dict[str, Any]]
             "args": {"task_id": ev["task_id"],
                      "status": ev.get("status", "FINISHED")},
         })
+    return out
+
+
+def step_trace_events(records: List[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """Chrome-trace events for flattened step records (each carries
+    run_id and rank, see the conductor's get_train_steps)."""
+    out: List[Dict[str, Any]] = []
+    for rec in records:
+        t0, t1 = rec.get("t_start"), rec.get("t_end")
+        if t0 is None or t1 is None:
+            continue
+        pid = f"train:{rec.get('run_id', 'default')}"
+        tid = f"rank {rec.get('rank', 0)}"
+        args = {k: round(v, 3) for k, v in rec.items()
+                if k.endswith("_ms") and isinstance(v, (int, float))}
+        for key in ("tokens", "tokens_per_sec", "mfu"):
+            if key in rec:
+                args[key] = rec[key]
+        out.append({
+            "name": f"step {rec.get('step', '?')}", "cat": "train_step",
+            "ph": "X", "ts": t0 * 1e6,
+            "dur": max(0.0, t1 - t0) * 1e6,
+            "pid": pid, "tid": tid, "args": args,
+        })
+        # counter tracks: throughput / MFU trend lines under the steps
+        counters = {}
+        if rec.get("tokens_per_sec") is not None:
+            counters["tokens_per_sec"] = round(rec["tokens_per_sec"], 1)
+        if rec.get("mfu") is not None:
+            counters["mfu_pct"] = round(100.0 * rec["mfu"], 3)
+        if counters:
+            out.append({"name": "throughput", "cat": "train_step",
+                        "ph": "C", "ts": t1 * 1e6, "pid": pid,
+                        "args": counters})
     return out
 
 
@@ -189,6 +231,32 @@ def online_trace_events(events: List[Dict[str, Any]]
     return out
 
 
+def pipeline_trace_events(events: List[Dict[str, Any]]
+                          ) -> List[Dict[str, Any]]:
+    """Instant markers of MPMD pipeline events (open, stage_registered,
+    formed, stage_report, stage_death, closed): one lane per stage under
+    pid "pipeline"."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        name = ev.get("pipeline")
+        stage = ev.get("stage")
+        label = f"{kind}:{name}" if name else kind
+        if stage is not None:
+            label += f"/stage{stage}"
+        out.append({
+            "name": label, "cat": "pipeline", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "pipeline",
+            "tid": f"stage {stage}" if stage is not None else kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
 def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         spans: List[Dict[str, Any]],
                         step_records: List[Dict[str, Any]],
@@ -203,15 +271,18 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         autoscale_events: Optional[
                             List[Dict[str, Any]]] = None,
                         online_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        pipeline_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
-    """Merge the sources into one list sorted by time. `spans` and
-    `step_records` must be empty until their sources are ported."""
-    if spans or step_records:
+    """Merge the sources into one list sorted by time. `spans` must be
+    empty until util/tracing.py is ported."""
+    if spans:
         raise NotImplementedError(
-            "spans and step records wait for the port of util/tracing.py "
-            "and the step timer's conductor flush")
+            "spans wait for the port of util/tracing.py (ROADMAP Queue 1 "
+            "item 7)")
     trace = task_trace_events(task_events)
+    trace.extend(step_trace_events(step_records))
     if resilience_events:
         trace.extend(resilience_trace_events(resilience_events))
     if weight_events:
@@ -224,13 +295,16 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
         trace.extend(autoscale_trace_events(autoscale_events))
     if online_events:
         trace.extend(online_trace_events(online_events))
+    if pipeline_events:
+        trace.extend(pipeline_trace_events(pipeline_events))
     trace.sort(key=lambda e: e.get("ts", 0.0))
     return trace
 
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
-    """Pull the task, resilience, weight, disagg, KV-plane, autoscale
-    and online events from the live cluster and merge them."""
+    """Pull the task events, step records and the resilience, weight,
+    disagg, KV-plane, autoscale, online and pipeline events from the
+    live cluster and merge them."""
     from .._private import worker as worker_mod
 
     w = worker_mod.global_worker
@@ -238,10 +312,12 @@ def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
         raise RuntimeError("ray_tpu_torch.init() must be called first")
     w._flush_task_events()
     return merged_chrome_trace(
-        w.conductor.call("get_task_events", limit, timeout=30.0), [], [],
+        w.conductor.call("get_task_events", limit, timeout=30.0), [],
+        w.conductor.call("get_train_steps", limit, timeout=30.0),
         w.conductor.call("get_resilience_events", limit, timeout=30.0),
         w.conductor.call("get_weight_events", limit, timeout=30.0),
         w.conductor.call("get_disagg_events", limit, timeout=30.0),
         w.conductor.call("get_kvplane_events", limit, timeout=30.0),
         w.conductor.call("get_autoscale_events", limit, timeout=30.0),
-        w.conductor.call("get_online_events", limit, timeout=30.0))
+        w.conductor.call("get_online_events", limit, timeout=30.0),
+        w.conductor.call("get_pipeline_events", limit, timeout=30.0))

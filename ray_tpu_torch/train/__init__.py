@@ -4,7 +4,8 @@
 counterpart, its in-process `spmd` mode) runs a `train_fn` under a
 session (`report`, `get_checkpoint`, `get_dataset_shard`) with
 checkpoint retention and restarts; `async_save` / `restore` write and
-reshard checkpoints in the JAX package's format.
+reshard checkpoints in the JAX package's format. `PipelineTrainer`
+(MPMD pipelines, `ray_tpu_torch.mpmd`) resolves lazily.
 """
 from .config import (  # noqa: F401
     CheckpointConfig,
@@ -29,3 +30,15 @@ from .session import (  # noqa: F401
     report,
 )
 from .trainer import Result, TorchTrainer, TrainStep  # noqa: F401
+
+
+def __getattr__(name):
+    # PipelineTrainer lives in ray_tpu_torch.mpmd but is part of the
+    # train surface; resolved lazily to keep `import ray_tpu_torch.train`
+    # free of the mpmd / channel machinery
+    if name == "PipelineTrainer":
+        from ..mpmd import PipelineTrainer
+
+        return PipelineTrainer
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
-"""AdamW with `optax.adamw`'s semantics and defaults, in place, and an
-Adam whose frozen top-level leaves get no update and no state.
+"""AdamW with `optax.adamw`'s semantics and defaults, in place, an Adam
+whose frozen top-level leaves get no update and no state, and plain SGD.
 
 optax.adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
 weight_decay=1e-4) is the chain scale_by_adam -> add_decayed_weights ->
@@ -28,6 +28,9 @@ optax.set_to_zero()}, label_fn)``: the Adam update above with weight
 decay 0 on every leaf under a top-level key not in `frozen`, and nothing
 at all on the others: they keep no moments and stay bit-identical across
 steps (which is what lets a delta publication skip them).
+
+`SGD` is `optax.sgd(learning_rate)` with no momentum and no decay:
+``p += -learning_rate g``, in the parameter's dtype.
 """
 from __future__ import annotations
 
@@ -142,3 +145,28 @@ def frozen_adam(learning_rate: float, frozen: Sequence[str] = (),
     """`optax.adam` on every top-level entry not in `frozen`,
     `optax.set_to_zero` on those."""
     return FrozenAdam(learning_rate, tuple(frozen), b1, b2, eps, eps_root)
+
+
+@dataclass(frozen=True)
+class SGD:
+    learning_rate: float
+
+    def init(self, params: Any) -> Dict[str, Any]:
+        """No state: `optax.sgd` without momentum keeps none."""
+        return {}
+
+    @torch.no_grad()
+    def update_(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
+                params: Any) -> None:
+        """One step: `grads` in the order of `tree_leaves(params)`;
+        `params` are updated in place."""
+        ps, g = _local(tree_leaves(params)), _local(grads)
+        if len(g) != len(ps):
+            raise ValueError(f"{len(g)} grads for {len(ps)} params")
+        # optax's two roundings: u = -lr g, then p + u
+        torch._foreach_add_(ps, torch._foreach_mul(g, -self.learning_rate))
+
+
+def sgd(learning_rate: float) -> SGD:
+    """`optax.sgd(learning_rate)`: no momentum, no weight decay."""
+    return SGD(learning_rate)

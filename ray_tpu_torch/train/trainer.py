@@ -198,6 +198,9 @@ class _TrainWorker:
                         attempt)
             out.append((metrics, checkpoint))
 
+        # each rank records its own steps; the conductor aggregates the
+        # gang's view (straggler detection, the merged timeline)
+        timer = StepTimer(run_id, rank=self.rank, world_size=self.world)
         ctx = TrainContext(
             world_size=self.world, rank=self.rank, trial_dir=trial_dir,
             dataset_shards=shards,
@@ -205,7 +208,7 @@ class _TrainWorker:
             else None,
             dist_key=dist_key, device=device, slice_id=slice_id,
             num_slices=num_slices, run_id=run_id, attempt=attempt,
-            _report_fn=report_fn, _step_timer=StepTimer(),
+            _report_fn=report_fn, _step_timer=timer,
             _chaos=monkey_from_spec(chaos_plan, rank=self.rank,
                                     attempt=attempt))
         preempt_sub = _subscribe_preemption(ctx)
@@ -225,6 +228,7 @@ class _TrainWorker:
         finally:
             _set_session(None)
             _unsubscribe_preemption(preempt_sub)
+            timer.close()  # ship this rank's tail of step records
             if formed:
                 import torch.distributed as dist
 
@@ -419,12 +423,14 @@ class TorchTrainer:
                 manager.register(checkpoint, metrics)
 
         name = self.run_config.name or "default"
+        run_id = f"{name}/{uuid.uuid4().hex[:8]}"
+        timer = StepTimer(run_id, rank=0, world_size=1)
         ctx = TrainContext(
             world_size=1, rank=0, experiment_name=name, trial_dir=storage,
             dataset_shards=self._shard_datasets(0, 1),
             latest_checkpoint=latest,
-            run_id=f"{name}/{uuid.uuid4().hex[:8]}", attempt=attempt,
-            _report_fn=report_fn, _step_timer=StepTimer(),
+            run_id=run_id, attempt=attempt,
+            _report_fn=report_fn, _step_timer=timer,
             _chaos=monkey_from_spec(self.chaos_plan, rank=0,
                                     attempt=attempt))
         cfg = dict(self.train_loop_config)
@@ -438,6 +444,7 @@ class TorchTrainer:
         finally:
             _set_session(None)
             _unsubscribe_preemption(preempt_sub)
+            timer.close()  # flush the tail of the step-record batch
             # drain in-flight async saves before the result: best/latest
             # must reflect every reported checkpoint
             for c in pending_ckpts:

@@ -1,7 +1,8 @@
 """Cluster state views (part of the port of ray_tpu/util/state.py): the
-weight fabric's registry, the recovery subsystem, disaggregated serving,
-the global KV plane, serving fault tolerance, the serving autoscaler and
-the online learning loop. The rest of that module
+flight recorder's training progress, the weight fabric's registry, the
+recovery subsystem, disaggregated serving, the global KV plane, serving
+fault tolerance, the serving autoscaler, the online learning loop and
+the MPMD pipelines. The rest of that module
 (task, actor and the other serving views, the merged timeline export)
 waits for ROADMAP Queue 1 item 8; so do the CLI, dashboard and
 Prometheus surfaces of these views.
@@ -18,6 +19,18 @@ def _worker():
     if w is None:
         raise RuntimeError("ray_tpu_torch.init() must be called first")
     return w
+
+
+def train_progress(run: Optional[str] = None) -> Dict[str, Any]:
+    """Gang-wide training telemetry: {run_id: {world, last_step,
+    per_rank: {rank: {mean_ms, p50_ms, p99_ms, tokens_per_sec, mfu,
+    ...}}, last_step_skew, last_step_breakdown, phase_summary,
+    stragglers}}, from the step records every rank's StepTimer ships
+    (see observability.gang). `run` filters to one run id."""
+    out = _worker().conductor.call("get_train_progress", timeout=30.0)
+    if run is not None:
+        out = {k: v for k, v in out.items() if k == run}
+    return out
 
 
 def weight_versions(name: Optional[str] = None) -> Dict[str, Any]:
@@ -87,6 +100,21 @@ def online_status() -> Dict[str, Any]:
     return _worker().conductor.call("get_online_status", timeout=10.0)
 
 
+def pipeline_status(name: Optional[str] = None) -> Dict[str, Any]:
+    """MPMD pipelines (mpmd/): per pipeline the stage registry (formed
+    flag, each stage's slice and worker identity), per-stage run stats
+    (steps, bubble fraction, channel bytes, metric snapshots), cross-stage
+    totals, and the channel mailbox's depth. `name` filters to one
+    pipeline."""
+    out = _worker().conductor.call("get_pipeline_status", timeout=10.0)
+    if name is not None:
+        out = {"pipelines": {k: v for k, v
+                             in out.get("pipelines", {}).items()
+                             if k == name},
+               "mailbox_depth": out.get("mailbox_depth")}
+    return out
+
+
 __all__ = ["autoscaler_status", "disagg_status", "kvplane_status",
-           "online_status", "resilience_status", "servefault_status",
-           "weight_versions"]
+           "online_status", "pipeline_status", "resilience_status",
+           "servefault_status", "train_progress", "weight_versions"]

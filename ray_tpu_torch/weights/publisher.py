@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..train.async_checkpoint import _leaf_snapshots, _process
 from ..tree import tree_flatten
 from ..util import chunks
-from ._common import require_worker
+from ..util.runtime import require_worker
 
 
 def _worker():

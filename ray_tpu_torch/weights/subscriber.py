@@ -26,7 +26,7 @@ from ..train.async_checkpoint import _LeafReader, materialize_like
 from ..train.checkpoint import storage_dtype, to_tensor
 from ..tree import tree_flatten, tree_unflatten
 from ..util import chunks
-from ._common import require_worker
+from ..util.runtime import require_worker
 
 
 def _worker():

@@ -106,6 +106,17 @@ under that name on the card's lease again. The trainer's worker gang
 (`train_gang`): two fits of
 GPT-2 tiny on 2-rank gloo gangs of CPU ranks, one killed by a chaos plan
 and restarted from its checkpoint; one card holds no gang of GPU ranks.
+The runtime's user surface (`runtime_surface`): a named GPU actor in a
+runtime_env (env_vars, a working_dir, py_modules; CUDA_VISIBLE_DEVICES
+in env_vars refused) scoring GPT-2 small on the kernels (its launches
+counted in its process, its loss bit-equal to this driver's), its span
+under a driver span (and in the merged timeline), its CUPTI trace from
+`util.profiling.profile_actor` while it scores in a loop (the
+`flash_fwd` and `ce_fwd` kernels named among its GPU kernel events,
+their counts and device time printed), its metric in the Prometheus
+text and its calls in the state API, a `ray://` client in a subprocess
+getting the same loss and refused a CUDA tensor, and the control-plane
+microbenchmark (`_private/perf.py`) on this machine's CPUs.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -5932,6 +5943,382 @@ def phase_train_gang() -> None:
           "resilience_counters": counters})
 
 
+# --------------------------------------------------------- runtime surface
+# How a user ships code to the workers, reaches the cluster from outside
+# it and sees what it did: a GPU actor in a runtime_env scoring GPT-2
+# small on the kernels, spans across the call, the actor's CUPTI profile,
+# its metric and the state API, a ray:// client, the microbenchmark.
+
+SURFACE_NAME = "surface-scorer"
+SURFACE_SEED = 97
+SURFACE_PROFILE_S = 3.0
+SURFACE_CLIENT_CALLS = 10
+SURFACE_PERF_SCALE = 0.05
+SURFACE_SPAN_BOUND_S = 15.0
+# written into PERF.md before the first run on the card
+SURFACE_PREDICTED = {"cold_start_s": [10, 20],
+                     "profile_scores": [60, 130],
+                     "profile_flash_fwd_launches": [1440, 3120],
+                     "profile_ce_fwd_launches": [60, 130],
+                     "client_call_ms_median": [12, 25]}
+SURFACE_KERNELS = {"flash_fwd": "flash_fwd_kernel", "ce_fwd": "ce_fwd_kernel"}
+
+SURFACE_CLIENT = """
+import json, sys, time
+import ray_tpu_torch as rt
+from ray_tpu_torch._private.serialization import GpuLeaseRequiredError
+
+t0 = time.perf_counter()
+info = rt.init(address="ray://" + sys.argv[1])
+connect_s = time.perf_counter() - t0
+h = rt.get_actor(sys.argv[2])
+seed, calls = int(sys.argv[3]), int(sys.argv[4])
+losses, ms = [], []
+for i in range(calls + 1):
+    t0 = time.perf_counter()
+    losses.append(rt.get(h.loss_of.remote(seed), timeout=300.0))
+    if i:  # the first call warms up
+        ms.append((time.perf_counter() - t0) * 1e3)
+ref = h.cuda_loss_of.remote(seed)
+try:
+    rt.get(ref, timeout=300.0)
+    refused = "loaded"
+except GpuLeaseRequiredError as err:
+    refused = str(err)
+rt.shutdown()
+print(json.dumps({"client": info.get("client"), "connect_s": connect_s,
+                  "losses": losses, "ms": ms, "refused": refused,
+                  "ref": ref.id}))
+"""
+
+
+def surface_tokens(seed: int) -> tuple:
+    """GPT-2 small's [4, 512] tokens and targets from `seed`, on the CPU
+    (the driver, the actor and a client make the same ones)."""
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, 50257, (4, 512), generator=gen)
+    return tok, torch.randint(0, 50257, (4, 512), generator=gen)
+
+
+class SurfaceActor(RuntimeGpuActor):
+    """A GPU actor whose runtime_env stages a working directory and a
+    package and sets a variable; it scores as RuntimeGpuActor does and
+    counts its scores in a metric."""
+
+    def __init__(self):
+        super().__init__()
+        from ray_tpu_torch.util import metrics
+
+        self.scores = metrics.Counter(
+            "surface_scores_total", "GPT-2 small scores in the actor")
+        self.count = 0
+
+    def staged(self) -> dict:
+        """What the runtime_env gave this process."""
+        import surface_helper  # the working_dir's module
+        import surface_pkg  # the py_modules' package
+
+        with open("surface_data.txt") as f:
+            data = f.read()
+        return {"var": os.environ.get("RTT_SURFACE_VAR"),
+                "helper": surface_helper.VALUE, "pkg": surface_pkg.VALUE,
+                "data": data, "cwd": os.getcwd(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def score(self, tokens, targets):
+        out = super().score(tokens, targets)
+        self.scores.inc()
+        self.count += 1
+        return out
+
+    def cuda_loss_of(self, seed: int):
+        tok, tgt = surface_tokens(seed)
+        from ray_tpu_torch.models import gpt2
+
+        with torch.inference_mode():
+            return gpt2.gpt2_loss(self.params, tok.cuda(), tgt.cuda(),
+                                  gpt2.GPT2Config.small()).clone()
+
+    def loss_of(self, seed: int) -> float:
+        return float(self.cuda_loss_of(seed))
+
+    def flush_metrics(self) -> int:
+        from ray_tpu_torch.util import metrics
+
+        metrics.flush()
+        return self.count
+
+
+def surface_kernels(trace_dir: str) -> dict:
+    """Each port kernel's GPU kernel events in a profile: count and
+    summed device time (ms), by CUPTI's kernel names."""
+    from ray_tpu_torch.util import profiling
+
+    files = profiling.trace_files(trace_dir)
+    check(len(files) == 1, f"runtime_surface: profile files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") == "kernel"]
+    check(gpu, "runtime_surface: the profile holds no GPU kernel event "
+          "(no CUPTI trace)")
+    busy = sum(e.get("dur", 0.0) for e in gpu) / 1e3
+    span = (max(e["ts"] + e.get("dur", 0.0) for e in gpu)
+            - min(e["ts"] for e in gpu)) / 1e3
+    by_name: dict = {}
+    for e in gpu:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
+    out = {"gpu_kernel_events": len(gpu), "gpu_busy_ms": busy,
+           "kernel_span_ms": span, "busy_share": busy / span,
+           "top_kernels_ms": {n[:80]: d / 1e3 for n, d in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:6]}}
+    for name, symbol in SURFACE_KERNELS.items():
+        mine = [e for e in gpu if symbol in e.get("name", "")]
+        out[name] = {"count": len(mine),
+                     "device_ms": sum(e.get("dur", 0.0) for e in mine) / 1e3}
+    return out
+
+
+def phase_runtime_surface(gpt2) -> None:
+    """See surface_body; then the control-plane microbenchmark on this
+    machine's CPUs."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import perf
+    from ray_tpu_torch.util import tracing
+
+    torch.cuda.empty_cache()
+    stage = tempfile.mkdtemp(prefix="surface-")
+    info = rt.init(num_cpus=4)
+    try:
+        tracing.enable()
+        line = surface_body(rt, gpt2, stage)
+    finally:
+        tracing._enabled = False
+        os.environ.pop(tracing.ENV_TRACING, None)
+        end_session(rt, info["session_dir"], "runtime_surface")
+        import shutil
+
+        shutil.rmtree(stage, ignore_errors=True)
+    emit(line)
+    t0 = time.perf_counter()
+    sink = perf.run(scale=SURFACE_PERF_SCALE)
+    rates = {r["name"]: {k: v for k, v in r.items()
+                         if k.endswith(("_per_s", "p50_ms"))}
+             for r in sink}
+    check(all(v > 0 for r in rates.values() for v in r.values()),
+          f"runtime_surface: microbenchmark rates {rates}")
+    emit({"phase": "runtime_surface_perf", "card": card_line(),
+          "host_cpus": os.cpu_count(), "scale": SURFACE_PERF_SCALE,
+          "seconds": time.perf_counter() - t0, "rates": rates,
+          "note": "host numbers of the machine that holds the card"})
+
+
+def surface_body(rt, gpt2, stage: str) -> dict:
+    """A named GPU actor in a runtime_env (env_vars, working_dir,
+    py_modules) scores GPT-2 small on the kernels, bit-equal to this
+    driver; a driver span parents its span; profile_actor takes its
+    CUPTI trace while it scores in a loop; its metric and calls show in
+    the state API; a ray:// client in a subprocess finds it by name,
+    gets the same loss and is refused a CUDA tensor."""
+    from ray_tpu_torch.client import ClientProxy
+    from ray_tpu_torch.util import profiling, state, tracing
+
+    wd, mods = os.path.join(stage, "wd"), os.path.join(stage, "mods")
+    os.makedirs(os.path.join(mods, "surface_pkg"))
+    os.makedirs(wd)
+    with open(os.path.join(wd, "surface_helper.py"), "w") as f:
+        f.write("VALUE = 'working-dir'\n")
+    with open(os.path.join(wd, "surface_data.txt"), "w") as f:
+        f.write("staged")
+    with open(os.path.join(mods, "surface_pkg", "__init__.py"), "w") as f:
+        f.write("VALUE = 'py-module'\n")
+    env = {"env_vars": {"RTT_SURFACE_VAR": "on"}, "working_dir": wd,
+           "py_modules": [mods]}
+    Actor = rt.remote(num_gpus=1)(SurfaceActor)
+    try:
+        Actor.options(runtime_env={"env_vars": {
+            "CUDA_VISIBLE_DEVICES": "0"}}).remote()
+        refused_visible = False
+    except ValueError as e:
+        refused_visible = "CUDA_VISIBLE_DEVICES" in str(e)
+    check(refused_visible, "runtime_surface: env_vars with "
+          "CUDA_VISIBLE_DEVICES were not refused")
+    t0, t0_boot = time.perf_counter(), boot_clock()
+    a = Actor.options(name=SURFACE_NAME, runtime_env=env).remote()
+    where = rt.get(a.ready.remote(), timeout=300.0)
+    cold_s = time.perf_counter() - t0
+    cold_split = cold_start_split(t0_boot, where, boot_clock())
+    staged = rt.get(a.staged.remote(), timeout=60.0)
+    check(staged["var"] == "on" and staged["helper"] == "working-dir"
+          and staged["pkg"] == "py-module" and staged["data"] == "staged"
+          and os.path.join("runtime_env", "") in staged["cwd"]
+          and staged["visible"] == rt._visible_gpu_ids(1)[0],
+          f"runtime_surface: the actor's runtime_env {staged}")
+
+    cfg = gpt2.GPT2Config.small()
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    check(rt.get(a.load.remote(rt.put(params)), timeout=300.0) == ["cuda"],
+          "runtime_surface: the actor's weights are not all on cuda")
+    tok, tgt = surface_tokens(SURFACE_SEED)
+    tok_d, tgt_d = tok.cuda(), tgt.cuda()
+    with torch.inference_mode():
+        loss_d = gpt2.gpt2_loss(params, tok_d, tgt_d, cfg)
+    del params
+    with tracing.span("surface-driver") as root:
+        loss_a, launches, plain = rt.get(a.score.remote(tok_d, tgt_d),
+                                         timeout=300.0)
+    hold_launches("runtime_surface: the actor's scoring", launches,
+                  {**_NO_LAUNCHES, "flash_fwd": 2 * cfg.num_layers,
+                   "ce_fwd": 1}, 1)
+    check(plain == 0, f"runtime_surface: {plain} plain attention calls")
+    check(loss_a.device.type == "cuda" and torch.equal(loss_a, loss_d),
+          f"runtime_surface: actor loss {float(loss_a)} vs driver "
+          f"{float(loss_d)}, not bit-equal")
+
+    # spans: the actor's under the driver's submit span, under its root
+    want = f"actor:{SurfaceActor.__name__}.score"
+    chain: dict = {}
+
+    def spans_in() -> bool:
+        w = rt._private.worker.global_worker
+        w._flush_task_events()
+        spans = w.conductor.call("get_spans", timeout=30.0)
+        chain["submit"] = [sp for sp in spans
+                           if sp["parent_id"] == root.span_id]
+        chain["actor"] = [sp for sp in spans if sp["name"] == want
+                          and sp["trace_id"] == root.trace_id
+                          and sp["parent_id"] in {
+                              x["span_id"] for x in chain["submit"]}]
+        return bool(chain["actor"])
+
+    span_s = wait_for(spans_in, SURFACE_SPAN_BOUND_S,
+                      f"the actor's span {want}")
+    check(len(chain["submit"]) == 1 and len(chain["actor"]) == 1
+          and chain["submit"][0]["name"] == f"submit:{a.actor_id[:8]}.score"
+          and chain["actor"][0]["pid"] == where["pid"],
+          f"runtime_surface: span chain {chain}")
+    lane = [e for e in state.timeline(merged=True)
+            if e.get("cat") == "span" and e["name"] == want
+            and e["tid"] == root.trace_id[:8]]
+    check(len(lane) == 1, f"runtime_surface: timeline span lane {lane}")
+
+    # the device profile while the actor scores in a loop
+    stop, scored = threading.Event(), []
+
+    def loop():
+        while not stop.is_set():
+            rt.get(a.score.remote(tok_d, tgt_d), timeout=300.0)
+            scored.append(time.perf_counter())
+
+    looper = threading.Thread(target=loop, daemon=True)
+    looper.start()
+    try:
+        wait_for(lambda: len(scored) >= 3, 60.0, "the scoring loop")
+        t_start = time.perf_counter()
+        trace_dir = profiling.profile_actor(a, seconds=SURFACE_PROFILE_S,
+                                            tag="surface")
+        t_end = time.perf_counter()
+    finally:
+        stop.set()
+        looper.join(timeout=300.0)
+    check(not looper.is_alive(), "runtime_surface: the scoring loop hangs")
+    window = surface_kernels(trace_dir)
+    for name in SURFACE_KERNELS:
+        check(window[name]["count"] > 0,
+              f"runtime_surface: no {name} kernel in the actor's CUPTI "
+              f"trace {window}")
+    # one ce_fwd a score: the scores the trace holds
+    window["scores_in_trace"] = window["ce_fwd"]["count"]
+    emit({"phase": "runtime_surface_profile", "card": card_line(),
+          "seconds": SURFACE_PROFILE_S, "profile_call_s": t_end - t_start,
+          "kernels": window,
+          "predicted": {k: v for k, v in SURFACE_PREDICTED.items()
+                        if k.startswith("profile_")}})
+
+    # the device memory snapshot, in this process (a pickle, where the
+    # JAX package writes pprof)
+    import pickle
+
+    profiling.record_memory_history()
+    try:
+        held = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        snap_path = profiling.save_device_memory_profile(
+            os.path.join(stage, "memory.pickle"))
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    with open(snap_path, "rb") as f:
+        snap = pickle.load(f)
+    snap_bytes = sum(s.get("total_size", 0) for s in snap["segments"])
+    check(snap_bytes >= held.numel() and any(
+        b.get("frames") for s in snap["segments"] for b in s["blocks"]),
+        "runtime_surface: the memory snapshot holds no recorded block")
+    del held
+
+    # the actor's metric and its calls in the state API
+    count = rt.get(a.flush_metrics.remote(), timeout=60.0)
+    series = f"surface_scores_total{{WorkerId="
+    wait_for(lambda: any(
+        ln.startswith(series) and ln.endswith(f" {float(count)}")
+        for ln in state.prometheus_metrics().splitlines()), 15.0,
+        f"the actor's counter at {count}")
+    actors = [r for r in state.list_actors() if r.get("name") == SURFACE_NAME]
+    calls = f"{a.actor_id[:8]}.score"
+    summary = state.summarize_tasks()
+    tasks = state.list_tasks(name=calls)
+    rpc = state.rpc_stats()
+    check(len(actors) == 1 and actors[0].get("state") == "ALIVE"
+          and summary.get(calls, {}).get("count", 0) >= count
+          and len(tasks) >= count
+          and {"create_actor", "report_spans", "report_metrics"} <= set(rpc),
+          f"runtime_surface: state {actors} {summary.get(calls)} "
+          f"{len(tasks)} tasks, rpc {sorted(rpc)}")
+
+    # a ray:// client in a subprocess, through a proxy here
+    proxy = ClientProxy(host="127.0.0.1", port=0)
+    try:
+        host, port = proxy.address
+        cenv = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        cenv["PYTHONPATH"] = os.pathsep.join(
+            [here] + ([cenv["PYTHONPATH"]] if cenv.get("PYTHONPATH")
+                      else []))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", SURFACE_CLIENT, f"{host}:{port}",
+             SURFACE_NAME, str(SURFACE_SEED), str(SURFACE_CLIENT_CALLS)],
+            capture_output=True, text=True, timeout=600, env=cenv)
+        client_s = time.perf_counter() - t0
+    finally:
+        proxy.stop()
+    check(out.returncode == 0, f"runtime_surface: the client exited "
+          f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-4000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    check(got["client"] is True
+          and all(x == float(loss_d) for x in got["losses"]),
+          f"runtime_surface: client losses {got['losses']} vs the "
+          f"driver's {float(loss_d)}")
+    check(got["ref"] in got["refused"] and "no GPU lease" in got["refused"],
+          f"runtime_surface: the client's CUDA get said {got['refused']!r}")
+    return {
+        "phase": "runtime_surface", "card": card_line(),
+        "model": "gpt2-small", "dtype": "bfloat16", "tokens": [4, 512],
+        "runtime_env": sorted(env), "cuda_visible_devices_refused": True,
+        "cold_start_s": cold_s, "cold_start_split": cold_split,
+        "actor_launches": launches, "loss_actor": float(loss_a),
+        "loss_driver": float(loss_d), "loss_bit_equal": True,
+        "span_wait_s": span_s, "memory_snapshot_segment_bytes": snap_bytes,
+        "span_chain": ["surface-driver", chain["submit"][0]["name"], want],
+        "metric_scores": count, "summarize_count": summary[calls]["count"],
+        "client_connect_s": got["connect_s"],
+        "client_call_ms_median": statistics.median(got["ms"]),
+        "client_call_ms_range": [min(got["ms"]), max(got["ms"])],
+        "client_process_s": client_s, "client_loss_bit_equal": True,
+        "client_cuda_get": "GpuLeaseRequiredError",
+        "predicted": SURFACE_PREDICTED}
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -6092,6 +6479,11 @@ def main() -> int:
     phase_pipeline()
     # the trainer's worker gang on the machine's CPUs, with a chaos kill
     phase_train_gang()
+    # the runtime's user surface: a GPU actor in a runtime_env scoring on
+    # the kernels (its launches counted in its process from 0), spans, its
+    # CUPTI profile, metrics, the state API, a ray:// client, the
+    # control-plane microbenchmark
+    phase_runtime_surface(gpt2)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

@@ -17,7 +17,11 @@ runs in the driver (`init()`) or on its own (`python -m ray_tpu_torch
 start --head`); node agents join it (`start --address HOST:PORT`), each
 with its own GPUs; placement groups reserve bundles across nodes
 (`util.placement_group`), and jobs run drivers on the head
-(`job_submission`).
+(`job_submission`). A process outside the cluster drives it through a
+client proxy (`client.ClientProxy` beside the head, then
+``init(address="ray://host:port")``). Tasks and actors take
+`runtime_env=`; `util.tracing`, `util.metrics`, `util.profiling` and
+`util.state` are the observability surface.
 
     import ray_tpu_torch as rt
     rt.init()                      # counts the GPUs this process sees
@@ -80,7 +84,10 @@ def init(address: Optional[str] = None, *,
     """Start a local cluster (conductor in this process) or connect to a
     running one with ``address="host:port"``, or ``address="auto"``: the
     address in RTT_ADDRESS. A job's driver (its head sets RTT_ADDRESS)
-    connects with a plain ``init()`` too.
+    connects with a plain ``init()`` too. ``address="ray://host:port"``
+    connects through a client proxy (`client.ClientProxy`): this process
+    then holds no worker, no store and no GPU lease, and a CUDA tensor's
+    `get` raises GpuLeaseRequiredError.
 
     A new cluster counts the GPUs this process sees
     (`torch.cuda.device_count()`, which honours CUDA_VISIBLE_DEVICES)
@@ -101,10 +108,14 @@ def init(address: Optional[str] = None, *,
     from ._private.conductor import ENV_ADDRESS
 
     if address is not None and address.startswith("ray://"):
-        raise NotImplementedError(
-            f"init(address={address!r}): the client is not ported yet "
-            "(ROADMAP Queue 1 item 2, third part); pass "
-            "address='host:port' of a running head")
+        # Ray-Client mode (reference python/ray/util/client): one
+        # outbound connection to a proxy that drives the cluster
+        from .client import connect
+
+        _worker_mod.global_worker = connect(address[len("ray://"):])
+        atexit.register(shutdown)
+        return {"address": _worker_mod.global_worker.conductor_address,
+                "client": True}
     if address == "auto":
         # reference semantics of ray.init("auto") / RAY_ADDRESS
         address = os.environ.get(ENV_ADDRESS)
@@ -165,6 +176,11 @@ def init(address: Optional[str] = None, *,
     w = Worker(mode="driver", conductor_address=conductor_address,
                session_dir=session_dir)
     _worker_mod.global_worker = w
+    # metrics registered before a prior shutdown() stopped the push loop
+    # resume flowing, to THIS cluster's conductor
+    metrics = _worker_mod.loaded("util.metrics")
+    if metrics is not None and metrics._registry._metrics:
+        metrics._registry._ensure_pusher()
     atexit.register(shutdown)
     return {"address": conductor_address, "session_dir": session_dir}
 
@@ -214,6 +230,14 @@ def shutdown() -> None:
     global _conductor, _system_config_prior
     w = _worker_mod.global_worker
     if w is not None:
+        # metrics first: the final registry flush needs the conductor
+        # connection the worker's shutdown is about to close
+        metrics = _worker_mod.loaded("util.metrics")
+        if metrics is not None:
+            try:
+                metrics.shutdown()
+            except Exception:  # noqa: BLE001 — never block shutdown
+                pass
         w.shutdown()
         _worker_mod.global_worker = None
     if _conductor is not None:

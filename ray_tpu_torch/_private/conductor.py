@@ -31,6 +31,10 @@ Responsibilities:
 - actors: creation (conductor-mediated like gcs_actor_manager.cc:255),
   named actors, kill, graceful exit, restart-on-death with max_restarts;
 - internal KV + pubsub (gcs_kv_manager.cc); task events;
+- observability: tracing spans (capped at 100,000), each process's
+  metric snapshot, the RPC server's per-method dispatch stats and the
+  recent worker log lines (a ring of 2,000 off the `worker_logs`
+  channel);
 - resilience: the failure-domain tracker (quarantine), preemption
   reports with the `resilience` broadcast and host drains;
 - the monitors: reap dead workers, expire silent agent nodes, the memory
@@ -51,9 +55,10 @@ Responsibilities:
   RTT_JOB_ID; `shutdown_cluster` ends a standalone head and raises in a
   driver that hosts the conductor.
 
-Left out (ROADMAP Queue 1): the L6 report and get methods of subsystems
-not ported yet (tracing spans, the serving and training telemetry), each
-with its subsystem. An RPC of those is absent: calling it raises.
+Left out (ROADMAP Queue 1): the report and get methods of the serving
+subsystems not ported yet (the KV-cache, speculation, LoRA, gateway,
+request-trace and oracle reads, the pending demand), each with its
+subsystem. An RPC of those is absent: calling it raises.
 """
 from __future__ import annotations
 
@@ -239,6 +244,11 @@ class ConductorHandler:
         self._kv: Dict[str, Dict[bytes, bytes]] = {}
         self._subs: Dict[str, List[Tuple[str, int]]] = {}  # channel -> addrs
         self._task_events: List[Dict[str, Any]] = []
+        self._spans: List[Dict[str, Any]] = []  # tracing span table
+        self._metrics: Dict[str, List[Dict[str, Any]]] = {}
+        self._recent_logs: "collections.deque" = collections.deque(
+            maxlen=2000)
+        self._rpc_server: Optional[RpcServer] = None  # set by Conductor
         self._session_dir = session_dir
         self._worker_env = dict(worker_env or {})
         self._standalone = standalone
@@ -1154,6 +1164,13 @@ class ConductorHandler:
                 subs.append(tuple(address))
 
     def publish(self, channel: str, message: Any) -> None:
+        if channel == "worker_logs":
+            # the ring the state API's log reads serve
+            ts = time.time()
+            with self._lock:
+                for entry in (message if isinstance(message, list)
+                              else ()):
+                    self._recent_logs.append({**entry, "ts": ts})
         with self._lock:
             subs = list(self._subs.get(channel, []))
         for addr in subs:
@@ -1328,6 +1345,42 @@ class ConductorHandler:
     def get_task_events(self, limit: int = 10_000) -> List[Dict[str, Any]]:
         with self._lock:
             return self._task_events[-limit:]
+
+    # --------------------------------------------------------- observability
+
+    def report_spans(self, spans: List[Dict[str, Any]]) -> None:
+        """Tracing spans flushed by workers and drivers (util/tracing.py
+        drain), bounded as the task events are."""
+        with self._lock:
+            self._spans.extend(spans)
+            if len(self._spans) > 100_000:
+                del self._spans[:len(self._spans) - 100_000]
+
+    def get_spans(self, limit: int = 10_000) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._spans[-limit:]
+
+    def report_metrics(self, worker_id: str,
+                       snapshot: List[Dict[str, Any]]) -> None:
+        """A process's metric registry snapshot (util/metrics.py); the
+        state API renders the latest of each as Prometheus text."""
+        with self._lock:
+            self._metrics[worker_id] = snapshot
+
+    def get_metrics(self) -> Dict[str, List[Dict[str, Any]]]:
+        with self._lock:
+            return dict(self._metrics)
+
+    def get_rpc_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-method dispatch latency of this conductor's RPC server —
+        the control plane's instrumented_io_context analog (reference
+        src/ray/common/asio/instrumented_io_context.h stats)."""
+        srv = self._rpc_server
+        return srv.handler_stats() if srv is not None else {}
+
+    def get_recent_logs(self, limit: int = 500) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._recent_logs)[-limit:]
 
     # ------------------------------------------------------------ resilience
     # The conductor is the authority for preemption broadcast, failure-
@@ -2672,8 +2725,16 @@ class ConductorHandler:
                    env: Optional[Dict[str, str]] = None,
                    submission_id: Optional[str] = None,
                    working_dir: Optional[str] = None,
-                   metadata: Optional[Dict[str, str]] = None) -> str:
+                   metadata: Optional[Dict[str, str]] = None,
+                   runtime_env: Optional[Dict[str, Any]] = None) -> str:
+        """`runtime_env`: the job's whole runtime_env (validated by the
+        client). The entrypoint runs with its env_vars, in its
+        working_dir, with its py_modules on PYTHONPATH; its driver gives
+        all of it to every task and actor it submits (RTT_JOB_RUNTIME_ENV)."""
+        import json as _json
         import uuid as _uuid
+
+        from . import runtime_env as renv
 
         job_id = submission_id or f"job_{_uuid.uuid4().hex[:12]}"
         with self._lock:
@@ -2689,6 +2750,14 @@ class ConductorHandler:
         penv.update(env or {})
         penv[ENV_ADDRESS] = f"{host}:{port}"
         penv[ENV_JOB_ID] = job_id
+        if runtime_env:
+            penv[renv.ENV_JOB] = _json.dumps(runtime_env)
+            mods = [os.path.abspath(m)
+                    for m in runtime_env.get("py_modules") or []]
+            if mods:
+                penv["PYTHONPATH"] = os.pathsep.join(
+                    mods + ([penv["PYTHONPATH"]]
+                            if penv.get("PYTHONPATH") else []))
         with open(log_path, "ab") as log_f:
             proc = subprocess.Popen(
                 entrypoint, shell=True, env=penv,
@@ -3181,6 +3250,7 @@ class Conductor:
         self.server = RpcServer(self.handler, host=host, port=port,
                                 max_workers=32, warn_slow=True)
         self.handler.address = self.server.address
+        self.handler._rpc_server = self.server
         self._maintenance_event = maintenance_event
         self._log_monitor = None
         self._preemption_watcher = None

@@ -6,7 +6,7 @@
 
 Each named check is a function of `runtime_checks.py`,
 `cluster_checks.py`, `fabric_checks.py`, `serve_checks.py`,
-`online_checks.py` or `mpmd_checks.py` (modules of
+`online_checks.py`, `mpmd_checks.py` or `surface_checks.py` (modules of
 the package, so
 worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
@@ -171,7 +171,8 @@ def _driver_main(payload_path: str) -> int:
     import ray_tpu_torch as rt
 
     from . import (cluster_checks, fabric_checks, mpmd_checks,
-                   online_checks, runtime_checks, serve_checks)
+                   online_checks, runtime_checks, serve_checks,
+                   surface_checks)
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -194,7 +195,8 @@ def _driver_main(payload_path: str) -> int:
                 or getattr(fabric_checks, name, None) \
                 or getattr(serve_checks, name, None) \
                 or getattr(online_checks, name, None) \
-                or getattr(mpmd_checks, name)
+                or getattr(mpmd_checks, name, None) \
+                or getattr(surface_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

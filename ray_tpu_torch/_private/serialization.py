@@ -18,8 +18,9 @@ on the CPU, as a copy of its own: never a view of the buffer, which may
 be shared memory other readers map. A CUDA tensor is copied to the host
 when it is serialized and comes back on the consumer's current CUDA
 device; in a process that
-sees no GPU its load raises `GpuLeaseRequiredError`, never a CPU
-tensor. torch is found through `sys.modules`: serializing imports it
+sees no GPU, or that holds no lease whatever it sees (a ray:// client,
+`refuse_cuda_loads`), its load raises `GpuLeaseRequiredError`, never a
+CPU tensor. torch is found through `sys.modules`: serializing imports it
 only for a payload that already holds a tensor.
 """
 from __future__ import annotations
@@ -35,6 +36,16 @@ import cloudpickle
 
 class GpuLeaseRequiredError(RuntimeError):
     """A CUDA tensor was loaded in a process that holds no GPU lease."""
+
+
+_cuda_refused = False
+
+
+def refuse_cuda_loads(refuse: bool) -> None:
+    """Whether this process refuses CUDA tensors' records even where it
+    sees a GPU: a ray:// client holds no lease."""
+    global _cuda_refused
+    _cuda_refused = refuse
 
 
 def _reduce_tensor(t):
@@ -67,7 +78,7 @@ def _rebuild_tensor(kind: str, dtype: str, shape: Tuple[int, ...],
 
     mv = memoryview(buf).cast("B")
     if device_type == "cuda":
-        if not torch.cuda.is_available():
+        if _cuda_refused or not torch.cuda.is_available():
             raise GpuLeaseRequiredError(
                 "a CUDA tensor cannot be loaded here: this process holds "
                 "no GPU lease (ask for one with num_gpus=)")

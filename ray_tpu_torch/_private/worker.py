@@ -23,10 +23,20 @@ Submission protocol (reference direct_task_transport.h:75 kept):
 Calls that end a process (`shutdown_worker`, a force cancel, an actor's
 `exit_actor()`) raise in a driver instead: a stray RPC must not end the
 user's program. A driver mirrors the workers' output lines from the
-`worker_logs` channel to its stderr (the `log_to_driver` flag). The JAX
-package's collective, compiled-DAG, tracing and profiler hooks are not
-ported here; a call that needs one raises
-NotImplementedError naming the ROADMAP item that ports it.
+`worker_logs` channel to its stderr (the `log_to_driver` flag).
+
+A task's or actor's `runtime_env` is prepared (staged through the
+conductor's KV) at submission and applied around a task (restored
+after) or around an actor's whole life (before its class's `__init__`,
+so before its first CUDA call). With tracing on in the submitter
+(`util.tracing.enable()`), the wire carries a W3C traceparent and the
+executor records a `task:<name>` or `actor:<Class>.<method>` span under
+it; spans ride the task-event flush to the conductor. A worker answers
+`start_device_profile` / `stop_device_profile` with a torch.profiler
+trace of its process (`util.profiling`). A job's driver gives its
+job's runtime_env (RTT_JOB_RUNTIME_ENV) to every task and actor it
+submits, under their own. The compiled-DAG hook is not ported; a call
+that needs it raises NotImplementedError naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,6 +62,21 @@ from .rpc import (ClientPool, ConnectionLost, ReconnectingClient,
 global_worker: Optional["Worker"] = None
 
 DEFAULT_MAX_RETRIES = 3
+
+
+def loaded(module: str):
+    """A module of the package ("util.tracing") if this process imported
+    it, else None: hooks of optional parts import nothing."""
+    import sys
+
+    return sys.modules.get(f"{__package__.rsplit('.', 1)[0]}.{module}")
+
+
+def _current_traceparent() -> Optional[str]:
+    """The calling thread's traceparent, or None while tracing is off
+    (the common case: util.tracing was never imported)."""
+    tracing = loaded("util.tracing")
+    return tracing.current_traceparent() if tracing is not None else None
 
 
 def _lease_idle_ttl() -> float:
@@ -122,6 +147,10 @@ class TaskSpec:
     # (reference scheduling_strategy on @ray.remote)
     scheduling_strategy: Any = "DEFAULT"
     placement_group_id: Optional[str] = None
+    runtime_env: Optional[Dict[str, Any]] = None  # prepared (kv:// URIs)
+    # W3C traceparent captured on the SUBMITTING thread (spans are
+    # thread-local; the submit thread that pushes has none)
+    traceparent: Optional[str] = None
 
 
 def _top_level_refs(args: tuple, kwargs: dict) -> List[ObjectRef]:
@@ -213,6 +242,12 @@ class Worker:
         self._shutdown = False
         self._task_events: List[Dict[str, Any]] = []
         self._task_events_lock = threading.Lock()
+        # a job's driver: the job's runtime_env, beneath every task's own
+        self.job_runtime_env: Dict[str, Any] = {}
+        if mode == "driver":
+            from . import runtime_env as renv
+
+            self.job_runtime_env = renv.job_runtime_env()
         threading.Thread(target=self._event_flush_loop, daemon=True,
                          name="task-event-flush").start()
         from . import refcount
@@ -266,14 +301,38 @@ class Worker:
         return out[0] if single else out
 
     def _get_one(self, ref: ObjectRef, timeout: Optional[float]) -> Any:
+        self._make_local(ref, timeout)
+        return self._load_local(ref)
+
+    def get_records(self, refs: Sequence[ObjectRef],
+                    timeout: Optional[float] = None
+                    ) -> List[Tuple[bytes, List[bytes]]]:
+        """Each object's stored record (meta, buffers), fetched here but
+        not loaded; a stored error raises (a client proxy's `get`)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for r in refs:
+            self._make_local(r, None if deadline is None
+                             else deadline - time.monotonic())
+            meta, total, sizes = self.store.stream_info(r.id)
+            data = self.store.read_range(r.id, 0, total)
+            bufs, off = [], 0
+            for n in sizes:
+                bufs.append(data[off:off + n])
+                off += n
+            out.append((meta, bufs))
+        return out
+
+    def _make_local(self, ref: ObjectRef, timeout: Optional[float]) -> None:
+        """Block until `ref`'s value (or error) is in this store."""
         if self.store.contains(ref.id):  # fast path: no lease dance
-            return self._load_local(ref)
+            return
         deadline = None if timeout is None else time.monotonic() + timeout
         attempts = 0
         with self._lease_released_while_blocked():
             while True:
                 if self.store.contains(ref.id):
-                    return self._load_local(ref)
+                    return
                 if self._is_pending_local(ref.id):
                     self._wait_result(ref.id, deadline)
                     continue
@@ -611,7 +670,9 @@ class Worker:
                     max_retries: int = DEFAULT_MAX_RETRIES,
                     scheduling_strategy: Any = "DEFAULT",
                     placement_group_id: Optional[str] = None,
+                    runtime_env: Optional[Dict[str, Any]] = None,
                     fn_bytes: Optional[bytes] = None):
+        runtime_env = self._prepare_runtime_env(runtime_env)
         return_ids = [ObjectID().hex() for _ in range(num_returns)]
         spec = TaskSpec(
             task_id=TaskID().hex(),
@@ -624,7 +685,9 @@ class Worker:
             max_retries=max_retries,
             owner=self.address,
             scheduling_strategy=scheduling_strategy,
-            placement_group_id=placement_group_id)
+            placement_group_id=placement_group_id,
+            runtime_env=runtime_env,
+            traceparent=_current_traceparent())
         refs = [ObjectRef(oid, locator=None, owner=self.address)
                 for oid in return_ids]
         from . import refcount
@@ -638,6 +701,15 @@ class Worker:
             return_ids, self._submit_pool.submit(
                 self._submit_and_record, spec))
         return refs[0] if num_returns == 1 else refs
+
+    def _prepare_runtime_env(self, runtime_env: Optional[Dict[str, Any]]
+                             ) -> Optional[Dict[str, Any]]:
+        """The job's runtime_env under `runtime_env`, validated and
+        staged through the conductor's KV (None when both are empty)."""
+        from . import runtime_env as renv
+
+        env = renv.merge(self.job_runtime_env, runtime_env)
+        return renv.prepare(self.conductor, env) if env else None
 
     def _submit_and_record(self, spec: TaskSpec) -> None:
         """Submitter thread: resolve deps → lease → push → record results.
@@ -912,7 +984,9 @@ class Worker:
         return {"task_id": spec.task_id, "name": spec.name,
                 "fn_bytes": spec.fn_bytes, "args": spec.args,
                 "kwargs": spec.kwargs, "return_ids": spec.return_ids,
-                "owner": spec.owner, "machine": machine_id()}
+                "owner": spec.owner, "machine": machine_id(),
+                "runtime_env": spec.runtime_env,
+                "traceparent": spec.traceparent}
 
     def _record_results(self, return_ids: List[str], reply: list,
                         holder: Optional[Tuple[str, int]] = None) -> set:
@@ -1035,6 +1109,13 @@ class Worker:
                 self.conductor.notify("report_task_events", batch)
             except ConnectionLost:
                 pass
+        tracing = loaded("util.tracing")
+        spans = tracing.drain() if tracing is not None else None
+        if spans:
+            try:
+                self.conductor.notify("report_spans", spans)
+            except ConnectionLost:
+                pass
 
     def _event_flush_loop(self) -> None:
         while not self._shutdown:
@@ -1080,7 +1161,11 @@ class Worker:
                 args = tuple(self._materialize(a) for a in wire["args"])
                 kwargs = {k: self._materialize(v)
                           for k, v in wire["kwargs"].items()}
-                result = fn(*args, **kwargs)
+                from . import runtime_env as renv
+
+                with renv.applied(self.conductor, wire.get("runtime_env")), \
+                        _traced(f"task:{name}", wire.get("traceparent")):
+                    result = fn(*args, **kwargs)
             except exc.TaskCancelledError as e:
                 return [(oid, "error", e) for oid in wire["return_ids"]]
             except BaseException as e:  # noqa: BLE001
@@ -1149,7 +1234,10 @@ class Worker:
     # --------------------------------------------------------------- actors
 
     def create_actor(self, cls, args, kwargs, options: Dict[str, Any]) -> dict:
-        spec_bytes = serialization.dumps((cls, args, kwargs, dict(options)))
+        options = dict(options)
+        options["runtime_env"] = self._prepare_runtime_env(
+            options.get("runtime_env"))
+        spec_bytes = serialization.dumps((cls, args, kwargs, options))
         resources = dict(options.get("resources") or {})
         num_cpus = options.get("num_cpus")
         # Reference semantics: actors default to 0 CPUs while running
@@ -1189,7 +1277,8 @@ class Worker:
         self._register_inflight(
             return_ids, self._submit_pool.submit(
                 self._actor_call_bg, actor_id, tuple(address), method, args,
-                kwargs, return_ids, seqno, caller_id, max_task_retries))
+                kwargs, return_ids, seqno, caller_id, max_task_retries,
+                _current_traceparent()))
         return refs[0] if num_returns == 1 else refs
 
     def _await_send_turn(self, caller_id: str, seqno: int) -> None:
@@ -1209,7 +1298,8 @@ class Worker:
                 self._send_cv.notify_all()
 
     def _actor_call_bg(self, actor_id, address, method, args, kwargs,
-                       return_ids, seqno, caller_id, retries) -> None:
+                       return_ids, seqno, caller_id, retries,
+                       traceparent=None) -> None:
         from . import refcount
 
         arg_refs = refcount.collect_refs(args, kwargs)
@@ -1223,7 +1313,8 @@ class Worker:
                     client = self.clients.get(address)
                     pending = client.start_call(
                         "actor_task", actor_id, method, args, kwargs,
-                        return_ids, seqno, caller_id, machine_id())
+                        return_ids, seqno, caller_id, machine_id(),
+                        traceparent)
                 except ConnectionLost:
                     pass
                 finally:
@@ -1458,6 +1549,13 @@ class ActorRuntime:
         self.actor_id = actor_id
         self.options = options
         self.max_concurrency = int(options.get("max_concurrency") or 1)
+        if options.get("runtime_env"):
+            # a process of its own: applied for good, before the class's
+            # __init__ (and so before its first CUDA call)
+            from . import runtime_env as renv
+
+            renv.applied(worker.conductor, options["runtime_env"],
+                         permanent=True).__enter__()
         self.instance = cls(
             *[worker._materialize(a) for a in args],
             **{k: worker._materialize(v) for k, v in kwargs.items()})
@@ -1480,7 +1578,7 @@ class ActorRuntime:
                          name="actor-dispatch").start()
 
     def submit(self, method, args, kwargs, return_ids, seqno, caller_id,
-               done_cb, caller_machine=None) -> None:
+               done_cb, caller_machine=None, traceparent=None) -> None:
         if seqno < 0:
             # unordered (post-restart retry): skip the reorder buffer —
             # ordering across a restart boundary is best-effort, matching the
@@ -1488,7 +1586,7 @@ class ActorRuntime:
             with self._cv:
                 self._known.update(return_ids)
             self._queue.put((method, args, kwargs, return_ids, done_cb,
-                             caller_machine))
+                             caller_machine, traceparent))
             return
         with self._cv:
             self._known.update(return_ids)
@@ -1497,7 +1595,7 @@ class ActorRuntime:
             expected = self._next_seqno.setdefault(caller_id, seqno)
             buf = self._reorder.setdefault(caller_id, {})
             buf[seqno] = (method, args, kwargs, return_ids, done_cb,
-                          caller_machine)
+                          caller_machine, traceparent)
             while expected in buf:
                 self._queue.put(buf.pop(expected))
                 expected += 1
@@ -1536,7 +1634,8 @@ class ActorRuntime:
         return bool(live)
 
     def _run_one(self, item) -> None:
-        (method, args, kwargs, return_ids, done_cb, caller_machine) = item
+        (method, args, kwargs, return_ids, done_cb, caller_machine,
+         traceparent) = item
         with self._cv:
             dropped = any(oid in self._cancelled for oid in return_ids)
             self._cancelled.difference_update(return_ids)
@@ -1568,7 +1667,7 @@ class ActorRuntime:
                 self.worker._exec_threads[oid] = ident
         try:
             self._call_and_reply(method, args, kwargs, return_ids, deliver,
-                                 caller_machine)
+                                 caller_machine, traceparent)
         except exc.TaskCancelledError as e:
             # async-exc landed in the teardown window after the method
             # returned — deliver the cancel (no-op if already delivered)
@@ -1584,7 +1683,7 @@ class ActorRuntime:
             self.worker._pop_exec_threads(return_ids, also=consume_marks)
 
     def _call_and_reply(self, method, args, kwargs, return_ids, deliver,
-                        caller_machine) -> None:
+                        caller_machine, traceparent=None) -> None:
         try:
             if method in _UNPORTED_HOOKS:
                 raise NotImplementedError(_UNPORTED_HOOKS[method])
@@ -1600,7 +1699,9 @@ class ActorRuntime:
             args = tuple(self.worker._materialize(a) for a in args)
             kwargs = {k: self.worker._materialize(v)
                       for k, v in kwargs.items()}
-            result = fn(*args, **kwargs)
+            with _traced(f"actor:{type(self.instance).__name__}.{method}",
+                         traceparent):
+                result = fn(*args, **kwargs)
             if asyncio.iscoroutine(result):
                 result = self._run_coroutine(result)
             results = [result] if len(return_ids) == 1 else list(result)
@@ -1651,8 +1752,17 @@ class ActorRuntime:
         os._exit(0)
 
 
-_PROFILER_NOT_PORTED = ("device profiles of a worker are not ported yet "
-                        "(ROADMAP Queue 1 item 7: util/profiling.py)")
+def _traced(name: str, traceparent: Optional[str]):
+    """A span under the submitter's `traceparent`, or nothing when the
+    wire carries none. A traceparent turns tracing on in this process:
+    the submitter's switch reaches workers it did not spawn."""
+    if not traceparent:
+        return contextlib.nullcontext()
+    from ..util import tracing
+
+    tracing.enable()
+    return tracing.span(name, traceparent=traceparent)
+
 
 # actor methods the JAX package answers on every actor, whose targets
 # are not ported yet
@@ -1697,7 +1807,8 @@ class WorkerHandler:
 
     def actor_task(self, reply_cb, actor_id: str, method: str, args, kwargs,
                    return_ids, seqno: int, caller_id: str,
-                   caller_machine: Optional[str] = None) -> None:
+                   caller_machine: Optional[str] = None,
+                   traceparent: Optional[str] = None) -> None:
         rt = self.w._actor_runtime
         if rt is None or rt.actor_id != actor_id:
             e = exc.ActorUnavailableError(actor_id,
@@ -1705,7 +1816,8 @@ class WorkerHandler:
             reply_cb(False, (e, ""))
             return
         rt.submit(method, args, kwargs, return_ids, seqno, caller_id,
-                  lambda reply: reply_cb(True, reply), caller_machine)
+                  lambda reply: reply_cb(True, reply), caller_machine,
+                  traceparent)
 
     def fetch_object(self, object_id: str,
                      requester_machine: Optional[str] = None):
@@ -1811,12 +1923,18 @@ class WorkerHandler:
         for oid in object_ids:
             self.w.store.delete(oid)
 
-    def start_device_profile(self, tag: str) -> str:
-        """A device trace in this worker process: not ported yet."""
-        raise NotImplementedError(_PROFILER_NOT_PORTED)
+    def start_device_profile(self, tag: str, device: Optional[str] = None
+                             ) -> str:
+        """Begin a torch.profiler trace of THIS worker process (driver
+        side: util.profiling.profile_actor); returns its directory."""
+        from ..util import profiling
+
+        return profiling.start_profile(tag, device=device)
 
     def stop_device_profile(self) -> str:
-        raise NotImplementedError(_PROFILER_NOT_PORTED)
+        from ..util import profiling
+
+        return profiling.stop_profile()
 
     def refcount_update(self, from_addr, entries) -> None:
         """Batched borrower incref/adopt/drop messages (reference

@@ -3,7 +3,8 @@
 (reference gcs_actor_manager.cc); steady-state method calls go directly to the
 actor's worker with per-caller sequence numbers for ordering. An actor
 class asks for GPUs with `num_gpus=`: with whole GPUs its worker is
-spawned bound to them."""
+spawned bound to them; `runtime_env=` holds for the actor's whole
+life."""
 from __future__ import annotations
 
 import threading
@@ -13,7 +14,7 @@ from typing import Any, Dict, Optional
 from . import exceptions as exc
 from ._private import worker as worker_mod
 from .remote_function import (DAG_NOT_PORTED, check_options,
-                              placement_group_id, resources_of)
+                              placement_group_id, resources_of, submit_span)
 
 
 class ActorMethod:
@@ -66,10 +67,12 @@ class ActorHandle:
         with self._lock:
             seqno = self._seqno
             self._seqno += 1
-        return w.submit_actor_task(
-            self._actor_id, self._address, method, args, kwargs,
-            num_returns, seqno, self._caller_id,
-            max_task_retries=self._max_task_retries)
+        # named like the call's task event ("<id8>.<method>")
+        with submit_span(f"{self._actor_id[:8]}.{method}"):
+            return w.submit_actor_task(
+                self._actor_id, self._address, method, args, kwargs,
+                num_returns, seqno, self._caller_id,
+                max_task_retries=self._max_task_retries)
 
     def __getattr__(self, name: str) -> ActorMethod:
         if name.startswith("_"):

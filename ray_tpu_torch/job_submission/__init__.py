@@ -3,7 +3,10 @@ job_submission/): analog of the reference's python/ray/job_submission/
 (JobSubmissionClient, JobStatus) + dashboard/modules/job JobManager.
 Entrypoint drivers run as subprocesses of the head, in its environment
 with RTT_ADDRESS and RTT_JOB_ID set, so ``ray_tpu_torch.init()`` (or
-``init(address="auto")``) inside one finds the cluster."""
+``init(address="auto")``) inside one finds the cluster. A job's
+runtime_env is the default of every task and actor its driver submits
+(under their own, env_vars merged); the entrypoint itself runs with its
+env_vars, working_dir and py_modules."""
 from __future__ import annotations
 
 import time
@@ -43,19 +46,16 @@ class JobSubmissionClient:
                    runtime_env: Optional[Dict[str, Any]] = None,
                    submission_id: Optional[str] = None,
                    metadata: Optional[Dict[str, str]] = None) -> str:
-        """`runtime_env` takes ``env_vars`` and ``working_dir`` only:
-        the entrypoint's environment and directory (the runtime
-        environments of tasks are not ported, ROADMAP Queue 1 item 2)."""
-        runtime_env = dict(runtime_env or {})
-        other = set(runtime_env) - {"env_vars", "working_dir"}
-        if other:
-            raise NotImplementedError(
-                f"runtime_env keys {sorted(other)}: runtime environments "
-                "are not ported yet (ROADMAP Queue 1 item 2, third part)")
+        """`runtime_env`: every key a task takes (see the module
+        docstring), validated here; local paths are the head's."""
+        from .._private import runtime_env as renv
+
+        runtime_env = renv.validate(runtime_env)
         env = dict(runtime_env.get("env_vars") or {})
         return self._client.call(
             "submit_job", entrypoint, env, submission_id,
-            runtime_env.get("working_dir"), metadata, timeout=30.0)
+            runtime_env.get("working_dir"), metadata, runtime_env or None,
+            timeout=30.0)
 
     def get_job_status(self, job_id: str) -> str:
         return self.get_job_info(job_id)["status"]

@@ -1,9 +1,11 @@
 """Timeline markers (part of the port of ray_tpu/observability/
-timeline.py): conductor task events, training step records, resilience
-events, weight-fabric events and the other subsystems' markers as
-chrome-trace events, merged into one sorted list.
+timeline.py): conductor task events, tracing spans, training step
+records, resilience events, weight-fabric events and the other
+subsystems' markers as chrome-trace events, merged into one sorted list.
 
 - task events: pid = job id,       tid = executing worker
+- spans:       pid = recording process, tid = trace id prefix
+  (`util.tracing.to_chrome_trace`)
 - step markers: pid = "train:<run_id>", tid = "rank <r>": one X event
   per step carrying the phase breakdown in args (`bubble_wait_ms` of a
   pipeline stage among them), plus a counter series for tokens/s and
@@ -29,10 +31,6 @@ chrome-trace events, merged into one sorted list.
 - pipeline:    pid = "pipeline",   tid = "stage <s>" (or the event
   kind): one lane per MPMD stage-gang, its formation, run reports and
   death.
-
-The spans of the JAX package's merged trace wait for the port of
-`util/tracing.py` (ROADMAP Queue 1 item 7): `merged_chrome_trace`
-refuses them.
 """
 from __future__ import annotations
 
@@ -275,13 +273,11 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         pipeline_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
-    """Merge the sources into one list sorted by time. `spans` must be
-    empty until util/tracing.py is ported."""
-    if spans:
-        raise NotImplementedError(
-            "spans wait for the port of util/tracing.py (ROADMAP Queue 1 "
-            "item 7)")
+    """Merge the sources into one list sorted by time."""
+    from ..util import tracing
+
     trace = task_trace_events(task_events)
+    trace.extend(tracing.to_chrome_trace(spans))
     trace.extend(step_trace_events(step_records))
     if resilience_events:
         trace.extend(resilience_trace_events(resilience_events))
@@ -302,17 +298,19 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
 
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
-    """Pull the task events, step records and the resilience, weight,
-    disagg, KV-plane, autoscale, online and pipeline events from the
-    live cluster and merge them."""
+    """Pull the task events, spans, step records and the resilience,
+    weight, disagg, KV-plane, autoscale, online and pipeline events from
+    the live cluster and merge them. Flushes this process's pending task
+    events and spans first, so a short driver's trace is complete."""
     from .._private import worker as worker_mod
 
     w = worker_mod.global_worker
     if w is None:
         raise RuntimeError("ray_tpu_torch.init() must be called first")
-    w._flush_task_events()
+    w._flush_task_events()  # spans ride the same flush
     return merged_chrome_trace(
-        w.conductor.call("get_task_events", limit, timeout=30.0), [],
+        w.conductor.call("get_task_events", limit, timeout=30.0),
+        w.conductor.call("get_spans", limit, timeout=30.0),
         w.conductor.call("get_train_steps", limit, timeout=30.0),
         w.conductor.call("get_resilience_events", limit, timeout=30.0),
         w.conductor.call("get_weight_events", limit, timeout=30.0),

@@ -3,9 +3,12 @@ python/ray/remote_function.py (RemoteFunction._remote :266): wrap a callable,
 give it `.remote()` returning ObjectRefs, and `.options()` for per-call
 overrides. `num_gpus=` asks for GPUs (whole GPUs bind a worker to them;
 a fraction only counts the resource); `placement_group=` places the
-task in a group's bundles."""
+task in a group's bundles; `runtime_env=` gives it env_vars, a
+working_dir, py_modules, a pip / uv venv or a conda env
+(`_private/runtime_env.py`)."""
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Optional
 
@@ -13,15 +16,22 @@ from ._private import worker as worker_mod
 from ._private.worker import DEFAULT_MAX_RETRIES
 from .util import scheduling_strategies as _sched
 
-# options of the JAX package whose machinery is not ported yet
+# options of the JAX package that the port refuses
 NOT_PORTED_OPTIONS = {
-    "runtime_env": "runtime environments are not ported yet (ROADMAP "
-                   "Queue 1 item 2, third part)",
     "num_tpus": "the port has no TPUs: ask for GPUs with num_gpus=",
 }
 
 
 DAG_NOT_PORTED = "lazy DAGs are not ported yet (ROADMAP Queue 1 item 8: dag/)"
+
+
+def submit_span(name: str):
+    """`submit:<name>` while this process traces, else a no-op (and no
+    import of util.tracing)."""
+    tracing = worker_mod.loaded("util.tracing")
+    if tracing is None:
+        return contextlib.nullcontext()
+    return tracing.submit_span(name)
 
 
 def check_options(options: Dict[str, Any]) -> None:
@@ -76,16 +86,22 @@ class RemoteFunction:
         if self._fn_bytes is None:
             from ._private import serialization
             self._fn_bytes = serialization.dumps(self._fn)
-        return w.submit_task(
-            self._fn, args, kwargs,
-            fn_bytes=self._fn_bytes,
-            name=o.get("name") or self._fn.__name__,
-            num_returns=int(o.get("num_returns", 1)),
-            resources=resources_of(o),
-            max_retries=o.get("max_retries", DEFAULT_MAX_RETRIES),
-            placement_group_id=placement_group_id(o),
-            scheduling_strategy=_sched.to_wire(
-                o.get("scheduling_strategy", "DEFAULT")))
+        name = o.get("name") or self._fn.__name__
+        # with tracing on, the submission is a span of its own: the
+        # traceparent the spec captures is this span's, so a trace reads
+        # submit -> execute as parent -> child
+        with submit_span(name):
+            return w.submit_task(
+                self._fn, args, kwargs,
+                fn_bytes=self._fn_bytes,
+                name=name,
+                num_returns=int(o.get("num_returns", 1)),
+                resources=resources_of(o),
+                max_retries=o.get("max_retries", DEFAULT_MAX_RETRIES),
+                placement_group_id=placement_group_id(o),
+                runtime_env=o.get("runtime_env"),
+                scheduling_strategy=_sched.to_wire(
+                    o.get("scheduling_strategy", "DEFAULT")))
 
     def bind(self, *args, **kwargs):
         raise NotImplementedError(DAG_NOT_PORTED)

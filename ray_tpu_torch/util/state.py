@@ -1,15 +1,25 @@
-"""Cluster state views (part of the port of ray_tpu/util/state.py): the
-flight recorder's training progress, the weight fabric's registry, the
-recovery subsystem, disaggregated serving, the global KV plane, serving
-fault tolerance, the serving autoscaler, the online learning loop and
-the MPMD pipelines. The rest of that module
-(task, actor and the other serving views, the merged timeline export)
-waits for ROADMAP Queue 1 item 8; so do the CLI, dashboard and
-Prometheus surfaces of these views.
+"""Cluster state API (the port of ray_tpu/util/state.py) — analog of
+the reference's python/ray/util/state/ (api.py: list_actors :788,
+list_tasks :1020, list_objects :1066, summarize_tasks :1382; backed by
+the dashboard StateHead + GCS GcsTaskManager). Here the conductor IS the
+state authority; workers answer store-stats probes directly.
+
+The general views (nodes, workers, actors, placement groups, tasks,
+objects, the task summary, the timeline, Prometheus text, RPC stats, the
+cluster summary) and the views of the ported subsystems: the flight
+recorder's training progress, the weight fabric's registry, the recovery
+subsystem, disaggregated serving, the global KV plane, serving fault
+tolerance, the serving autoscaler, the online learning loop and the MPMD
+pipelines. The serving views of subsystems not ported yet (KV-cache,
+speculation, LoRA, gateway, request traces, the oracle) wait with them
+(ROADMAP Queue 1); so do the CLI and dashboard surfaces of these views.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import json
+import time
+from collections import defaultdict
+from typing import Any, Dict, List, Optional
 
 
 def _worker():
@@ -115,6 +125,195 @@ def pipeline_status(name: Optional[str] = None) -> Dict[str, Any]:
     return out
 
 
-__all__ = ["autoscaler_status", "disagg_status", "kvplane_status",
-           "online_status", "pipeline_status", "resilience_status",
-           "servefault_status", "train_progress", "weight_versions"]
+def list_nodes() -> List[Dict[str, Any]]:
+    return _worker().conductor.call("nodes", timeout=10.0)
+
+
+def list_workers() -> List[Dict[str, Any]]:
+    return _worker().conductor.call("list_workers", timeout=10.0)
+
+
+def list_actors(state: Optional[str] = None) -> List[Dict[str, Any]]:
+    actors = _worker().conductor.call("list_actors", timeout=10.0)
+    if state is not None:
+        actors = [a for a in actors if a.get("state") == state]
+    return actors
+
+
+def list_placement_groups() -> List[Dict[str, Any]]:
+    return _worker().conductor.call("list_placement_groups", timeout=10.0)
+
+
+def list_tasks(limit: int = 10_000,
+               name: Optional[str] = None) -> List[Dict[str, Any]]:
+    w = _worker()
+    events = w.conductor.call("get_task_events", limit, timeout=30.0)
+    with w._task_events_lock:  # include this process's unflushed batch
+        events = events + list(w._task_events)
+    if name is not None:
+        events = [e for e in events if e.get("name") == name]
+    return events
+
+
+def list_objects() -> List[Dict[str, Any]]:
+    """Per-process object-store stats (reference `ray memory` summary)."""
+    w = _worker()
+    out = [dict(w.store.stats(), worker_id=w.worker_id, is_driver=True)]
+    for rec in list_workers():
+        addr = rec.get("address")
+        if not addr:
+            continue
+        try:
+            out.append(w.clients.get(tuple(addr)).call("store_stats",
+                                                       timeout=5.0))
+        except Exception:  # noqa: BLE001 — worker mid-restart
+            pass
+    return out
+
+
+def summarize_tasks() -> Dict[str, Any]:
+    """Group task events by name — reference api.py summarize_tasks :1382."""
+    return _summarize(list_tasks())
+
+
+def _summarize(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    groups: Dict[str, Dict[str, Any]] = defaultdict(
+        lambda: {"count": 0, "failed": 0, "total_s": 0.0,
+                 "min_s": float("inf"), "max_s": 0.0})
+    for ev in events:
+        g = groups[ev["name"]]
+        dur = max(0.0, ev["end"] - ev["start"])
+        g["count"] += 1
+        g["failed"] += 1 if ev.get("status") == "FAILED" else 0
+        g["total_s"] += dur
+        g["min_s"] = min(g["min_s"], dur)
+        g["max_s"] = max(g["max_s"], dur)
+    for g in groups.values():
+        g["mean_s"] = g["total_s"] / max(1, g["count"])
+        if g["min_s"] == float("inf"):
+            g["min_s"] = 0.0
+    return dict(groups)
+
+
+def timeline(filename: Optional[str] = None,
+             merged: bool = False) -> List[Dict[str, Any]]:
+    """Chrome-trace export of task events — reference `ray timeline`.
+    Load the output in chrome://tracing or Perfetto. merged=True gives
+    the unified timeline instead: task events, tracing spans, training
+    steps and every subsystem's markers (observability/timeline.py)."""
+    from ..observability import timeline as tl
+
+    if merged:
+        trace = tl.merged_timeline()
+    else:
+        trace = tl.task_trace_events(list_tasks())
+    if filename:
+        with open(filename, "w") as f:
+            json.dump(trace, f)
+    return trace
+
+
+# ---------------------------------------------------------------- metrics
+
+def _prom_escape(s: str) -> str:
+    return s.replace("\\", r"\\").replace('"', r'\"').replace("\n", r"\n")
+
+
+def prometheus_metrics() -> str:
+    """Render all pushed metric snapshots in Prometheus text exposition
+    format — reference python/ray/_private/prometheus_exporter.py. Samples
+    are grouped per metric family (HELP/TYPE once, then ALL of the family's
+    series contiguously, across workers) as strict parsers require."""
+    per_worker = _worker().conductor.call("get_metrics", timeout=10.0)
+    return _render_prometheus(per_worker)
+
+
+def _render_prometheus(per_worker: Dict[str, Any]) -> str:
+    """Pure renderer over the conductor's per-worker snapshots."""
+    # family name -> list of (worker_id, snapshot dict)
+    families: Dict[str, List[Any]] = {}
+    for worker_id, snapshot in sorted(per_worker.items()):
+        for m in snapshot:
+            families.setdefault(m["name"], []).append((worker_id, m))
+
+    def labels(keys, tag_json: str, worker_id: str, extra: str = "") -> str:
+        vals = json.loads(tag_json) if tag_json else []
+        parts = [f'{k}="{_prom_escape(v)}"' for k, v in zip(keys, vals)]
+        parts.append(f'WorkerId="{worker_id[:12]}"')
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}"
+
+    lines: List[str] = []
+    for name, members in families.items():
+        first = members[0][1]
+        if first.get("description"):
+            lines.append(f"# HELP {name} "
+                         f"{_prom_escape(first['description'])}")
+        mtype = first["type"] if first["type"] != "untyped" else "gauge"
+        lines.append(f"# TYPE {name} {mtype}")
+        for worker_id, m in members:
+            keys = list(m.get("tag_keys") or ())
+            if m["type"] == "histogram":
+                for tag_json, buckets in m.get("buckets", {}).items():
+                    acc = 0
+                    for bound, n in zip(m["boundaries"], buckets):
+                        acc += n
+                        le = f'le="{bound}"'
+                        lines.append(
+                            f"{name}_bucket"
+                            f"{labels(keys, tag_json, worker_id, le)}"
+                            f" {acc}")
+                    acc += buckets[-1]
+                    inf = 'le="+Inf"'
+                    lines.append(
+                        f"{name}_bucket"
+                        f"{labels(keys, tag_json, worker_id, inf)}"
+                        f" {acc}")
+                    lines.append(f"{name}_sum"
+                                 f"{labels(keys, tag_json, worker_id)} "
+                                 f"{m['sums'][tag_json]}")
+                    lines.append(f"{name}_count"
+                                 f"{labels(keys, tag_json, worker_id)} "
+                                 f"{m['counts'][tag_json]}")
+            else:
+                for tag_json, v in m.get("values", {}).items():
+                    lines.append(
+                        f"{name}{labels(keys, tag_json, worker_id)} {v}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def rpc_stats() -> Dict[str, Dict[str, float]]:
+    """Control-plane dispatch latency by RPC method (count, mean/max
+    queue and handler ms) — see ConductorHandler.get_rpc_stats."""
+    return _worker().conductor.call("get_rpc_stats", timeout=10.0)
+
+
+def recent_logs(limit: int = 500) -> List[Dict[str, Any]]:
+    """The newest worker output lines the head's log tailer saw."""
+    return _worker().conductor.call("get_recent_logs", limit, timeout=10.0)
+
+
+def cluster_summary() -> Dict[str, Any]:
+    """One-call overview — reference `ray status`."""
+    w = _worker()
+    return {
+        "timestamp": time.time(),
+        "nodes": list_nodes(),
+        "resources_total": w.conductor.call("cluster_resources",
+                                            timeout=10.0),
+        "resources_available": w.conductor.call("available_resources",
+                                                timeout=10.0),
+        "num_actors": len(list_actors()),
+        "num_workers": len(list_workers()),
+        "placement_groups": list_placement_groups(),
+    }
+
+
+__all__ = ["autoscaler_status", "cluster_summary", "disagg_status",
+           "kvplane_status", "list_actors", "list_nodes", "list_objects",
+           "list_placement_groups", "list_tasks", "list_workers",
+           "online_status", "pipeline_status", "prometheus_metrics",
+           "recent_logs", "resilience_status", "rpc_stats",
+           "servefault_status", "summarize_tasks", "timeline",
+           "train_progress", "weight_versions"]

@@ -246,8 +246,14 @@ def test_resilience_timeline_markers():
     assert merged == jtimeline.merged_chrome_trace([], [], [], events, wev)
     assert {e["tid"] for e in merged} == {"preemption", "restart", "chaos",
                                           "publish", "swap"}
-    with pytest.raises(NotImplementedError):
-        ttimeline.merged_chrome_trace([], [{"name": "span"}], [])
+    # the span lane (ported with util/tracing.py) merges as JAX's does
+    span = {"name": "task:f", "trace_id": "ab" * 16, "span_id": "cd" * 8,
+            "parent_id": None, "start": 10.2, "end": 10.4, "attrs": {},
+            "status": "OK", "pid": 7}
+    merged = ttimeline.merged_chrome_trace([], [span], [], events, wev)
+    assert merged == jtimeline.merged_chrome_trace([], [span], [], events,
+                                                   wev)
+    assert [e["cat"] for e in merged].count("span") == 1
 
 
 # -------------------------------------------- chaos-scripted resume

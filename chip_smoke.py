@@ -4662,6 +4662,20 @@ def disagg_decode_actor(rt):
             return {**_where(self.init_at),
                     "param_device": str(tree_device(self.engine.params))}
 
+        def push_telemetry(self) -> dict:
+            """Push this replica's snapshots and its metrics registry
+            now; its worker id, engine kv_stats() and kernel launches."""
+            from ray_tpu_torch import kernels
+            from ray_tpu_torch._private import worker as worker_mod
+            from ray_tpu_torch.util import metrics
+
+            self.publish_telemetry(force=True)
+            metrics.flush()
+            return {"worker_id": worker_mod.global_worker.worker_id,
+                    "server_id": self.server_id,
+                    "kv_stats": self.engine.kv_stats(),
+                    "launches": dict(kernels.LAUNCHES)}
+
     return rt.remote(num_gpus=1, max_concurrency=16)(DisaggDecodeActor)
 
 
@@ -4683,11 +4697,12 @@ class RecordingPrefill:
         return rec
 
 
-def route_in_order(router, prompts, new: int, **kw):
+def route_in_order(router, prompts, new: int, tenants=None, **kw):
     """Each prompt through `router.generate` on a thread of its own, the
     next one submitted once the one before has its first token (so the
-    prefix cache sees them in order). Returns the streams, each TTFT
-    (seconds from submit) and the wall seconds."""
+    prefix cache sees them in order); `tenants` gives each its tenant.
+    Returns the streams, each TTFT (seconds from submit) and the wall
+    seconds."""
     n = len(prompts)
     out, ttft, errors, threads = [None] * n, [None] * n, [], []
     t_start = time.perf_counter()
@@ -4700,8 +4715,12 @@ def route_in_order(router, prompts, new: int, **kw):
             first.set()
 
         try:
+            if tenants is not None:
+                kw_i = dict(kw, tenant=tenants[i])
+            else:
+                kw_i = kw
             out[i] = router.generate(prompts[i], new, on_first_token=on_first,
-                                     timeout_s=300.0, **kw)
+                                     timeout_s=300.0, **kw_i)
         except Exception as err:  # noqa: BLE001 — re-raised below
             errors.append(err)
         first.set()
@@ -6319,6 +6338,408 @@ def surface_body(rt, gpt2, stage: str) -> dict:
         "predicted": SURFACE_PREDICTED}
 
 
+TELEMETRY_SEED = 99
+TELEMETRY_PREFIX = 64
+TELEMETRY_TAIL = 8
+TELEMETRY_NEW = 16
+TELEMETRY_BLOCK = 16
+TELEMETRY_BATCH = 4
+# per shared prefix: one request each, two tenants and base twice
+TELEMETRY_TENANTS = ("t0", "t1", None, None)
+TELEMETRY_PREFIXES = 4
+TELEMETRY_TIMING_ROUNDS = 2  # each: the recorder on and off
+# a timed round sends the 16 requests this many times, on a store that
+# one untimed round has warmed past its `slowest` (32)
+TELEMETRY_TIMING_REPEAT = 3
+TELEMETRY_SETTLE_S = 15.0
+# the equality gates: the surface's snapshot against the object's own
+TELEMETRY_KV_KEYS = ("lookups", "hits", "partial_hits", "misses",
+                     "reused_tokens", "prefilled_tokens", "evictions")
+TELEMETRY_SPEC_KEYS = ("spec_proposed", "spec_accepted",
+                       "spec_verify_ticks", "spec_emitted_tokens")
+TELEMETRY_LORA_KEYS = ("acquires", "hits", "misses", "evictions", "swaps",
+                       "page_in_bytes")
+# written before the phase first ran (PERF.md §6); the warm store's
+# ratio before the warmed rounds first ran
+TELEMETRY_PREDICTED = {"colocated_ttft_ms": [15, 120],
+                       "colocated_decode_tokens_per_s": [100, 600],
+                       "recorder_off_over_on": [0.9, 1.1],
+                       "recorder_off_over_on_warm_store": [0.95, 1.05],
+                       # per prefix: t0, t1 and the first base request
+                       # miss (a namespace each), the second base one
+                       # hits (its 8-token tail fits in one block)
+                       "kv_lookups": 16, "kv_misses": 12, "kv_hits": 4,
+                       "disagg_actor_cold_start_s": [10, 25],
+                       "disagg_ttft_ms": [60, 400],
+                       "phase_s": [40, 90]}
+
+
+def telemetry_jobs(cfg, seed: int) -> tuple:
+    """TELEMETRY_PREFIXES shared TELEMETRY_PREFIX-token prefixes, each
+    with one TELEMETRY_TAIL-token tail per TELEMETRY_TENANTS entry:
+    (prompts, tenants)."""
+    gen = torch.Generator().manual_seed(seed)
+    prompts, tenants = [], []
+    for _ in range(TELEMETRY_PREFIXES):
+        prefix = torch.randint(0, cfg.vocab_size, (TELEMETRY_PREFIX,),
+                               generator=gen)
+        for tenant in TELEMETRY_TENANTS:
+            prompts.append(torch.cat([prefix, torch.randint(
+                0, cfg.vocab_size, (TELEMETRY_TAIL,),
+                generator=gen)]).tolist())
+            tenants.append(tenant)
+    return prompts, tenants
+
+
+def hold_equal(what: str, local: dict, surface: dict, keys) -> None:
+    """serve_telemetry's equality gate: every key of a surface's snapshot
+    is the object's own number."""
+    diff = {k: [local.get(k), surface.get(k)] for k in keys
+            if local.get(k) != surface.get(k)}
+    check(not diff, f"serve_telemetry: {what} is not the object's own "
+          f"numbers: {diff}")
+
+
+def hold_covers(text: str, family: str, local, **labels) -> float:
+    """The Prometheus samples of `family` (with `labels`) sum to at
+    least this process's own number."""
+    from ray_tpu_torch._private.telemetry_checks import prom_total
+
+    got = prom_total(text, family, **labels)
+    check(got >= local, f"serve_telemetry: {family} {labels} sums to "
+          f"{got}, below the local {local}")
+    return got
+
+
+def settle(read, done):
+    """`read()` until `done(value)` (conductor pushes are notifies), or
+    the last value after TELEMETRY_SETTLE_S for the gate to judge."""
+    deadline = time.monotonic() + TELEMETRY_SETTLE_S
+    while True:
+        value = read()
+        if done(value) or time.monotonic() >= deadline:
+            return value
+        time.sleep(0.1)
+
+
+def telemetry_colocated(rt, modules, params, cfg, prompts, tenants,
+                        want) -> dict:
+    """The colocated leg (see phase_serve_telemetry)."""
+    engine_mod, lora_mod, disagg, reqtrace, state, metrics = modules
+    from ray_tpu_torch._private.telemetry_checks import prom_total
+    from ray_tpu_torch.serve.handle import RequestShedError
+
+    w = rt._private.worker.global_worker
+    me = w.worker_id[:12]
+    Engine = engine_mod.ContinuousBatchingEngine
+    adapters = {f"t{i}": lora_mod.make_lora_adapter(
+        cfg, LORA_RANK, seed=40 + i, scale=LORA_SCALE) for i in range(2)}
+
+    def pool():
+        return lora_mod.AdapterPool(cfg, source=lora_mod.LocalAdapterSource(
+            dict(adapters)), device="cuda")
+
+    # the references: generate() for base, the plain engine (no prefix
+    # cache, no speculation) on the same adapters for the tenants
+    plain = Engine(params, cfg, max_batch=TELEMETRY_BATCH,
+                   prefix_cache=False, lora_pool=pool())
+    try:
+        ref = [plain.generate(p, TELEMETRY_NEW, timeout_s=300.0,
+                              adapter_id=t) for p, t in zip(prompts, tenants)]
+    finally:
+        plain.stop()
+    base = [i for i, t in enumerate(tenants) if t is None]
+    check_streams("serve_telemetry_plain", engine_mod, params, cfg,
+                  [prompts[i] for i in base], [ref[i] for i in base],
+                  [want[i] for i in base])
+    store = reqtrace.configure()
+    eng = Engine(params, cfg, max_batch=TELEMETRY_BATCH,
+                 kv_block_size=TELEMETRY_BLOCK, speculate_k=SPEC_K,
+                 lora_pool=pool())
+    router = disagg.DisaggRouter(colocated=eng)
+    out: dict = {}
+    try:
+        got, ttft, wall = route_in_order(router, prompts, TELEMETRY_NEW,
+                                         tenants=tenants)
+        check_streams("serve_telemetry", engine_mod, params, cfg,
+                      [prompts[i] for i in base], [got[i] for i in base],
+                      [want[i] for i in base])
+        differ = [i for i, (x, y) in enumerate(zip(got, ref)) if x != y]
+        check(not differ, f"serve_telemetry: tenant streams {differ} differ "
+              f"from the plain engine's")
+        try:
+            router.generate(prompts[0], 4, deadline_s=0.0)
+            check(False, "serve_telemetry: no shed past the deadline")
+        except RequestShedError as e:
+            check(e.cause == "deadline", f"serve_telemetry: shed {e.cause}")
+        eng.publish_kv_telemetry(force=True)
+        eng.lora_pool.publish_telemetry(force=True)
+        router.publish_telemetry(force=True)
+        store.publish_telemetry(force=True)
+        metrics.flush()
+        kv, spec = eng.kv_stats(), eng.speculation_stats()
+        lst, rst = eng.lora_pool.stats(), store.stats()
+        key = f"{me}:{eng.engine_id}"
+        kv_s = settle(lambda: state.kv_cache_stats(engine=eng.engine_id)[
+            "engines"].get(key, {}), lambda v: all(
+            v.get(k) == kv[k] for k in TELEMETRY_KV_KEYS))
+        hold_equal("kv_cache_stats()", kv, kv_s, TELEMETRY_KV_KEYS)
+        sp_s = settle(lambda: state.speculation_stats(
+            engine=eng.engine_id)["engines"].get(key, {}), lambda v: all(
+            v.get(k) == spec[k] for k in TELEMETRY_SPEC_KEYS))
+        hold_equal("speculation_stats()", spec, sp_s, TELEMETRY_SPEC_KEYS)
+        lo_s = settle(lambda: state.lora_status()["pools"].get(
+            eng.lora_pool.pool_id, {}), lambda v: all(
+            v.get(k) == lst[k] for k in TELEMETRY_LORA_KEYS))
+        hold_equal("lora_status()", lst, lo_s, TELEMETRY_LORA_KEYS)
+        rt_s = settle(lambda: state.requesttrace_status()["stores"].get(
+            store.component_id, {}),
+            lambda v: v.get("completed") == len(prompts) + 1)
+        hold_equal("requesttrace_status()", rst, rt_s,
+                   ("completed", "kept", "dropped", "outcomes"))
+        check(rt_s.get("completed") == len(prompts) + 1
+              and rt_s.get("outcomes", {}).get("deadline") == 1,
+              f"serve_telemetry: requesttrace_status {rt_s}")
+        # Prometheus: this process's families cover the local numbers
+        families = {
+            "ray_tpu_kvcache_lookups_total": kv["lookups"],
+            "ray_tpu_kvcache_reused_tokens_total": kv["reused_tokens"],
+            "ray_tpu_kvcache_prefilled_tokens_total": kv["prefilled_tokens"],
+            "ray_tpu_spec_proposed_total": spec["spec_proposed"],
+            "ray_tpu_spec_accepted_total": spec["spec_accepted"],
+            "ray_tpu_lora_adapter_hits_total": lst["hits"],
+            "ray_tpu_lora_adapter_misses_total": lst["misses"],
+            "ray_tpu_reqtrace_requests_total": rst["completed"]}
+        prom = settle(state.prometheus_metrics, lambda t: all(
+            prom_total(t, f, WorkerId=me) >= v for f, v in families.items()))
+        out["prometheus"] = {f: hold_covers(prom, f, v, WorkerId=me)
+                             for f, v in families.items()}
+        # every kept trace: its phases within its wall time
+        kept = store.slowest(rst["kept"])
+        sums = []
+        for rec in kept:
+            seq_ms = sum(p["dur_ms"] for p in rec["phases"]
+                         if not p.get("concurrent"))
+            check(seq_ms <= rec["total_ms"] + 5.0,
+                  f"serve_telemetry: {rec['request_id']} phases {seq_ms} ms "
+                  f"past its wall time {rec['total_ms']} ms")
+            sums.append(seq_ms / rec["total_ms"] if rec["total_ms"] else 1.0)
+        attribution = rst["attribution"]
+        check(attribution["tail_owner"] in reqtrace.PHASES,
+              f"serve_telemetry: p99 attribution {attribution}")
+        # the timeline's lanes: one marker per event
+        conductor = w.conductor
+        kv_ev = [e for e in conductor.call("get_kvcache_events",
+                                           timeout=30.0) if "ts" in e]
+        lora_ev = conductor.call("get_lora_events", timeout=30.0)
+        req_ev = [e for e in conductor.call("get_requesttrace_events",
+                                            timeout=30.0)
+                  if e.get("kind") == "trace"]
+        trace = state.timeline(merged=True)
+        lanes = {"kvcache": [e for e in kv_ev if not str(
+            e.get("kind", "")).startswith("spec_")],
+                 "speculation": [e for e in kv_ev if str(
+                     e.get("kind", "")).startswith("spec_")],
+                 "lora": lora_ev, "requests": req_ev}
+        counts = {}
+        for lane, events in lanes.items():
+            marks = [e for e in trace if e.get("pid") == lane
+                     and e.get("cat") != "request_phase"]
+            counts[lane] = [len(marks), len(events)]
+            check(len(marks) == len(events), f"serve_telemetry: the "
+                  f"{lane} lane has {len(marks)} markers for "
+                  f"{len(events)} events")
+        check(len(req_ev) == rst["kept"], "serve_telemetry: kept traces "
+              f"{rst['kept']} against {len(req_ev)} trace events")
+        out.update(
+            ttft_ms=quantiles_ms(ttft),
+            decode_tokens_per_s=len(prompts) * TELEMETRY_NEW / wall,
+            kv={k: kv[k] for k in TELEMETRY_KV_KEYS},
+            spec={k: spec[k] for k in TELEMETRY_SPEC_KEYS},
+            lora={k: lst[k] for k in TELEMETRY_LORA_KEYS},
+            reqtrace={k: rst[k] for k in ("completed", "kept", "dropped",
+                                          "outcomes")},
+            phase_sum_share={"min": min(sums), "max": max(sums)},
+            attribution={k: attribution.get(k) for k in (
+                "n", "tail_owner", "tail_share", "p50_total_ms",
+                "p99_total_ms")},
+            lane_markers_and_events=counts)
+        # the recorder's cost in its steady state: one store, warmed past
+        # its `slowest` by an untimed round (so it keeps a sampled share,
+        # not every trace), switched on and off between rounds in
+        # on-off-off-on order (each round warms the output memory, so
+        # later rounds draft more)
+        many = TELEMETRY_TIMING_REPEAT
+
+        def timed_round(mode):
+            store.enabled = mode == "on"
+            again, tt, wl = route_in_order(
+                router, prompts * many, TELEMETRY_NEW, tenants=tenants * many)
+            check(again == got * many, f"serve_telemetry: the "
+                  f"recorder-{mode} streams differ")
+            return {"ttft_ms_median": statistics.median(tt) * 1e3,
+                    "decode_tokens_per_s": len(again) * TELEMETRY_NEW / wl}
+
+        timed_round("on")
+        warm = store.stats()
+        check(warm["completed"] > store.slowest_n, f"serve_telemetry: the "
+              f"store holds {warm['completed']} traces after its warm-up")
+        timing = {"on": [], "off": [], "requests_per_round":
+                  len(prompts) * many}
+        for r in range(TELEMETRY_TIMING_ROUNDS):
+            for mode in (("on", "off") if r % 2 == 0 else ("off", "on")):
+                timing[mode].append(timed_round(mode))
+        end = store.stats()
+        timing["store"] = {"warm": {k: warm[k] for k in (
+            "completed", "kept", "dropped")}, "end": {k: end[k] for k in (
+                "completed", "kept", "dropped")}}
+        out["recorder_timing"] = timing
+    finally:
+        store.enabled = True
+        eng.stop()
+        reqtrace.configure()
+    return out
+
+
+def telemetry_disagg(rt, modules, params, cfg, prompts, want) -> dict:
+    """The disaggregated leg (see phase_serve_telemetry)."""
+    engine_mod, lora_mod, disagg, reqtrace, state, metrics = modules
+    from ray_tpu_torch._private.telemetry_checks import prom_total
+    from ray_tpu_torch.tree import tree_map
+
+    me = rt._private.worker.global_worker.worker_id[:12]
+    store = reqtrace.configure()
+    Actor = disagg_decode_actor(rt)
+    t0 = time.perf_counter()
+    actor = Actor.remote(tree_map(lambda t: t.cpu(), params), cfg,
+                         max_batch=TELEMETRY_BATCH, device="cuda")
+    where = rt.get(actor.where.remote(), timeout=300.0)
+    cold_s = time.perf_counter() - t0
+    check(where["param_device"].startswith("cuda"),
+          f"serve_telemetry: the GPU actor's params on "
+          f"{where['param_device']}")
+    pf = disagg.PrefillServer(params, cfg, kv_block_size=TELEMETRY_BLOCK)
+    router = disagg.DisaggRouter(decode=[actor], prefill=[pf],
+                                 affinity_tokens=TELEMETRY_BLOCK)
+    try:
+        got, ttft, wall = route_in_order(router, prompts, TELEMETRY_NEW)
+        check(got == want, "serve_telemetry: the disaggregated streams "
+              "differ from generate()")
+        tel = rt.get(actor.push_telemetry.remote(), timeout=60.0)
+        actor_label = tel["worker_id"][:12]
+        check(actor_label != me, "serve_telemetry: the actor is the driver")
+        transfers = tel["kv_stats"]["adopted"]
+        check(transfers == len(prompts),
+              f"serve_telemetry: the actor adopted {transfers}")
+
+        def from_actor(text):
+            return prom_total(text, "ray_tpu_disagg_transfers_total",
+                              WorkerId=actor_label) >= transfers
+
+        prom = settle(state.prometheus_metrics, from_actor)
+        actor_prom = {
+            "ray_tpu_disagg_transfers_total": hold_covers(
+                prom, "ray_tpu_disagg_transfers_total", transfers,
+                WorkerId=actor_label),
+            "ray_tpu_disagg_kv_bytes_total": hold_covers(
+                prom, "ray_tpu_disagg_kv_bytes_total", 1,
+                WorkerId=actor_label, direction="recv")}
+        actor_families = sorted({
+            ln.split("{", 1)[0] for ln in prom.splitlines()
+            if f'WorkerId="{actor_label}"' in ln})
+        # the actor's engine snapshot: adoption counters
+        key = f"{actor_label}:{tel['kv_stats']['engine_id']}"
+        kv_s = settle(lambda: state.kv_cache_stats()["engines"].get(key, {}),
+                      lambda v: v.get("adopted") == transfers)
+        hold_equal("the actor's kv_cache_stats()", tel["kv_stats"], kv_s,
+                   ("adopted", "spliced_tokens", "admitted"))
+        # one request id: the router's kv_transfer, the actor's remote
+        # phase
+        rid = store.summaries_since(0)[-1]["request_id"]
+        trc = settle(lambda: state.request_trace(rid) or {},
+                     lambda v: bool(v.get("remote_phases")))
+        phases = [p["phase"] for p in trc.get("phases", [])]
+        remote = trc.get("remote_phases", [])
+        check("kv_transfer" in phases and [p["phase"] for p in remote]
+              == ["kv_transfer_remote"]
+              and remote[0].get("server") == tel["server_id"],
+              f"serve_telemetry: request_trace({rid}) {phases} {remote}")
+    finally:
+        rt.get(actor.stop.remote(), timeout=60.0)
+        rt.kill(actor)
+        reqtrace.configure()
+    return {"actor_cold_start_s": cold_s, "ttft_ms": quantiles_ms(ttft),
+            "decode_tokens_per_s": len(prompts) * TELEMETRY_NEW / wall,
+            "transfers": transfers, "actor_prometheus": actor_prom,
+            "actor_families": actor_families,
+            "request_id": rid, "router_phases": phases,
+            "remote_phases": [{k: p.get(k) for k in (
+                "phase", "dur_ms", "kv_bytes", "attempt")} for p in remote],
+            "actor_launches": tel["launches"]}
+
+
+def phase_serve_telemetry(kernels, gpt2, generate_mod) -> None:
+    """The serving plane's telemetry on GPT-2 small fp32, full width.
+    Colocated leg: a DisaggRouter over an engine here (paged prefix
+    cache, speculation k 4, a LoRA pool of two tenants), 16 requests over
+    4 shared 64-token prefixes (per prefix t0, t1 and base twice) and
+    one shed on deadline_s=0. After the forced pushes: kv_cache_stats(),
+    speculation_stats(), lora_status() and requesttrace_status() equal
+    the engine's, the pool's and the store's own numbers; the
+    ray_tpu_kvcache_* / spec_* / lora_* / reqtrace_* Prometheus sums of
+    this process cover them; every kept trace's phases lie within its wall
+    time; the p99 attribution names a phase; each timeline lane has one
+    marker per event; every stream equals generate() (base) or the plain
+    engine on the same adapters (tenants). Then TTFT and decode tokens/s
+    with the recorder on and off. Disaggregated leg: prefill here, decode
+    in one GPU actor: the actor's ray_tpu_disagg_* series reach this
+    driver's prometheus_metrics() through its own registry push, its
+    engine's adoption counters reach kv_cache_stats(), and
+    request_trace(id) holds the router's kv_transfer and the actor's
+    remote phase under one id. No kernel launches here or in the actor."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import engine as engine_mod
+    from ray_tpu_torch.observability import requests as reqtrace
+    from ray_tpu_torch.serve import disagg
+    from ray_tpu_torch.serve import lora as lora_mod
+    from ray_tpu_torch.util import metrics, state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = gpt2.GPT2Config(dtype=torch.float32)
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(2),
+                            device="cuda")
+    prompts, tenants = telemetry_jobs(cfg, TELEMETRY_SEED)
+    with torch.inference_mode():
+        # greedy: the first TELEMETRY_NEW of generate()'s SERVE_NEW tokens
+        want = [w[:TELEMETRY_NEW]
+                for w in generated(generate_mod, params, cfg, prompts)]
+    modules = (engine_mod, lora_mod, disagg, reqtrace, state, metrics)
+    reset_counts(kernels)
+    info = rt.init(num_cpus=4)
+    try:
+        colo = telemetry_colocated(rt, modules, params, cfg, prompts,
+                                   tenants, want)
+        base = [i for i, t in enumerate(tenants) if t is None][::2]
+        dis = telemetry_disagg(rt, modules, params, cfg,
+                               [prompts[i] for i in base],
+                               [want[i] for i in base])
+    finally:
+        end_session(rt, info["session_dir"], "serve_telemetry")
+    launches = check_no_kernel(kernels, "the serving telemetry path")
+    check(not any(dis["actor_launches"].values()),
+          f"serve_telemetry: the decode actor launched "
+          f"{dis['actor_launches']}")
+    emit({"phase": "serve_telemetry", "card": card_line(),
+          "model": "gpt2-small", "dtype": "float32",
+          "requests": len(prompts), "prefixes": TELEMETRY_PREFIXES,
+          "prefix_tokens": TELEMETRY_PREFIX, "new_tokens": TELEMETRY_NEW,
+          "speculate_k": SPEC_K, "tenants": 2, "colocated": colo,
+          "disagg": dis, "driver_launches": launches,
+          "phase_s": time.perf_counter() - t_phase,
+          "predicted": TELEMETRY_PREDICTED})
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -6484,6 +6905,10 @@ def main() -> int:
     # CUPTI profile, metrics, the state API, a ray:// client, the
     # control-plane microbenchmark
     phase_runtime_surface(gpt2)
+    # the serving plane's telemetry: the engine's, the pool's and the
+    # request recorder's surfaces against their own numbers, colocated
+    # and with a GPU decode actor (no kernel launches)
+    phase_serve_telemetry(kernels, gpt2, generate_mod)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

@@ -306,6 +306,16 @@ class ConductorHandler:
                            "directory_hits", "directory_misses",
                            "reaped", "gced", "unpublished")}
         self._servefault_stats: Dict[str, Dict[str, Any]] = {}
+        # the engines' paged KV cache and speculation snapshots, the
+        # adapter pools' and routers' LoRA snapshots, the request flight
+        # recorder's store snapshots, and each one's instant markers; in
+        # memory as in the JAX package
+        self._kvcache_stats: Dict[str, Dict[str, Any]] = {}
+        self._kvcache_events: List[Dict[str, Any]] = []
+        self._lora_stats: Dict[str, Dict[str, Any]] = {}
+        self._lora_events: List[Dict[str, Any]] = []
+        self._requesttrace_stats: Dict[str, Dict[str, Any]] = {}
+        self._requesttrace_events: List[Dict[str, Any]] = []
         # the serving autoscaler (serve/autoscale.py) and the online
         # learning loop (online/): snapshots and instant markers, in
         # memory as in the JAX package
@@ -2001,6 +2011,233 @@ class ConductorHandler:
                           ) -> List[Dict[str, Any]]:
         with self._lock:
             return self._disagg_events[-limit:]
+
+    # --------------------------------------------------- paged KV cache
+    # Engines (models/engine.py) and prefill servers push kv_stats()
+    # snapshots (their speculation counters ride the same push) and the
+    # prefix-hit / evict / invalidate / spec_accept / spec_reject
+    # markers; util.state.kv_cache_stats() and speculation_stats() read
+    # them, the merged timeline's kvcache lane the markers.
+
+    _KVCACHE_EVENTS_KEPT = 10_000
+    _KVCACHE_TOTAL_KEYS = (
+        "lookups", "hits", "partial_hits", "misses", "reused_tokens",
+        "prefilled_tokens", "spliced_tokens", "inserted_blocks",
+        "evictions", "cow_copies", "invalidations", "admitted",
+        "prefill_admitted", "adopted", "prefill_calls",
+        "spec_proposed", "spec_accepted", "spec_verify_ticks",
+        "spec_emitted_tokens")
+
+    def report_kvcache_stats(self, worker_id: str, engine_id: str,
+                             stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        key = f"{str(worker_id)[:12]}:{engine_id}"
+        with self._lock:
+            self._kvcache_stats[key] = dict(
+                stats, worker_id=worker_id, engine_id=engine_id,
+                ts=time.time())
+
+    def get_kvcache_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            engines = {k: dict(v) for k, v in self._kvcache_stats.items()}
+        totals: Dict[str, Any] = {k: 0 for k in self._KVCACHE_TOTAL_KEYS}
+        for st in engines.values():
+            for k in self._KVCACHE_TOTAL_KEYS:
+                v = st.get(k)
+                if isinstance(v, (int, float)):
+                    totals[k] += v
+        looked = totals["lookups"]
+        totals["hit_rate"] = ((totals["hits"] + totals["partial_hits"])
+                              / looked if looked else 0.0)
+        seen = totals["reused_tokens"] + totals["prefilled_tokens"]
+        totals["token_reuse_rate"] = (totals["reused_tokens"] / seen
+                                      if seen else 0.0)
+        return {"engines": engines, "totals": totals}
+
+    def get_speculation_stats(self) -> Dict[str, Any]:
+        """The speculation slice of the kvcache snapshots: engines that
+        never speculated are left out of `engines`; the totals are
+        returned all the same."""
+        from ..util.state import speculation_totals
+
+        with self._lock:
+            snaps = {k: dict(v) for k, v in self._kvcache_stats.items()}
+        engines = {k: {
+            "engine_id": v.get("engine_id"),
+            "speculate_k": v.get("speculate_k", 0),
+            "spec_proposed": v.get("spec_proposed", 0),
+            "spec_accepted": v.get("spec_accepted", 0),
+            "spec_verify_ticks": v.get("spec_verify_ticks", 0),
+            "spec_emitted_tokens": v.get("spec_emitted_tokens", 0),
+            "acceptance_rate": v.get("acceptance_rate", 0.0),
+            "tokens_per_verify": v.get("tokens_per_verify", 0.0),
+            "kv_int8": v.get("kv_int8", False),
+            "ts": v.get("ts"),
+        } for k, v in snaps.items() if v.get("speculate_k")}
+        return {"engines": engines, "totals": speculation_totals(engines)}
+
+    def report_kvcache_event(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._append_event_locked(self._kvcache_events, event,
+                                      self._KVCACHE_EVENTS_KEPT)
+
+    def get_kvcache_events(self, limit: int = 10_000
+                           ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._kvcache_events[-limit:]
+
+    # ------------------------------------------------------ LoRA tenants
+    # Adapter pools (serve/lora.py) push paging snapshots, routers their
+    # tenant counters; util.state.lora_status() reads the aggregate, the
+    # merged timeline's lora lane the page_in / evict / swap markers.
+
+    _LORA_STATS_KEPT = 256
+    _LORA_EVENTS_KEPT = 10_000
+
+    def report_lora_stats(self, worker_id: str, component_id: str,
+                          stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._lora_stats,
+                                       self._LORA_STATS_KEPT, worker_id,
+                                       component_id, stats)
+
+    def get_lora_status(self) -> Dict[str, Any]:
+        """Pool snapshots, router tenant counters, a per-tenant rollup
+        and cluster totals."""
+        with self._lock:
+            comps = {k: dict(v) for k, v in self._lora_stats.items()}
+        pools = {k: v for k, v in comps.items() if v.get("role") == "pool"}
+        routers = {k: v for k, v in comps.items()
+                   if v.get("role") == "router"}
+        tenants: Dict[str, Dict[str, Any]] = {}
+
+        def agg(t: str) -> Dict[str, Any]:
+            return tenants.setdefault(
+                t, {"hits": 0, "misses": 0, "evictions": 0, "swaps": 0,
+                    "dispatched": 0, "completed": 0, "shed": 0,
+                    "slo_misses": 0})
+
+        for p in pools.values():
+            for t, ts in (p.get("tenants") or {}).items():
+                a = agg(t)
+                for key in ("hits", "misses", "evictions", "swaps"):
+                    a[key] += int(ts.get(key, 0))
+        for r in routers.values():
+            for t, ts in (r.get("tenants") or {}).items():
+                a = agg(t)
+                for key in ("dispatched", "completed", "shed",
+                            "slo_misses"):
+                    a[key] += int(ts.get(key, 0))
+
+        def total(key: str) -> int:
+            return sum(int(p.get(key, 0)) for p in pools.values())
+
+        acquires, hits = total("acquires"), total("hits")
+        totals: Dict[str, Any] = {
+            "pools": len(pools), "routers": len(routers),
+            "slots": total("slots"), "resident": total("resident"),
+            "pinned": total("pinned"), "acquires": acquires, "hits": hits,
+            "misses": total("misses"), "evictions": total("evictions"),
+            "swaps": total("swaps"), "page_in_bytes": total("page_in_bytes"),
+            "hit_rate": hits / acquires if acquires else 0.0,
+            "tenants": len(tenants)}
+        return {"pools": pools, "routers": routers, "tenants": tenants,
+                "totals": totals}
+
+    def report_lora_event(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._append_event_locked(self._lora_events, event,
+                                      self._LORA_EVENTS_KEPT)
+
+    def get_lora_events(self, limit: int = 10_000) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._lora_events[-limit:]
+
+    # ------------------------------------------------ request traces
+    # Each process's RequestTraceStore (observability/requests.py) pushes
+    # its retention stats and its recent summaries; every kept trace
+    # rides the event log as a kind="trace" record, and tiers in other
+    # processes push kind="phase" child records under the same request
+    # id. util.state.requesttrace_status() / request_trace() and the
+    # merged timeline's requests lane read them.
+
+    _REQTRACE_EVENTS_KEPT = 10_000
+    _REQTRACE_STATS_KEPT = 64
+
+    def report_requesttrace_stats(self, worker_id: str, component_id: str,
+                                  stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._requesttrace_stats,
+                                       self._REQTRACE_STATS_KEPT,
+                                       worker_id, component_id, stats)
+
+    def get_requesttrace_status(self) -> Dict[str, Any]:
+        """Per-store snapshots, cluster totals, the cluster's slowest
+        requests, and the p99 attribution over every store's merged
+        recent summaries."""
+        from ..observability.requests import p99_attribution
+
+        with self._lock:
+            stores = {k: dict(v)
+                      for k, v in self._requesttrace_stats.items()}
+        totals: Dict[str, Any] = {"stores": len(stores)}
+        for key in ("completed", "kept", "dropped", "replayed_requests",
+                    "preempted_requests"):
+            totals[key] = sum(int(s.get(key, 0)) for s in stores.values())
+        outcomes: Dict[str, int] = {}
+        slowest: List[Dict[str, Any]] = []
+        merged_recent: List[Dict[str, Any]] = []
+        for s in stores.values():
+            for k, v in (s.get("outcomes") or {}).items():
+                outcomes[k] = outcomes.get(k, 0) + int(v)
+            slowest.extend(s.get("slowest") or [])
+            merged_recent.extend(s.get("recent") or [])
+        totals["outcomes"] = outcomes
+        totals["slowest_ms"] = max(
+            [float(s.get("slowest_ms", 0.0)) for s in stores.values()],
+            default=0.0)
+        slowest.sort(key=lambda r: float(r.get("total_ms") or 0.0),
+                     reverse=True)
+        return {"stores": stores, "totals": totals,
+                "slowest": slowest[:32],
+                "attribution": p99_attribution(merged_recent)}
+
+    def report_requesttrace_event(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._append_event_locked(self._requesttrace_events, event,
+                                      self._REQTRACE_EVENTS_KEPT)
+
+    def get_requesttrace_events(self, limit: int = 10_000
+                                ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._requesttrace_events[-limit:]
+
+    def get_request_trace(self, request_id: str
+                          ) -> Optional[Dict[str, Any]]:
+        """The newest kept trace under the id, with the kind="phase"
+        records other processes pushed for it as `remote_phases`."""
+        rid = str(request_id)
+        with self._lock:
+            events = list(self._requesttrace_events)
+        trace = None
+        for ev in reversed(events):
+            if ev.get("kind") == "trace" \
+                    and str(ev.get("request_id")) == rid:
+                trace = dict(ev)
+                break
+        if trace is None:
+            return None
+        remote = [dict(ev) for ev in events
+                  if ev.get("kind") == "phase"
+                  and str(ev.get("request_id")) == rid]
+        if remote:
+            trace["remote_phases"] = remote
+        return trace
 
     # ------------------------------------------------------ global KV plane
     # Prefill servers (their tier-2 arenas, tier-3 counters) and routers

@@ -6,8 +6,8 @@
 
 Each named check is a function of `runtime_checks.py`,
 `cluster_checks.py`, `fabric_checks.py`, `serve_checks.py`,
-`online_checks.py`, `mpmd_checks.py` or `surface_checks.py` (modules of
-the package, so
+`online_checks.py`, `mpmd_checks.py`, `surface_checks.py` or
+`telemetry_checks.py` (modules of the package, so
 worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
@@ -172,7 +172,7 @@ def _driver_main(payload_path: str) -> int:
 
     from . import (cluster_checks, fabric_checks, mpmd_checks,
                    online_checks, runtime_checks, serve_checks,
-                   surface_checks)
+                   surface_checks, telemetry_checks)
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -196,7 +196,8 @@ def _driver_main(payload_path: str) -> int:
                 or getattr(serve_checks, name, None) \
                 or getattr(online_checks, name, None) \
                 or getattr(mpmd_checks, name, None) \
-                or getattr(surface_checks, name)
+                or getattr(surface_checks, name, None) \
+                or getattr(telemetry_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

@@ -480,6 +480,18 @@ def mpmd_all_surfaces_report_consistent_numbers():
         assert reports[s]["sent_bytes"] == mine["sent_bytes"]
         assert abs(reports[s]["bubble_fraction"]
                    - mine["bubble_fraction"]) <= 1e-6
+    # Prometheus: each stage pushed its registry with its report
+    from .telemetry_checks import prom_total, prometheus_when
+
+    sent = sum(m["sent_bytes"] for m in local.values())
+    prom = prometheus_when(
+        lambda t: prom_total(t, "ray_tpu_pipeline_activations_bytes_total",
+                             pipeline="surfaces", direction="send")
+        >= sent, what="the stages' pipeline series")
+    for s, mine in local.items():
+        assert abs(prom_total(prom, "ray_tpu_pipeline_bubble_fraction",
+                              pipeline="surfaces", stage=s)
+                   - mine["last_bubble_fraction"]) <= 1e-6, s
     return {"losses": out["losses"], "params": [pack(p) for p in params]}
 
 

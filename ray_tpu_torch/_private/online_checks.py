@@ -471,6 +471,20 @@ def online_distillation_e2e():
     assert {"rollout", "ingest", "publish", "swap"} <= kinds, kinds
     wkinds = {e["tid"] for e in trace if e.get("cat") == "weights"}
     assert {"publish", "swap"} <= wkinds, wkinds
+    # Prometheus: the learner's families (this driver) cover its numbers,
+    # the samplers' reach the text from their processes' pushes
+    from .telemetry_checks import prom_total, prometheus_when
+
+    def shown(text):
+        return (prom_total(text, "ray_tpu_online_ingested_rollouts_total")
+                >= 80 and prom_total(text, "ray_tpu_online_rollouts_total")
+                > 0)
+
+    prom = prometheus_when(shown, bound_s=20.0, what="the online loop")
+    published = max(v["version"] for v in versions)
+    assert prom_total(prom, "ray_tpu_weights_published_total",
+                      name="e2e") >= published
+    assert prom_total(prom, "ray_tpu_online_rollout_tokens_total") > 0
     return {"losses": losses,
             "max_staleness": api["totals"]["max_staleness_versions"]}
 

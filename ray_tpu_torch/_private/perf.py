@@ -11,9 +11,11 @@ raylet — this runtime's conductor/worker plane is Python — which is
 exactly why the envelope must be measured and published rather than
 implied.
 
-Run: `python -m ray_tpu_torch._private.perf [--scale S] [--out FILE]`
-(a host benchmark: it runs on the CPUs of whatever machine holds it)
-Scale multiplies iteration counts (0.1 = smoke, 1.0 = full envelope).
+Run: `python -m ray_tpu_torch._private.perf [--scale S] [--out FILE]
+[--only task_roundtrip,tasks_async]` (a host benchmark: it runs on the
+CPUs of whatever machine holds it). Scale multiplies iteration counts
+(0.1 = smoke, 1.0 = full envelope); `--only` keeps the benches named
+(their function names without ``bench_``).
 Emits one JSON line per benchmark and an aggregate JSON file.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ import json
 import statistics
 import sys
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -229,15 +231,18 @@ BENCHES: List[Callable] = [
 ]
 
 
-def run(scale: float = 1.0, out: str = "") -> List[Dict[str, Any]]:
+def run(scale: float = 1.0, out: str = "",
+        only: Sequence[str] = ()) -> List[Dict[str, Any]]:
     import os
 
     import ray_tpu_torch as rt
 
+    benches = [b for b in BENCHES
+               if not only or b.__name__[len("bench_"):] in only]
     sink: List[Dict[str, Any]] = []
     rt.init(num_cpus=8)
     try:
-        for bench in BENCHES:
+        for bench in benches:
             bench(rt, sink, scale)
     finally:
         rt.shutdown()
@@ -256,8 +261,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--only", default="",
+                    help="comma-separated bench names, e.g. "
+                         "task_roundtrip,tasks_async")
     args = ap.parse_args(argv)
-    run(scale=args.scale, out=args.out)
+    run(scale=args.scale, out=args.out,
+        only=[n for n in args.only.split(",") if n])
     return 0
 
 

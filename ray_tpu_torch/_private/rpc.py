@@ -22,7 +22,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from . import serialization
 
@@ -327,6 +327,7 @@ class RpcClient:
                 if p is not None:
                     p.ok, p.payload = ok, payload
                     p.event.set()
+                    _run_callback(p)
                 # idle reader must not pin the last reply (may be a large
                 # task result) until the next one arrives
                 del frame, payload, p
@@ -338,23 +339,45 @@ class RpcClient:
                 p.ok = False
                 p.payload = (ConnectionLost(f"connection to {self.address} lost"), "")
                 p.event.set()
+                _run_callback(p)
 
     def start_call(self, method: str, *args, **kwargs) -> "_Pending":
         """Send the request; returns a pending to pass to finish_call.
         Splitting send from wait lets callers control frame ordering."""
+        return self._start(_Pending(), method, args, kwargs)
+
+    def call_async(self, on_done: Callable[["_Pending"], None], method: str,
+                   *args, **kwargs) -> "_Pending":
+        """Send the request; `on_done(p)` runs on the reader thread once
+        `p` holds the reply or the connection's loss, so it must only hand
+        work off. Raises ConnectionLost (and never calls `on_done`) when
+        the request could not be sent."""
         p = _Pending()
+        p.callback = on_done
+        return self._start(p, method, args, kwargs)
+
+    def _start(self, p: "_Pending", method: str, args: tuple,
+               kwargs: dict) -> "_Pending":
         with self._pending_lock:
             req_id = self._next_id
             self._next_id += 1
             self._pending[req_id] = p
             p.req_id = req_id
-        frame = serialization.dumps((req_id, method, args, kwargs))
+        try:
+            frame = serialization.dumps((req_id, method, args, kwargs))
+        except BaseException:
+            # nothing was sent: no reply (and no callback) will come
+            with self._pending_lock:
+                self._pending.pop(req_id, None)
+            raise
         try:
             _send_frame(self._sock, frame, self._send_lock)
         except (OSError, ConnectionLost) as e:
             with self._pending_lock:
-                self._pending.pop(req_id, None)
-            raise ConnectionLost(str(e)) from e
+                mine = self._pending.pop(req_id, None) is not None
+            if mine:
+                raise ConnectionLost(str(e)) from e
+            # the reader already delivered the loss (and ran the callback)
         return p
 
     def finish_call(self, p: "_Pending", method: str = "",
@@ -384,13 +407,22 @@ class RpcClient:
 
 
 class _Pending:
-    __slots__ = ("event", "ok", "payload", "req_id")
+    __slots__ = ("event", "ok", "payload", "req_id", "callback")
 
     def __init__(self):
         self.event = threading.Event()
         self.ok = False
         self.payload = None
         self.req_id = -1
+        self.callback: Optional[Callable[["_Pending"], None]] = None
+
+
+def _run_callback(p: _Pending) -> None:
+    if p.callback is not None:
+        try:
+            p.callback(p)
+        except Exception:  # noqa: BLE001 — a callback must not end the reader
+            pass
 
 
 class ClientPool:
@@ -486,6 +518,9 @@ class ReconnectingClient:
 
     def start_call(self, method: str, *args, **kwargs):
         return self._live().start_call(method, *args, **kwargs)
+
+    def call_async(self, on_done, method: str, *args, **kwargs):
+        return self._live().call_async(on_done, method, *args, **kwargs)
 
     def finish_call(self, p, method: str = "",
                     timeout: Optional[float] = None) -> Any:

@@ -444,6 +444,19 @@ def autoscale_all_surfaces_report_consistent_numbers():
     resil = [e for e in trace if e.get("cat") == "resilience"
              and e.get("tid") == "serve_drain"]
     assert len(resil) == 1
+    # Prometheus: the autoscale families cover the loop's decisions
+    from .telemetry_checks import prom_total, prometheus_when
+
+    def decided(text):
+        return prom_total(text, "ray_tpu_autoscale_decisions_total",
+                          tier="decode", direction="down") >= 1
+
+    prom = prometheus_when(decided, what="the autoscale decisions")
+    assert prom_total(prom, "ray_tpu_autoscale_decisions_total",
+                      tier="decode", direction="up") >= 1
+    assert prom_total(prom, "ray_tpu_autoscale_replica_seconds_total",
+                      tier="decode") > 0
+    assert "# TYPE ray_tpu_autoscale_target_replicas gauge" in prom
     return {"totals": totals}
 
 
@@ -531,6 +544,16 @@ def servefault_actor_decode_kill_mid_stream_heals_and_completes():
         kinds = [e["kind"] for e in
                  _conductor().call("get_servefault_events")]
         assert "replica_death" in kinds and "replace" in kinds, kinds
+        # Prometheus: the healer's replacement and the router's failover
+        # (both in this driver)
+        from .telemetry_checks import prom_total, prometheus_when
+
+        prom = prometheus_when(
+            lambda t: prom_total(t, "ray_tpu_servefault_replacements_total",
+                                 tier="decode") >= 1,
+            what="the replacement")
+        assert prom_total(prom, "ray_tpu_servefault_failovers_total",
+                          phase="decode") >= st["failovers"]["decode"]
     finally:
         scaler.stop()
         for t in ("prefill", "decode"):
@@ -704,6 +727,29 @@ def port_disagg_one_set_of_numbers():
         == local["kvp"]["tier2_hits"]
     assert len(markers("resilience", "failover",
                        router=router.router_id)) == 1
+    # Prometheus: every tier is in this driver, so this process's
+    # families cover the workload's numbers
+    from .telemetry_checks import prom_total, prometheus_when
+
+    prom = prometheus_when(
+        lambda t: prom_total(t, "ray_tpu_disagg_transfers_total")
+        >= transfers, what="the disagg transfers")
+    assert prom_total(prom, "ray_tpu_disagg_kv_bytes_total",
+                      direction="send") >= local["pf"]["published_bytes"]
+    assert f'router="{router.router_id}"' in prom  # its queue depth gauge
+    for cause in ("capacity", "deadline"):
+        assert prom_total(prom, "ray_tpu_servefault_sheds_total",
+                          cause=cause) >= 1, cause
+    assert prom_total(prom, "ray_tpu_servefault_failovers_total",
+                      phase="decode") >= 1
+    assert prom_total(prom, "ray_tpu_serve_shed_total", app="disagg",
+                      deployment=router.router_id) == 2
+    assert prom_total(prom, "ray_tpu_kvplane_spills_total") \
+        >= local["kvp"]["spills"]
+    assert prom_total(prom, "ray_tpu_kvplane_hits_total", tier="2") \
+        >= local["kvp"]["tier2_hits"]
+    assert prom_total(prom, "ray_tpu_kvplane_directory_total") \
+        >= local["rkvp"]["directory_misses"]
     return {"transfers": transfers, "spills": local["kvp"]["spills"],
             "sheds": local["router"]["sheds_by_cause"]}
 

@@ -48,9 +48,10 @@ import threading
 import time
 import traceback
 import uuid
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 from .. import exceptions as exc
 from . import serialization
@@ -161,6 +162,21 @@ def _top_level_refs(args: tuple, kwargs: dict) -> List[ObjectRef]:
     return deps
 
 
+class _Job:
+    """A normal task on its way to a worker: its spec, the lease key it
+    queues under, its crash retries left and the watchdog future that is
+    set once its results (or its error) are recorded."""
+
+    __slots__ = ("spec", "key", "deps", "retries", "future")
+
+    def __init__(self, spec: TaskSpec, key: tuple):
+        self.spec = spec
+        self.key = key
+        self.deps = _top_level_refs(spec.args, spec.kwargs)
+        self.retries = spec.max_retries
+        self.future: Future = Future()
+
+
 class Worker:
     def __init__(self, mode: str, conductor_address: Tuple[str, int],
                  session_dir: str, worker_id: Optional[str] = None):
@@ -178,15 +194,27 @@ class Worker:
         self.handler = WorkerHandler(self)
         self.server = RpcServer(self.handler, max_workers=32).start()
         self.address = self.server.address
-        # Submit concurrency scaled to the host: on small hosts extra
-        # submit threads only add GIL contention (1-core measurement:
-        # 2 threads = 3.7k pipelined tasks/s, 16 threads = 1.6k/s), while
-        # the floor of 4 keeps slots available for dep-waits (bounded,
-        # see _wait_dep_ready) so one blocked chain can't serialize
-        # independent submissions.
+        # Normal tasks hold no thread while they run (reference
+        # normal_task_submitter.cc: a queue per scheduling key, pushes
+        # pipelined onto granted leases). A task whose arguments exist
+        # queues under its lease key at once; its push is sent without
+        # waiting, and the reply is settled on the small completion pool,
+        # which hands the lease straight to the key's next task. Before,
+        # each task parked one of 16 submit threads for its whole push
+        # and the threads convoyed on the GIL (pipelined 884 tasks/s
+        # against 1977/s serial on 8 cores). Lease fetches are sent the
+        # same way. What still blocks has a pool of its own, so one kind
+        # of wait never starves another: dependency waits (bounded, see
+        # _wait_dep_ready) and actor calls (the submit pool).
+        n_block = min(16, max(4, 4 * (os.cpu_count() or 1)))
         self._submit_pool = ThreadPoolExecutor(
-            max_workers=min(16, max(4, 4 * (os.cpu_count() or 1))),
-            thread_name_prefix="task-submit")
+            max_workers=n_block, thread_name_prefix="task-submit")
+        self._dep_pool = ThreadPoolExecutor(
+            max_workers=n_block, thread_name_prefix="task-deps")
+        self._done_pool = ThreadPoolExecutor(
+            max_workers=min(4, max(2, (os.cpu_count() or 1) // 2)),
+            thread_name_prefix="task-done")
+        self._ready: Dict[tuple, Deque[_Job]] = {}  # lease key -> queue
         # Worker-lease reuse cache (reference: normal_task_submitter.cc
         # keeps granted leases and pipelines same-shape tasks onto them).
         # Going back to the conductor for every task measured 235 tasks/s
@@ -199,7 +227,8 @@ class Worker:
         self._lease_cache: Dict[tuple, List[Tuple[str, Tuple[str, int],
                                                   float]]] = {}
         self._lease_cache_lock = threading.Lock()
-        # recache handoff + single-fetcher election (see _acquire_lease)
+        # guards the lease cache, the ready queues and the fetch flags
+        # (one lease fetch per key at a time, see _pump)
         self._lease_cv = threading.Condition(self._lease_cache_lock)
         self._lease_fetching: Dict[tuple, bool] = {}
         self._lease_reaper_started = False
@@ -533,7 +562,7 @@ class Worker:
             for oid in spec.return_ids:
                 self._locators.pop(oid, None)
                 self._pending_ids.add(oid)
-        # the resubmission's _submit_and_record will decref on completion:
+        # the resubmission's job will decref when it settles:
         # re-pin the args so the pair stays balanced
         from . import refcount
 
@@ -541,9 +570,9 @@ class Worker:
             refcount.collect_refs(spec.args, spec.kwargs))
         for oid in spec.return_ids:
             self.store.invalidate(oid)
-        self._register_inflight(
-            spec.return_ids, self._submit_pool.submit(
-                self._submit_and_record, spec))
+        job = _Job(spec, self._lease_key(spec))
+        self._register_inflight(spec.return_ids, job.future)
+        self._start_job(job)
         return True
 
     def _register_inflight(self, return_ids: List[str], fut: Future) -> None:
@@ -697,9 +726,9 @@ class Worker:
             for oid in return_ids:
                 self._lineage[oid] = spec
                 self._pending_ids.add(oid)
-        self._register_inflight(
-            return_ids, self._submit_pool.submit(
-                self._submit_and_record, spec))
+        job = _Job(spec, self._lease_key(spec))
+        self._register_inflight(return_ids, job.future)
+        self._start_job(job)
         return refs[0] if num_returns == 1 else refs
 
     def _prepare_runtime_env(self, runtime_env: Optional[Dict[str, Any]]
@@ -711,50 +740,269 @@ class Worker:
         env = renv.merge(self.job_runtime_env, runtime_env)
         return renv.prepare(self.conductor, env) if env else None
 
-    def _submit_and_record(self, spec: TaskSpec) -> None:
-        """Submitter thread: resolve deps → lease → push → record results.
-        Retries on worker crash up to spec.max_retries."""
-        try:
-            retries = spec.max_retries
-            while True:
-                try:
-                    self._submit_once(spec)
-                    return
-                except (ConnectionLost, exc.WorkerCrashedError):
-                    if retries <= 0:
-                        raise
-                    retries -= 1
-        except BaseException as e:  # noqa: BLE001 — deliver to waiters
-            if isinstance(e, RemoteError) and isinstance(
-                    e.cause, exc.RayTpuError):
-                # e.g. SchedulingError from a hard NodeAffinity lease —
-                # surface the typed error, not an opaque RPC wrapper
-                e = e.cause
-            err = e if isinstance(e, exc.RayTpuError) else exc.TaskError(
-                e, traceback.format_exc(), spec.name)
-            for oid in spec.return_ids:
-                self.store.put_error(oid, err)
-            with self._state_lock:
-                self._pending_ids.difference_update(spec.return_ids)
-                self._cancelled.difference_update(spec.return_ids)
-                for oid in spec.return_ids:
-                    self._inflight.pop(oid, None)
-            self._notify_object_waiters(spec.return_ids)
-            # infrastructure failures (worker crash, lease failure) must
-            # show up in `summary`/`timeline` as FAILED too — but a cancel
-            # that aborted the submit thread is CANCELLED, same as one
-            # landing post-push
-            now = time.time()
-            status = "CANCELLED" if isinstance(e, exc.TaskCancelledError) \
-                else "FAILED"
-            self._record_event(spec, now, None, status)
-        finally:
-            # release the in-flight pins taken at submission — success or
-            # failure, the receiver's adoption window has closed
-            from . import refcount
+    # ------------------------------------------------- normal-task flow
 
-            refcount.tracker.wire_decref(
-                refcount.collect_refs(spec.args, spec.kwargs))
+    def _start_job(self, job: _Job) -> None:
+        """Queue `job` under its lease key once its arguments exist. A
+        task with an unresolved ObjectRef argument waits on the
+        dependency pool first, so a waiting chain delays no independent
+        task."""
+        if all(self.store.contains(d.id) or self._locator_of(d.id)
+               for d in job.deps):
+            self._enqueue(job)
+        else:
+            self._dep_pool.submit(self._guarded, job, self._await_deps)
+
+    def _await_deps(self, job: _Job) -> None:
+        for dep in job.deps:
+            self._wait_dep_ready(
+                dep,
+                should_abort=lambda: self._is_cancelled(job.spec.return_ids))
+        if self._is_cancelled(job.spec.return_ids):
+            # cancelled during the wait: stop here, before any lease fetch
+            raise exc.TaskCancelledError(job.spec.name)
+        self._enqueue(job)
+
+    def _guarded(self, job: _Job, fn, *args) -> None:
+        """Run one step of `job`; whatever it raises settles the job
+        (once: a job already settled keeps its result)."""
+        try:
+            fn(job, *args)
+        except BaseException as e:  # noqa: BLE001 — deliver to waiters
+            if not job.future.done():
+                self._fail_job(job, e)
+
+    def _on_done_pool(self, job: _Job, fn, *args) -> None:
+        """Run `_guarded(job, fn, *args)` on the completion pool."""
+        try:
+            self._done_pool.submit(self._guarded, job, fn, *args)
+        except RuntimeError:  # shutting down: nobody waits any more
+            pass
+
+    def _enqueue(self, job: _Job) -> None:
+        with self._lease_cv:
+            self._ready.setdefault(job.key, deque()).append(job)
+        self._pump(job.key)
+
+    def _pump(self, key: tuple) -> None:
+        """Send the key's queued tasks onto its cached leases. With none
+        cached, start one lease fetch: more than one per key would park
+        conductor threads while leases come back idle (measured before:
+        the last 8 tasks of a 300-task burst at ~25 tasks/s). A key whose
+        leases are not reused (SPREAD) fetches one per task. Nothing here
+        raises for a task: each failure settles its own task."""
+        cacheable = self._lease_cacheable(key)
+        while True:
+            lease = None
+            with self._lease_cv:
+                q = self._ready.get(key)
+                if not q or self._shutdown:
+                    return
+                if not cacheable:
+                    job = q.popleft()
+                else:
+                    entries = self._lease_cache.get(key)
+                    if entries:
+                        job = q.popleft()
+                        worker_id, address, _ = entries.pop()
+                        lease = (worker_id, address)
+                    elif self._lease_fetching.get(key):
+                        return
+                    else:
+                        self._lease_fetching[key] = True
+                        job = q[0]  # the fetch's locality hint; stays queued
+            if lease is not None and self._is_cancelled(job.spec.return_ids):
+                self._lease_recache(key, *lease, pump=False)
+                self._fail_job(job, exc.TaskCancelledError(job.spec.name))
+            elif lease is not None:
+                self._push(job, *lease)
+            else:
+                self._fetch_lease(job, cacheable)
+                if cacheable:
+                    return
+
+    def _fetch_lease(self, job: _Job, cacheable: bool) -> None:
+        """Ask the conductor for one lease without waiting; the grant (or
+        the error) is settled by `_leased` on the completion pool."""
+        spec = job.spec
+
+        def on_reply(p) -> None:
+            self._on_done_pool(job, self._leased, cacheable, p.ok, p.payload)
+
+        try:
+            self.conductor.call_async(
+                on_reply, "lease_worker", spec.resources,
+                spec.placement_group_id, None, spec.scheduling_strategy,
+                self._arg_locations(job.deps))
+        except BaseException as e:  # noqa: BLE001 — settled as a reply
+            self._on_done_pool(job, self._leased, cacheable, False, (e, ""))
+
+    def _leased(self, job: _Job, cacheable: bool, ok: bool, payload) -> None:
+        """Completion pool: a lease fetch's reply. For a cacheable key the
+        lease goes to the cache and the pump hands it to the queue's head
+        (`job` only gave the locality hint); otherwise it carries `job`,
+        which was taken off its queue. A lost conductor connection is
+        retried while `job` has retries left; any other error fails it."""
+        if ok:
+            worker_id, address = payload
+            if cacheable:
+                with self._lease_cv:
+                    self._lease_fetching[job.key] = False
+                self._lease_recache(job.key, worker_id, address)
+            elif self._is_cancelled(job.spec.return_ids):
+                self._lease_recache(job.key, worker_id, address)
+                raise exc.TaskCancelledError(job.spec.name)
+            else:
+                self._push(job, worker_id, address)
+            return
+        # (exc, remote traceback); the traceback is empty for a local
+        # failure (the connection's loss, a request that was not sent)
+        e = RemoteError(*payload) if payload[1] else payload[0]
+        retry = (isinstance(e, ConnectionLost) and job.retries > 0
+                 and not self._shutdown)
+        if retry:
+            job.retries -= 1
+        queued = not cacheable
+        with self._lease_cv:
+            if cacheable:
+                self._lease_fetching[job.key] = False
+                q = self._ready.get(job.key)
+                queued = q is not None and any(j is job for j in q)
+                if queued and not retry:
+                    q.remove(job)
+        if queued and not retry:
+            self._fail_job(job, e)
+        elif retry and not cacheable:
+            self._enqueue(job)
+        if cacheable:
+            self._pump(job.key)
+
+    def _push(self, job: _Job, worker_id: str, address) -> None:
+        """Send `job` to its leased worker without waiting: the reply (or
+        the connection's loss) settles it on the completion pool. A task
+        that cannot be sent at all (an argument that does not serialize)
+        fails alone and gives its lease back to the key."""
+        spec = job.spec
+        address = tuple(address)
+        with self._state_lock:
+            for oid in spec.return_ids:
+                self._executing_at[oid] = address
+        t0 = time.time()
+
+        def on_reply(p) -> None:
+            self._on_done_pool(job, self._settle, worker_id, address, t0,
+                               p.ok, p.payload)
+
+        try:
+            self.clients.get(address).call_async(
+                on_reply, "push_task", self._wire_spec(spec))
+        except ConnectionLost as e:
+            self._on_done_pool(job, self._settle, worker_id, address, t0,
+                               False, (e, ""))
+        except BaseException as e:  # noqa: BLE001 — this task's own fault
+            with self._state_lock:
+                for oid in spec.return_ids:
+                    self._executing_at.pop(oid, None)
+            self._lease_recache(job.key, worker_id, address, pump=False)
+            self._fail_job(job, e)
+
+    def _settle(self, job: _Job, worker_id: str, address, t0: float,
+                ok: bool, payload) -> None:
+        """Completion pool: record a push's reply, then hand the lease to
+        the key's next task."""
+        spec = job.spec
+        with self._state_lock:
+            for oid in spec.return_ids:
+                self._executing_at.pop(oid, None)
+        if not ok and isinstance(payload[0], ConnectionLost):
+            # worker gone (crash or force-cancel kill): the lease is dead
+            # — release its resources at the conductor, never recache
+            try:
+                self.conductor.notify("return_worker", worker_id)
+            except ConnectionLost:
+                pass
+            self._after_crash(job, worker_id)
+            return
+        if not ok:
+            self._lease_recache(job.key, worker_id, address)
+            raise RemoteError(*payload)
+        # record ALWAYS: cancelled ids are skipped inside (their caller
+        # already holds TaskCancelledError) but sibling return values of a
+        # multi-return task must still be delivered
+        skipped = self._record_results(spec.return_ids, payload,
+                                       holder=address)
+        if skipped:
+            status = "CANCELLED"
+        else:
+            status = "FAILED" if any(entry[1] == "error"
+                                     for entry in payload) else "FINISHED"
+        self._record_event(spec, t0, address, status)
+        self._finish_job(job)
+        self._lease_recache(job.key, worker_id, address)
+
+    def _after_crash(self, job: _Job, worker_id: str) -> None:
+        """A push lost its worker. Retry on a new lease while retries
+        last; a force-cancel kill is the requested outcome."""
+        spec = job.spec
+        if self._is_cancelled(spec.return_ids):
+            raise exc.TaskCancelledError(spec.name)
+        err = self._worker_crash_error(worker_id, spec.name)
+        if job.retries <= 0 or self._shutdown:
+            raise err
+        job.retries -= 1
+        self._enqueue(job)
+
+    def _fail_job(self, job: _Job, e: BaseException) -> None:
+        spec = job.spec
+        if isinstance(e, RemoteError) and isinstance(
+                e.cause, exc.RayTpuError):
+            # e.g. SchedulingError from a hard NodeAffinity lease —
+            # surface the typed error, not an opaque RPC wrapper
+            e = e.cause
+        err = e if isinstance(e, exc.RayTpuError) else exc.TaskError(
+            e, "".join(traceback.format_exception(type(e), e,
+                                                  e.__traceback__)),
+            spec.name)
+        for oid in spec.return_ids:
+            self.store.put_error(oid, err)
+        with self._state_lock:
+            self._pending_ids.difference_update(spec.return_ids)
+            self._cancelled.difference_update(spec.return_ids)
+            for oid in spec.return_ids:
+                self._inflight.pop(oid, None)
+        self._notify_object_waiters(spec.return_ids)
+        # infrastructure failures (worker crash, lease failure) must show
+        # up in `summary`/`timeline` as FAILED too — but a cancel before
+        # the push is CANCELLED, same as one landing after it
+        status = "CANCELLED" if isinstance(e, exc.TaskCancelledError) \
+            else "FAILED"
+        self._record_event(spec, time.time(), None, status)
+        self._finish_job(job)
+
+    def _finish_job(self, job: _Job) -> None:
+        # release the in-flight pins taken at submission — success or
+        # failure, the receiver's adoption window has closed
+        from . import refcount
+
+        refcount.tracker.wire_decref(
+            refcount.collect_refs(job.spec.args, job.spec.kwargs))
+        if not job.future.done():
+            job.future.set_result(None)
+
+    def _drop_queued(self, oid: str) -> None:
+        """Take a cancelled task off its ready queue (it holds no lease)."""
+        found = None
+        with self._lease_cv:
+            for q in self._ready.values():
+                for job in q:
+                    if oid in job.spec.return_ids:
+                        found = job
+                        break
+                if found is not None:
+                    q.remove(found)
+                    break
+        if found is not None:
+            self._fail_job(found, exc.TaskCancelledError(found.spec.name))
 
     def _is_cancelled(self, return_ids) -> bool:
         with self._state_lock:
@@ -780,56 +1028,10 @@ class Worker:
         pins) is placement-stable and safe to reuse."""
         return key[1] != "SPREAD"
 
-    def _lease_take_cached(self, key: tuple):
-        with self._lease_cache_lock:
-            entries = self._lease_cache.get(key)
-            if entries:
-                worker_id, address, _ = entries.pop()
-                return worker_id, address
-        return None
-
-    def _acquire_lease(self, key: tuple, spec: TaskSpec,
-                       deps) -> Tuple[str, Tuple[str, int]]:
-        """Cached lease, or one fetched from the conductor — with at most
-        ONE thread per shape parked in the conductor's lease_worker at a
-        time. The rest wait locally on the cache condition, so a lease
-        recached by a finishing push is handed to a waiter immediately.
-        Without this, a burst's tail specs sat in threads parked at the
-        conductor while every worker idled in the local cache, drained
-        only by the reaper TTL (measured: last 8 tasks of a 300-task
-        burst at ~25 tasks/s)."""
-        from .config import config
-
-        deadline = time.monotonic() + config.worker_start_timeout
-        while True:
-            with self._lease_cv:
-                entries = self._lease_cache.get(key)
-                if entries:
-                    worker_id, address, _ = entries.pop()
-                    return worker_id, address
-                if not self._lease_fetching.get(key):
-                    self._lease_fetching[key] = True
-                    break  # elected fetcher: go to the conductor
-                if self._shutdown:
-                    raise exc.TaskCancelledError(spec.name)
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    raise TimeoutError(
-                        f"no worker lease for {spec.name} within "
-                        f"{config.worker_start_timeout:.0f}s")
-                self._lease_cv.wait(min(0.05, remaining))
-        try:
-            return self.conductor.call(
-                "lease_worker", spec.resources, spec.placement_group_id,
-                None, spec.scheduling_strategy, self._arg_locations(deps),
-                timeout=None)
-        finally:
-            with self._lease_cv:
-                self._lease_fetching[key] = False
-                self._lease_cv.notify_all()
-
     def _lease_recache(self, key: tuple, worker_id: str,
-                       address: Tuple[str, int]) -> None:
+                       address: Tuple[str, int], pump: bool = True) -> None:
+        """Keep a lease for reuse and (with `pump`) hand it to the key's
+        queued tasks; a SPREAD lease or one at shutdown goes back."""
         if self._shutdown or not self._lease_cacheable(key):
             try:
                 self.conductor.notify("return_worker", worker_id)
@@ -846,6 +1048,8 @@ class Worker:
         if start_reaper:
             threading.Thread(target=self._lease_reaper_loop, daemon=True,
                              name="lease-reaper").start()
+        if pump:
+            self._pump(key)
 
     def _lease_reaper_loop(self) -> None:
         """Return leases idle beyond the TTL so cached workers are only
@@ -887,70 +1091,6 @@ class Worker:
                 self.conductor.notify("return_worker", wid)
             except ConnectionLost:
                 return
-
-    def _submit_once(self, spec: TaskSpec) -> None:
-        if self._is_cancelled(spec.return_ids):
-            raise exc.TaskCancelledError(spec.name)
-        deps = _top_level_refs(spec.args, spec.kwargs)
-        for dep in deps:
-            self._wait_dep_ready(
-                dep,
-                should_abort=lambda: self._is_cancelled(spec.return_ids))
-        if self._is_cancelled(spec.return_ids):
-            # cancelled during the dep wait: stop HERE — falling through
-            # would park this submit slot in the unbounded lease_worker
-            # wait, re-pinning the slot the bounded dep loop just freed
-            raise exc.TaskCancelledError(spec.name)
-        key = self._lease_key(spec)
-        if self._lease_cacheable(key):
-            worker_id, address = self._acquire_lease(key, spec, deps)
-        else:
-            worker_id, address = self.conductor.call(
-                "lease_worker", spec.resources, spec.placement_group_id,
-                None, spec.scheduling_strategy, self._arg_locations(deps),
-                timeout=None)
-        if self._is_cancelled(spec.return_ids):  # cancelled during lease
-            self._lease_recache(key, worker_id, address)
-            raise exc.TaskCancelledError(spec.name)
-        with self._state_lock:
-            for oid in spec.return_ids:
-                self._executing_at[oid] = tuple(address)
-        t0 = time.time()
-        recache = True
-        try:
-            reply = self.clients.get(tuple(address)).call(
-                "push_task", self._wire_spec(spec), timeout=None)
-        except ConnectionLost as e:
-            # worker gone (crash or force-cancel kill): the lease is dead
-            # — release its resources at the conductor, never recache
-            recache = False
-            if self._is_cancelled(spec.return_ids):
-                # force-cancel killed the worker mid-task: that is the
-                # requested outcome, not a crash to retry
-                raise exc.TaskCancelledError(spec.name) from e
-            raise self._worker_crash_error(worker_id, spec.name) from e
-        finally:
-            with self._state_lock:
-                for oid in spec.return_ids:
-                    self._executing_at.pop(oid, None)
-            if recache:
-                self._lease_recache(key, worker_id, address)
-            else:
-                try:
-                    self.conductor.notify("return_worker", worker_id)
-                except ConnectionLost:
-                    pass
-        # record ALWAYS: cancelled ids are skipped inside (their caller
-        # already holds TaskCancelledError) but sibling return values of a
-        # multi-return task must still be delivered
-        skipped = self._record_results(spec.return_ids, reply,
-                                       holder=tuple(address))
-        if skipped:
-            self._record_event(spec, t0, tuple(address), "CANCELLED")
-            return
-        status = "FAILED" if any(entry[1] == "error" for entry in reply) \
-            else "FINISHED"
-        self._record_event(spec, t0, tuple(address), status)
 
     def _worker_crash_error(self, worker_id: str,
                             task_name: str) -> exc.WorkerCrashedError:
@@ -1051,10 +1191,10 @@ class Worker:
         """Block until `ref`'s value exists somewhere reachable.
 
         Bounded wait + re-check: every blocking step caps at ~2s, so a
-        submit-pool slot is never pinned by one unbounded RPC — with only
-        16 submit threads, 16 tasks each waiting forever on a borrowed
-        dep would stall all submission. Between steps the loop re-checks
-        local state, shutdown, and `should_abort` (task cancellation).
+        dependency-pool thread is never pinned by one unbounded RPC — 16
+        tasks each waiting forever on a borrowed dep would stall every
+        later dependent. Between steps the loop re-checks local state,
+        shutdown, and `should_abort` (task cancellation).
         """
         while True:
             if self.store.contains(ref.id) or self._locator_of(ref.id):
@@ -1436,7 +1576,8 @@ class Worker:
     def cancel(self, ref: ObjectRef, force: bool = False) -> None:
         """Cancel the task producing `ref` (reference CoreWorker::
         CancelTask, python worker.py:2932 ray.cancel semantics):
-        - not yet pushed: the submit thread aborts before/after lease;
+        - not yet pushed: taken off its ready queue (or dropped when its
+          dependency wait or lease fetch ends);
         - running: the executor gets a cooperative TaskCancelledError
           injection (force=True kills the worker process instead — the
           guaranteed stop, surfacing through the worker-death path);
@@ -1477,6 +1618,7 @@ class Worker:
             where = self._executing_at.get(oid)
         if not still_mine:
             return  # already finished (or not ours): nothing to cancel
+        self._drop_queued(oid)
         # wake the caller NOW; execution teardown proceeds asynchronously
         self.store.put_error(oid, exc.TaskCancelledError(
             f"task for {oid[:12]}… cancelled"
@@ -1523,7 +1665,16 @@ class Worker:
             self._flush_task_events()
         except Exception:  # noqa: BLE001 — head may already be gone
             pass
-        self._submit_pool.shutdown(wait=False, cancel_futures=True)
+        for pool in (self._submit_pool, self._dep_pool, self._done_pool):
+            pool.shutdown(wait=False, cancel_futures=True)
+        with self._lease_cv:
+            queued = [job for q in self._ready.values() for job in q]
+            self._ready.clear()
+        for job in queued:
+            try:
+                self._fail_job(job, exc.TaskCancelledError(job.spec.name))
+            except Exception:  # noqa: BLE001 — head may already be gone
+                pass
         try:
             self._return_all_cached_leases()
         except Exception:  # noqa: BLE001 — conductor may already be gone

@@ -41,9 +41,14 @@ weights merged with its adapter, and the prefix cache keys its blocks
 by (tenant, adapter version); the decode tick hands every slot's pool
 row to the model, which adds each slot's low-rank delta.
 
-Not ported yet (the JAX engine has them): the telemetry pushed to a
-cluster (`publish_kv_telemetry`) and the Prometheus speculation metrics;
-`kv_stats()` carries the same numbers.
+Telemetry, as the JAX engine's: `publish_kv_telemetry` pushes
+`kv_stats()` and the pool's and the speculation's timeline events to the
+conductor (`util.state.kv_cache_stats()` / `speculation_stats()`, the
+timeline's kvcache lane), at most every 0.5 s unless forced; it runs
+after admissions, cancels, a weight swap and `stop()`, and without a
+cluster only drains the event buffers. `spec_metrics()` is the
+``ray_tpu_spec_*`` family on `util.metrics`, created with the first
+speculating engine.
 """
 from __future__ import annotations
 
@@ -66,6 +71,40 @@ from .kvcache import PagedKVCache, resolve_pool_config
 _DONE = object()
 _ENGINE_SEQ = itertools.count()
 _SPEC_EVENTS_KEPT = 512
+_TELEMETRY_INTERVAL_S = 0.5
+
+# ----------------------------------------------------- prometheus (lazy)
+# Created with the first speculating engine, never at import.
+
+_spec_metrics: Optional[Dict[str, Any]] = None
+_spec_metrics_lock = threading.Lock()
+
+
+def spec_metrics() -> Dict[str, Any]:
+    """The ``ray_tpu_spec_*`` family (JAX's names, help and tags)."""
+    global _spec_metrics
+    m = _spec_metrics
+    if m is not None:
+        return m
+    with _spec_metrics_lock:
+        if _spec_metrics is None:
+            from ..util.metrics import Counter, Gauge
+
+            _spec_metrics = dict(
+                proposed=Counter(
+                    "ray_tpu_spec_proposed_total",
+                    "draft tokens proposed to the verify pass"),
+                accepted=Counter(
+                    "ray_tpu_spec_accepted_total",
+                    "draft tokens accepted (greedy-agreeing prefix)"),
+                acceptance_rate=Gauge(
+                    "ray_tpu_spec_acceptance_rate",
+                    "lifetime accepted/proposed draft-token ratio per "
+                    "engine (counters are process-global; the gauge is "
+                    "engine-tagged so co-resident engines can't "
+                    "last-writer-wins each other)",
+                    tag_keys=("engine",)))
+    return _spec_metrics
 
 # `_prefill_paged` calls in this process: a process that only adopts
 # (serve/disagg.DecodeServer) keeps it at 0. The JAX package reads the
@@ -348,6 +387,9 @@ class ContinuousBatchingEngine:
         self.spec_verify_ticks = 0
         self.spec_emitted = 0  # tokens emitted by slots that drafted
         self._spec_events: List[Dict[str, Any]] = []
+        if self.speculate_k:
+            spec_metrics()  # registered before the first tick
+        self._last_stats_push = 0.0
         # admission accounting (kv_stats)
         self.prefill_calls = 0
         self.prefilled_tokens = 0
@@ -551,6 +593,7 @@ class ContinuousBatchingEngine:
         self._output_memory.clear()
         if self.kv_cache is not None:
             self.kv_cache.invalidate()
+            self.publish_kv_telemetry(force=True)
         for ev in events:
             ev.set()
 
@@ -580,6 +623,7 @@ class ContinuousBatchingEngine:
             if req is not None and req.cancelled and not req.finished:
                 self._count_cancel(req)
                 self._finish(req)
+        self.publish_kv_telemetry()
 
     def _count_cancel(self, req: _Request) -> None:
         key = req.cancel_reason or "unspecified"
@@ -591,6 +635,7 @@ class ContinuousBatchingEngine:
         self._stopped.set()
         self._thread.join(timeout=10.0)
         self._apply_pending_swap()  # fire waiters a stopped loop strands
+        self.publish_kv_telemetry(force=True)
 
     @property
     def active_slots(self) -> int:
@@ -651,6 +696,36 @@ class ContinuousBatchingEngine:
             "kv_int8": self.kv_int8,
         }
 
+    def publish_kv_telemetry(self, force: bool = False) -> None:
+        """Push `kv_stats()` and the pending kvcache / speculation events
+        to the conductor (best effort; without a cluster the buffers are
+        only drained). At most every 0.5 s unless `force`."""
+        now = time.monotonic()
+        if not force and now - self._last_stats_push < _TELEMETRY_INTERVAL_S:
+            return
+        self._last_stats_push = now
+        from .._private import worker as worker_mod
+
+        w = worker_mod.global_worker
+        if w is None:
+            if self.kv_cache is not None:
+                self.kv_cache.drain_events()  # keep the buffer bounded
+            self._drain_spec_events()
+            return
+        try:
+            w.conductor.notify("report_kvcache_stats", w.worker_id,
+                               self.engine_id, self.kv_stats())
+            if self.kv_cache is not None:
+                for ev in self.kv_cache.drain_events():
+                    ev.setdefault("engine", self.engine_id)
+                    w.conductor.notify("report_kvcache_event", ev)
+            # spec_accept / spec_reject ride the kvcache lane; the engine
+            # buffers them itself, since a decode replica has no pool
+            for ev in self._drain_spec_events():
+                w.conductor.notify("report_kvcache_event", ev)
+        except Exception:  # noqa: BLE001 — cluster shutting down
+            pass
+
     # ------------------------------------------------------- admission
     def _admit(self) -> None:
         # adoptions first (a splice, no prefill), then prefills, each
@@ -675,6 +750,8 @@ class ContinuousBatchingEngine:
             self.max_adoptions_admitted_per_tick, adopted)
         self.max_prefills_admitted_per_tick = max(
             self.max_prefills_admitted_per_tick, admitted)
+        if adopted or admitted:
+            self.publish_kv_telemetry()
 
     def _take_slot(self, req: _Request) -> Optional[int]:
         """A free slot for `req`, or None (and the request ends) when it
@@ -894,6 +971,7 @@ class ContinuousBatchingEngine:
             toks[slot, 1:1 + len(d)] = d
         nxt, lp = self._decode(toks, lora_live)
         self.spec_verify_ticks += 1
+        m = spec_metrics()
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
@@ -920,10 +998,17 @@ class ContinuousBatchingEngine:
                 self.spec_accepted += accepted
                 req.spec_proposed += len(proposal)
                 req.spec_accepted += accepted
+                m["proposed"].inc(len(proposal))
+                if accepted:
+                    m["accepted"].inc(accepted)
                 self._spec_event({
                     "kind": "spec_accept" if accepted else "spec_reject",
                     "rid": req.rid, "slot": slot,
                     "proposed": len(proposal), "accepted": accepted})
+        if self.spec_proposed:
+            m["acceptance_rate"].set(
+                self.spec_accepted / self.spec_proposed,
+                tags={"engine": self.engine_id})
 
     # ------------------------------------------------------------ loop
     def _loop(self) -> None:

@@ -49,8 +49,9 @@ within the int8 tolerance, as the JAX package's does.
 prefix in the same format (tier 3, chunk-fabric objects any replica can
 adopt). A payload is read off the device with one copy to the host.
 
-Not ported yet: the Prometheus metrics; ``stats()`` carries the same
-numbers.
+``kvcache_metrics()`` is the JAX package's ``ray_tpu_kvcache_*``
+family on ``util.metrics``, incremented where the JAX pool increments
+it; it is created with the first pool, never at import.
 """
 from __future__ import annotations
 
@@ -67,6 +68,50 @@ from ..device import resolve_device
 
 _ROOT_DIGEST = b"ray_tpu-kv-root"
 _EVENTS_KEPT = 512
+
+# ----------------------------------------------------- prometheus (lazy)
+# Created with the first pool, never at import: importing the models
+# starts no metrics pusher.
+
+_metrics: Optional[Dict[str, Any]] = None
+_metrics_lock = threading.Lock()
+
+
+def kvcache_metrics() -> Dict[str, Any]:
+    """The ``ray_tpu_kvcache_*`` family (JAX's names, help and tags)."""
+    global _metrics
+    m = _metrics
+    if m is not None:
+        return m
+    with _metrics_lock:
+        if _metrics is None:
+            from ..util.metrics import Counter, Gauge
+
+            _metrics = dict(
+                lookups=Counter(
+                    "ray_tpu_kvcache_lookups_total",
+                    "prefix-cache lookups at admission",
+                    tag_keys=("outcome",)),
+                reused_tokens=Counter(
+                    "ray_tpu_kvcache_reused_tokens_total",
+                    "prompt tokens served from cached KV blocks "
+                    "(prefill skipped)"),
+                prefilled_tokens=Counter(
+                    "ray_tpu_kvcache_prefilled_tokens_total",
+                    "prompt tokens actually prefilled (suffix after the "
+                    "cached prefix)"),
+                evictions=Counter(
+                    "ray_tpu_kvcache_evictions_total",
+                    "refcount-0 blocks LRU-evicted under pool pressure"),
+                cow_copies=Counter(
+                    "ray_tpu_kvcache_cow_copies_total",
+                    "copy-on-write block copies (shared partial block "
+                    "extended)"),
+                utilization=Gauge(
+                    "ray_tpu_kvcache_pool_utilization",
+                    "fraction of pool blocks holding cached or pinned "
+                    "KV"))
+    return _metrics
 
 
 def resolve_pool_config(config: Any, block_size: Optional[int] = 16,
@@ -329,6 +374,10 @@ class PagedKVCache:
                            "reused_tokens", "prefilled_tokens",
                            "inserted_blocks", "evictions", "cow_copies",
                            "invalidations")}
+        kvcache_metrics()  # registered before the first event
+
+    def _utilization_locked(self) -> float:
+        return 1.0 - len(self._free) / self.num_blocks
 
     def _index(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int64),
@@ -404,6 +453,10 @@ class PagedKVCache:
                 self._stats["misses"] += 1
             self._stats["lookups"] += 1
             self._stats["reused_tokens"] += matched
+        m = kvcache_metrics()
+        m["lookups"].inc(tags={"outcome": outcome})
+        if matched:
+            m["reused_tokens"].inc(matched)
         return PrefixMatch(bids, matched, full_blocks, partial_bid,
                            partial_len, outcome)
 
@@ -561,6 +614,8 @@ class PagedKVCache:
                 parent, digest = bid, nxt
             for bid in adopted:
                 self._blocks[bid].ref = 0
+            util = self._utilization_locked()
+        kvcache_metrics()["utilization"].set(util)
         return len(adopted)
 
     def force_evict(self, n: int) -> int:
@@ -576,6 +631,8 @@ class PagedKVCache:
                 self._evict_locked(victim)
                 self._free.append(victim.bid)
                 evicted += 1
+            util = self._utilization_locked()
+        kvcache_metrics()["utilization"].set(util)
         return evicted
 
     # ----------------------------------------------------------- propose
@@ -634,6 +691,7 @@ class PagedKVCache:
     def note_prefilled(self, n_tokens: int) -> None:
         with self._lock:
             self._stats["prefilled_tokens"] += int(n_tokens)
+        kvcache_metrics()["prefilled_tokens"].inc(int(n_tokens))
 
     def commit(self, tokens, ck, cv, match: PrefixMatch,
                namespace: Optional[str] = None) -> List[int]:
@@ -692,6 +750,8 @@ class PagedKVCache:
                                          parent, n_full, tail, table, now,
                                          namespace, writes, cows)
             self._write_locked(ck, cv, writes, cows)
+            util = self._utilization_locked()
+        kvcache_metrics()["utilization"].set(util)
         return table
 
     def _commit_tail_locked(self, tokens, window: int, match, digest,
@@ -760,6 +820,7 @@ class PagedKVCache:
                 _cow_extend_block(*pools, pair[:1], pair[1:], bk, bv,
                                   filled_old)
             self._stats["cow_copies"] += 1
+            kvcache_metrics()["cow_copies"].inc()
 
     def _insert_locked(self, bid: int, index_key: tuple,
                        blk_tokens: Tuple[int, ...], filled: int,
@@ -822,6 +883,7 @@ class PagedKVCache:
             self._blocks[b.parent_bid].children -= 1
         del self._blocks[b.bid]
         self._stats["evictions"] += 1
+        kvcache_metrics()["evictions"].inc()
         self._event_locked({"kind": "evict", "bid": b.bid,
                             "block_tokens": b.filled})
 
@@ -862,6 +924,8 @@ class PagedKVCache:
                         self._blocks[b.parent_bid].children -= 1
                     del self._blocks[b.bid]
                     self._free.append(b.bid)
+            util = self._utilization_locked()
+        kvcache_metrics()["utilization"].set(util)
 
     def invalidate(self, namespace: Optional[str] = ...) -> None:
         """Drop the whole index (a weight swap: every block's KV was
@@ -888,6 +952,8 @@ class PagedKVCache:
             if scoped:
                 ev["namespace"] = namespace
             self._event_locked(ev)
+            util = self._utilization_locked()
+        kvcache_metrics()["utilization"].set(util)
 
     # -------------------------------------------------- stats / events
 
@@ -919,7 +985,7 @@ class PagedKVCache:
                 free_blocks=len(self._free),
                 cached_blocks=cached,
                 pinned_blocks=pinned,
-                pool_utilization=1.0 - len(self._free) / self.num_blocks,
+                pool_utilization=self._utilization_locked(),
                 int8=self.int8,
                 # bytes-per-block capacity against an fp pool
                 capacity_factor=2 if self.int8 else 1,

@@ -446,6 +446,11 @@ class StageActor:
         finally:
             timer.close()
         summary["metrics"] = metrics_snapshot()
+        # the same values reach Prometheus with the report, not at the
+        # registry's next interval (a closed stage never gets one)
+        from ..util import metrics
+
+        metrics.flush()
         w = require_worker("reporting a pipeline stage")
         # the registry copy stays O(1) per stage: the full per-step loss
         # list rides the run_steps return value to the driver, only the

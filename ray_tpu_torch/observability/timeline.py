@@ -30,7 +30,16 @@ subsystems' markers as chrome-trace events, merged into one sorted list.
   publish markers;
 - pipeline:    pid = "pipeline",   tid = "stage <s>" (or the event
   kind): one lane per MPMD stage-gang, its formation, run reports and
-  death.
+  death;
+- kvcache:     pid = "kvcache",    tid = event kind: the paged KV
+  cache's evict / invalidate markers;
+- speculation: pid = "speculation", tid = event kind: the spec_accept /
+  spec_reject markers, the spec_* slice of the kvcache channel;
+- lora:        pid = "lora",       tid = event kind: adapter page_in /
+  evict / swap markers;
+- requests:    pid = "requests",   tid = request id prefix: each kept
+  request trace as one enclosing X span and one X span per phase (a
+  replay's phases carry an " a<n>" suffix).
 """
 from __future__ import annotations
 
@@ -255,6 +264,122 @@ def pipeline_trace_events(events: List[Dict[str, Any]]
     return out
 
 
+def kvcache_trace_events(events: List[Dict[str, Any]]
+                         ) -> List[Dict[str, Any]]:
+    """Instant markers of the paged KV cache under pid "kvcache" (the
+    spec_* markers go to the speculation lane)."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        kind = str(ev.get("kind", "event"))
+        if ts is None or kind.startswith("spec_"):
+            continue
+        label = kind
+        if ev.get("outcome"):
+            label += f":{ev['outcome']}"
+        if ev.get("reused_tokens") is not None:
+            label += f" +{ev['reused_tokens']}tok"
+        out.append({
+            "name": label, "cat": "kvcache", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "kvcache", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def speculation_trace_events(events: List[Dict[str, Any]]
+                             ) -> List[Dict[str, Any]]:
+    """Instant markers of speculative decoding under pid "speculation":
+    the spec_accept / spec_reject slice of the kvcache events."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        kind = str(ev.get("kind", "event"))
+        if ts is None or not kind.startswith("spec_"):
+            continue
+        label = kind
+        if ev.get("proposed") is not None:
+            label += f" {ev.get('accepted', 0)}/{ev['proposed']}"
+        out.append({
+            "name": label, "cat": "speculation", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "speculation", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def lora_trace_events(events: List[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """Instant markers of LoRA adapter paging under pid "lora"."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        label = kind
+        if ev.get("tenant"):
+            label += f":{ev['tenant']}"
+        if ev.get("version") is not None:
+            label += f"@v{ev['version']}"
+        if ev.get("bytes") is not None:
+            label += f" {ev['bytes']}B"
+        out.append({
+            "name": label, "cat": "lora", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "lora", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
+def requests_trace_events(events: List[Dict[str, Any]]
+                          ) -> List[Dict[str, Any]]:
+    """Spans of the kept request traces under pid "requests": per
+    ``kind == "trace"`` record one enclosing span with the outcome and
+    totals, and one span per phase at its offset from the request's
+    start (the record's ts is its completion)."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        if ev.get("kind") != "trace":
+            continue
+        ts = float(ev.get("ts", 0.0))
+        rid = str(ev.get("request_id", "?"))
+        tid = rid[:12]
+        total_ms = float(ev.get("total_ms", 0.0) or 0.0)
+        t_start = ts - total_ms / 1e3
+        out.append({
+            "name": f"request {ev.get('outcome', '?')}",
+            "cat": "request", "ph": "X", "ts": t_start * 1e6,
+            "dur": max(0.0, total_ms) * 1e3,
+            "pid": "requests", "tid": tid,
+            "args": {"request_id": rid,
+                     "outcome": ev.get("outcome"),
+                     "attempts": ev.get("attempts", 1),
+                     "preempts": ev.get("preempts", 0),
+                     "total_ms": round(total_ms, 3)},
+        })
+        for ph in ev.get("phases", []) or []:
+            name = str(ph.get("phase", "phase"))
+            attempt = int(ph.get("attempt", 1) or 1)
+            if attempt > 1:
+                name += f" a{attempt}"
+            dur_ms = float(ph.get("dur_ms", 0.0) or 0.0)
+            t_ms = ph.get("t_ms")
+            t0 = t_start + (float(t_ms) / 1e3 if t_ms is not None
+                            else 0.0)
+            args = {k: v for k, v in ph.items()
+                    if k not in ("phase", "t_ms") and v is not None}
+            out.append({
+                "name": name, "cat": "request_phase", "ph": "X",
+                "ts": t0 * 1e6, "dur": max(0.0, dur_ms) * 1e3,
+                "pid": "requests", "tid": tid, "args": args,
+            })
+    return out
+
+
 def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         spans: List[Dict[str, Any]],
                         step_records: List[Dict[str, Any]],
@@ -271,6 +396,12 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         online_events: Optional[
                             List[Dict[str, Any]]] = None,
                         pipeline_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        kvcache_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        lora_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        requesttrace_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
     """Merge the sources into one list sorted by time."""
@@ -293,14 +424,21 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
         trace.extend(online_trace_events(online_events))
     if pipeline_events:
         trace.extend(pipeline_trace_events(pipeline_events))
+    if kvcache_events:
+        trace.extend(kvcache_trace_events(kvcache_events))
+        trace.extend(speculation_trace_events(kvcache_events))
+    if lora_events:
+        trace.extend(lora_trace_events(lora_events))
+    if requesttrace_events:
+        trace.extend(requests_trace_events(requesttrace_events))
     trace.sort(key=lambda e: e.get("ts", 0.0))
     return trace
 
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
     """Pull the task events, spans, step records and the resilience,
-    weight, disagg, KV-plane, autoscale, online and pipeline events from
-    the live cluster and merge them. Flushes this process's pending task
+    weight, disagg, KV-plane, autoscale, online, pipeline, kvcache, LoRA
+    and request-trace events from the live cluster and merge them. Flushes this process's pending task
     events and spans first, so a short driver's trace is complete."""
     from .._private import worker as worker_mod
 
@@ -318,4 +456,7 @@ def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
         w.conductor.call("get_kvplane_events", limit, timeout=30.0),
         w.conductor.call("get_autoscale_events", limit, timeout=30.0),
         w.conductor.call("get_online_events", limit, timeout=30.0),
-        w.conductor.call("get_pipeline_events", limit, timeout=30.0))
+        w.conductor.call("get_pipeline_events", limit, timeout=30.0),
+        w.conductor.call("get_kvcache_events", limit, timeout=30.0),
+        w.conductor.call("get_lora_events", limit, timeout=30.0),
+        w.conductor.call("get_requesttrace_events", limit, timeout=30.0))

@@ -48,11 +48,11 @@ defaults: ``RAY_TPU_AUTOSCALE_UP_DELAY_S`` (``up_delay_s``, 2.0),
 windows, 30.0),
 ``_TARGET_P99_MS`` (1500.0), ``RAY_TPU_SERVE_BREAKER_THRESHOLD``
 (``DisaggAutoscaler(breaker_threshold=)``, 3.0) and
-``RAY_TPU_SERVE_BREAKER_WINDOW_S`` (``breaker_window_s``, 60.0). The
-counters of ``autoscale_metrics()`` are kept in this process; the
-conductor aggregates the loops' snapshots (``util.state.
-autoscaler_status()``). The CLI, dashboard and Prometheus surfaces wait
-for their port (ROADMAP Queue 1).
+``RAY_TPU_SERVE_BREAKER_WINDOW_S`` (``breaker_window_s``, 60.0).
+``autoscale_metrics()`` is the ``ray_tpu_autoscale_*`` family on
+``util.metrics`` (``util.state.prometheus_metrics()``); the conductor
+aggregates the loops' snapshots (``util.state.autoscaler_status()``).
+The CLI and dashboard surfaces wait for their port (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -64,7 +64,6 @@ import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..observability.step_timer import percentile
-from .handle import Counter, Gauge
 
 _SEQ = itertools.count()
 
@@ -82,32 +81,39 @@ BREAKER_THRESHOLD = 3.0
 BREAKER_WINDOW_S = 60.0
 
 
-# ------------------------------------------------- in-process counters
+# ------------------------------------------------------ prometheus (lazy)
 
 _metrics: Optional[Dict[str, Any]] = None
 _metrics_lock = threading.Lock()
 
 
 def autoscale_metrics() -> Dict[str, Any]:
-    """This process's autoscale counters (the JAX package's
-    ``ray_tpu_autoscale_*`` family)."""
+    """The ``ray_tpu_autoscale_*`` family on ``util.metrics`` (JAX's
+    names, help and tags), created on first use."""
     global _metrics
+    m = _metrics
+    if m is not None:
+        return m
     with _metrics_lock:
         if _metrics is None:
+            from ..util.metrics import Counter, Gauge
+
             _metrics = dict(
                 target=Gauge(
                     "ray_tpu_autoscale_target_replicas",
-                    "replica count the autoscaler drives a tier toward",
-                    ("tier",)),
+                    "replica count the autoscaler is currently driving "
+                    "a tier toward",
+                    tag_keys=("tier",)),
                 decisions=Counter(
                     "ray_tpu_autoscale_decisions_total",
                     "scale decisions taken (direction=up|down)",
-                    ("tier", "direction")),
+                    tag_keys=("tier", "direction")),
                 replica_seconds=Counter(
                     "ray_tpu_autoscale_replica_seconds_total",
-                    "cumulative live replica-seconds per tier",
-                    ("tier",)))
-        return _metrics
+                    "cumulative live replica-seconds per tier (the "
+                    "provisioning cost the policy is minimizing)",
+                    tag_keys=("tier",)))
+    return _metrics
 
 
 # --------------------------------------------------------- sliding window

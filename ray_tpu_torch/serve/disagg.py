@@ -46,20 +46,29 @@ of its recent-signal windows); servers take
 raise) and move the params there; ``prefill_programs()`` counts prefills
 run in the process (``models.engine.prefill_paged_calls``), as the port
 has no compile cache; a ``kill_replica`` chaos fire in a driver raises.
-The counters of ``disagg_metrics()`` and ``servefault_metrics()`` are
-kept in this process; the conductor aggregates the servers' and routers'
-snapshots (``util.state.disagg_status()``, ``kvplane_status()``,
+``disagg_metrics()`` and ``servefault_metrics()`` are the JAX package's
+``ray_tpu_disagg_*`` / ``ray_tpu_servefault_*`` families on
+``util.metrics``, so a decode actor's counters reach the driver's
+``util.state.prometheus_metrics()`` through its own registry push; the
+conductor aggregates the servers' and routers' snapshots (``util.state.disagg_status()``, ``kvplane_status()``,
 ``servefault_status()``) and the timeline's ``disagg`` / ``kvplane``
 lanes carry the markers (failovers in the resilience lane).
 
-Not ported with it: the request flight recorder's hooks
-(``observability/requests.py``), a serve request's multiplexed tenant as
-the default ``tenant`` (``serve/multiplex.py``: pass ``tenant=``), the
-HTTP gateway's hooks (``generate(cancel_event=)``, its preemption
-metrics), the load harness's (``reset_signal_windows``, the servers'
-``reset_chaos_counts``), the servers' local adapter publish
+The request flight recorder (``observability/requests.py``) rides the
+router as in the JAX package: ``generate`` takes over the thread's
+current trace or mints one, stamps ``queue_reserve``, ``prefill``,
+``kv_transfer``, ``decode_first_token`` and ``decode_steady`` (a
+failover's replay under its attempt number), and a decode actor pushes
+its fetch as a remote phase under the request's id. The servers push
+their pools' kvcache and LoRA telemetry beside their own.
+
+Not ported with it: a serve request's multiplexed tenant as the default
+``tenant`` (``serve/multiplex.py``: pass ``tenant=``), the HTTP
+gateway's hooks (``generate(cancel_event=)``, its preemption metrics),
+the load harness's (``reset_signal_windows``, the servers'
+``reset_chaos_counts``), and the servers' local adapter publish
 (``publish_adapter`` / ``refresh_adapter``; a replica's tenants come
-from its ``lora=``), and the kvcache and LoRA telemetry pushes. The
+from its ``lora=``). The
 replica-set operations (``add_*``, ``begin_drain``, ``drained``,
 ``remove``, ``remove_dead``, ``set_tier_waker``) are what
 ``serve/autoscale.py``'s ``DisaggAutoscaler`` drives: SLO scaling,
@@ -80,10 +89,11 @@ import torch
 
 from ..device import resolve_device
 from ..exceptions import ActorError, WorkerCrashedError
+from ..observability import requests as reqtrace
 from ..tree import tree_map
 from . import kvplane as kvp
 from .autoscale import TARGET_P99_MS, WINDOW_S, SlidingWindow
-from .handle import Counter, Gauge, RequestShedError, shed_counter
+from .handle import RequestShedError, shed_counter
 
 _SERVER_SEQ = itertools.count()
 
@@ -132,7 +142,9 @@ class ReplicaDeadError(RuntimeError):
         self.cause = cause
 
 
-# ------------------------------------------------- in-process counters
+# ------------------------------------------------------ prometheus (lazy)
+# Created on first use, never at import: importing the module starts no
+# metrics pusher.
 
 _metrics: Optional[Dict[str, Any]] = None
 _sf_metrics: Optional[Dict[str, Any]] = None
@@ -140,41 +152,67 @@ _metrics_lock = threading.Lock()
 
 
 def disagg_metrics() -> Dict[str, Any]:
-    """This process's disaggregated-serving counters (the JAX package's
-    ``ray_tpu_disagg_*`` family)."""
+    """The ``ray_tpu_disagg_*`` family on ``util.metrics`` (JAX's names,
+    help and tags), created on first use."""
     global _metrics
+    m = _metrics
+    if m is not None:
+        return m
     with _metrics_lock:
         if _metrics is None:
+            from ..util.metrics import Counter, Gauge
+
             _metrics = dict(
-                kv_bytes=Counter("ray_tpu_disagg_kv_bytes_total",
-                                 "KV bytes moved prefill -> decode",
-                                 ("direction",)),
-                transfers=Counter("ray_tpu_disagg_transfers_total",
-                                  "completed prefill -> decode transfers"),
-                queue_depth=Gauge("ray_tpu_disagg_queue_depth",
-                                  "requests in flight through a router",
-                                  ("router",)))
-        return _metrics
+                kv_bytes=Counter(
+                    "ray_tpu_disagg_kv_bytes_total",
+                    "KV-block bytes moved between prefill and decode "
+                    "replicas over the chunk fabric",
+                    tag_keys=("direction",)),
+                transfers=Counter(
+                    "ray_tpu_disagg_transfers_total",
+                    "completed prefill->decode KV transfers (counted "
+                    "when the decode replica's fetch finishes)"),
+                queue_depth=Gauge(
+                    "ray_tpu_disagg_queue_depth",
+                    "requests in flight through a disagg router "
+                    "(executing + queued at its decode tier)",
+                    tag_keys=("router",)))
+    return _metrics
 
 
 def servefault_metrics() -> Dict[str, Any]:
-    """This process's serving fault-tolerance counters (the JAX
-    package's ``ray_tpu_servefault_*`` family)."""
+    """The ``ray_tpu_servefault_*`` family on ``util.metrics`` (JAX's
+    names, help and tags), created on first use."""
     global _sf_metrics
+    m = _sf_metrics
+    if m is not None:
+        return m
     with _metrics_lock:
         if _sf_metrics is None:
+            from ..util.metrics import Counter
+
             _sf_metrics = dict(
-                failovers=Counter("ray_tpu_servefault_failovers_total",
-                                  "request failover attempts", ("phase",)),
-                sheds=Counter("ray_tpu_servefault_sheds_total",
-                              "requests shed with a cause", ("cause",)),
+                failovers=Counter(
+                    "ray_tpu_servefault_failovers_total",
+                    "request failover attempts after a tier-replica "
+                    "failure (phase=prefill|decode)",
+                    tag_keys=("phase",)),
+                sheds=Counter(
+                    "ray_tpu_servefault_sheds_total",
+                    "requests shed with an attributed cause "
+                    "(capacity|deadline|failover|draining)",
+                    tag_keys=("cause",)),
                 replacements=Counter(
                     "ray_tpu_servefault_replacements_total",
-                    "dead tier replicas replaced", ("tier",)),
+                    "dead tier replicas replaced by the self-healer "
+                    "(serve/autoscale.py)",
+                    tag_keys=("tier",)),
                 breaker_trips=Counter(
                     "ray_tpu_servefault_breaker_trips_total",
-                    "replacement circuit-breaker trips"))
-        return _sf_metrics
+                    "replacement circuit-breaker OPEN transitions (a "
+                    "host whose replicas die repeatedly stops getting "
+                    "replacements)"))
+    return _sf_metrics
 
 
 def _worker():
@@ -627,11 +665,20 @@ class PrefillServer:
         if not force and now - self._last_push < 0.5:
             return
         self._last_push = now
+        if self.lora_pool is not None:
+            self.lora_pool.publish_telemetry(force=force)
         if _worker() is None:
+            if self.kv_cache is not None:
+                self.kv_cache.drain_events()
             if self.arena is not None:
                 self.arena.drain_events()
             return
         _push("report_disagg_stats", self.server_id, self.stats())
+        _push("report_kvcache_stats", self.server_id, self.kv_stats())
+        if self.kv_cache is not None:
+            for ev in self.kv_cache.drain_events():
+                ev.setdefault("engine", self.server_id)
+                _notify("report_kvcache_event", ev)
         if self.kvplane:
             _push("report_kvplane_stats", self.server_id,
                   self.kvplane_stats())
@@ -754,6 +801,23 @@ class DecodeServer:
                        "shm_bytes": acc["shm_bytes"],
                        "rpc_bytes": acc["rpc_bytes"],
                        "outcome": rec.get("outcome")})
+        # the request trace: an in-process router's trace is current on
+        # this thread (its open kv_transfer phase takes the fetch's
+        # breakdown); a decode actor has none and pushes a remote phase
+        rt = rec.get("_reqtrace")
+        if reqtrace.current_trace() is not None:
+            reqtrace.annotate(kv_fetch_ms=round(fetch_ms, 3),
+                              kv_bytes=nbytes,
+                              shm_bytes=int(acc["shm_bytes"]),
+                              rpc_bytes=int(acc["rpc_bytes"]),
+                              chunks_local=int(acc["chunks_local"]))
+        elif isinstance(rt, dict) and rt.get("request_id"):
+            reqtrace.push_remote_phase(
+                rt["request_id"], "kv_transfer_remote", fetch_ms,
+                attempt=int(rt.get("attempt", 1)),
+                server=self.server_id, kv_bytes=nbytes,
+                shm_bytes=int(acc["shm_bytes"]),
+                rpc_bytes=int(acc["rpc_bytes"]))
         return stream
 
     def stream_from(self, rec: Dict[str, Any], max_new_tokens: int,
@@ -916,6 +980,11 @@ class DecodeServer:
             return
         self._last_push = now
         _push("report_disagg_stats", self.server_id, self.stats())
+        if self.lora_pool is not None:
+            self.lora_pool.publish_telemetry(force=force)
+        # the engine's own kvcache push carries the adoption counters to
+        # the kvcache surface
+        self.engine.publish_kv_telemetry(force=True)
 
     def stop(self) -> None:
         self.engine.stop()
@@ -1613,30 +1682,60 @@ class DisaggRouter:
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         deadline = (None if deadline_s is None
                     else time.perf_counter() + float(deadline_s))
-        self._check_deadline(deadline, tenant)  # arrived expired
-        # rep_box[0]: the decode replica holding the reservation now
-        # (failover moves it; the release must hit the current one)
-        rep_box = [self._admit_or_shed(tenant, deadline, priority)]
-        t_admit = time.perf_counter()
-        pslot = self._preempt_register(priority, tenant)
-        ok = False
+        # the request trace: a caller's trace current on this thread is
+        # taken over (the caller finishes it); otherwise the router mints
+        # and finishes its own. Either way every hop below stamps phases
+        # on the thread's current trace.
+        tr = reqtrace.current_trace()
+        owned = tr is None
+        if owned:
+            tr = reqtrace.start_trace(source="router", tenant=tenant,
+                                      cls=priority)
         try:
-            if not self._disagg_mode:
-                out = self._generate_colocated(
-                    prompt, max_new_tokens, eos_token, timeout_s, deadline,
-                    on_first_token, token_sleep_s, t_admit, tenant, pslot,
-                    on_tokens, rep_box)
-            else:
-                out = self._generate_disagg(
-                    rep_box, prompt, max_new_tokens, eos_token, timeout_s,
-                    deadline, on_first_token, token_sleep_s, t_admit,
-                    tenant, pslot, on_tokens)
-            ok = True
-            return out
-        finally:
-            self._preempt_unregister(pslot)
-            self._complete(rep_box[0], ok, tenant=tenant,
-                           wall_ms=(time.perf_counter() - t_admit) * 1e3)
+            with reqtrace.activate(tr):
+                self._check_deadline(deadline, tenant)  # arrived expired
+                # rep_box[0]: the decode replica holding the reservation
+                # now (failover moves it; the release must hit the
+                # current one)
+                with reqtrace.phase("queue_reserve"):
+                    rep_box = [self._admit_or_shed(tenant, deadline,
+                                                   priority)]
+                t_admit = time.perf_counter()
+                pslot = self._preempt_register(priority, tenant)
+                ok = False
+                try:
+                    if not self._disagg_mode:
+                        out = self._generate_colocated(
+                            prompt, max_new_tokens, eos_token, timeout_s,
+                            deadline, on_first_token, token_sleep_s,
+                            t_admit, tenant, pslot, on_tokens, rep_box)
+                    else:
+                        out = self._generate_disagg(
+                            rep_box, prompt, max_new_tokens, eos_token,
+                            timeout_s, deadline, on_first_token,
+                            token_sleep_s, t_admit, tenant, pslot,
+                            on_tokens)
+                    ok = True
+                    if owned and tr is not None:
+                        tr.finish("ok", tokens=len(out))
+                    return out
+                finally:
+                    self._preempt_unregister(pslot)
+                    self._complete(rep_box[0], ok, tenant=tenant,
+                                   wall_ms=(time.perf_counter() - t_admit)
+                                   * 1e3)
+        except RequestShedError as e:
+            if owned and tr is not None:
+                cause = getattr(e, "cause", None)
+                outcome = {"deadline": "deadline",
+                           "disconnect": "disconnect",
+                           "preempt": "preempt"}.get(cause, "shed")
+                tr.finish(outcome, cause=cause)
+            raise
+        except BaseException as e:
+            if owned and tr is not None:
+                tr.finish("error", cause=type(e).__name__)
+            raise
 
     def _record_tenant_ttft(self, tenant: Optional[str],
                             ttft_ms: float) -> None:
@@ -1674,6 +1773,7 @@ class DisaggRouter:
         history: List[int] = []
         first_emitted = False
         had_preempt = False
+        tr = reqtrace.current_trace()
         while not self._finished(history, max_new_tokens, eos_token):
             replay = (np.concatenate([prompt, np.asarray(history, np.int64)])
                       if history else prompt)
@@ -1692,8 +1792,17 @@ class DisaggRouter:
                     pslot.cancel_fn = (
                         lambda s=stream: self._colocated.cancel_slot(
                             s, "preempt"))
+            t_dec = time.perf_counter()
+            t_first_tok: Optional[float] = None
+            n_attempt_toks = 0
             try:
                 for tok in stream:
+                    if t_first_tok is None:
+                        t_first_tok = time.perf_counter()
+                        if tr is not None:
+                            tr.add_phase("decode_first_token",
+                                         (t_first_tok - t_dec) * 1e3)
+                    n_attempt_toks += 1
                     if not first_emitted:
                         first_emitted = True
                         self._first_token(t_admit, tenant, on_first_token)
@@ -1710,6 +1819,13 @@ class DisaggRouter:
                     self._check_deadline(deadline, tenant)
             except RequestShedError as e:
                 # shed mid-stream: the engine frees the slot
+                if tr is not None:
+                    tr.add_phase(
+                        "decode_steady" if t_first_tok is not None
+                        else "decode_first_token",
+                        (time.perf_counter() - (t_first_tok or t_dec))
+                        * 1e3, tokens=n_attempt_toks,
+                        error=getattr(e, "cause", None) or "shed")
                 cancel = getattr(self._colocated, "cancel_slot", None)
                 if callable(cancel):
                     cancel(stream, getattr(e, "cause", None))
@@ -1718,6 +1834,10 @@ class DisaggRouter:
                 if pslot is not None:
                     with self._lock:
                         pslot.cancel_fn = None
+            if tr is not None and t_first_tok is not None:
+                tr.add_phase("decode_steady",
+                             (time.perf_counter() - t_first_tok) * 1e3,
+                             tokens=n_attempt_toks)
             if pslot is not None and pslot.preempted \
                     and not self._finished(history, max_new_tokens,
                                            eos_token):
@@ -1725,6 +1845,8 @@ class DisaggRouter:
                 with self._lock:
                     pslot.preempted = False
                 had_preempt = True
+                if tr is not None:
+                    tr.mark_preempt()
                 time.sleep(0.1)  # let the preemptor land
                 continue
             break
@@ -1747,6 +1869,7 @@ class DisaggRouter:
         fail_detected: Optional[float] = None
         had_failover = False
         had_preempt = False
+        tr = reqtrace.current_trace()
 
         def preempt_resume() -> bool:
             """True once per fired preemption whose stream ended early."""
@@ -1758,6 +1881,9 @@ class DisaggRouter:
             with self._lock:
                 pslot.preempted = False
             had_preempt = True
+            if tr is not None:
+                # the replay's phases carry the new attempt number
+                tr.mark_preempt()
             time.sleep(0.1)  # let the preemptor land
             return True
 
@@ -1780,7 +1906,10 @@ class DisaggRouter:
             try:
                 pf_args = (replay.tolist(), tenant) if kv_hint is None \
                     else (replay.tolist(), tenant, kv_hint)
-                rec = self._tier_call(pf, "prefill", "prefill", *pf_args)
+                with reqtrace.phase("prefill", replica=pf.rid,
+                                    prompt_tokens=int(replay.size)):
+                    rec = self._tier_call(pf, "prefill", "prefill",
+                                          *pf_args)
             except Exception as e:  # noqa: BLE001 — dead or broken
                 if _is_pool_exhausted(e):
                     raise self._shed_pool_exhausted("prefill", tenant,
@@ -1789,6 +1918,8 @@ class DisaggRouter:
                 fail_detected = time.perf_counter()
                 had_failover = True
                 self._attempt_failed("prefill", pf.rid, attempt, e, tenant)
+                if tr is not None:
+                    tr.begin_attempt()
                 continue
             finally:
                 with self._lock:
@@ -1796,6 +1927,19 @@ class DisaggRouter:
                     if pf.inflight > 0:
                         pf.inflight -= 1
             try:
+                if tr is not None and rec.get("kvplane"):
+                    # the KV plane's fetches inside the prefill, as
+                    # phases of their own
+                    for tier_n, ph in (("tier2", "kvplane_tier2_fetch"),
+                                       ("tier3", "kvplane_tier3_fetch")):
+                        tinfo = rec["kvplane"].get(tier_n)
+                        if tinfo:
+                            tr.add_phase(
+                                ph, float(tinfo.get("ms", 0.0)),
+                                replica=pf.rid,
+                                blocks=int(tinfo.get("blocks", 0)),
+                                tokens=int(tinfo.get("tokens", 0)),
+                                kv_bytes=int(tinfo.get("nbytes", 0)))
                 if not first_emitted:
                     first_emitted = True
                     self._first_token(t_admit, tenant, on_first_token,
@@ -1814,10 +1958,21 @@ class DisaggRouter:
             if token_sleep_s > 0:
                 # keep the gap between pulls inside the idle reap
                 chunk = max(1, min(chunk, int(120.0 / token_sleep_s) or 1))
+            t_dec: Optional[float] = None
+            t_first_tok: Optional[float] = None
+            n_attempt_toks = 0
             try:
-                hid = self._tier_call(rep, "decode", "start_decode", rec,
-                                      max_new_tokens - len(history),
-                                      eos_token, timeout_s)
+                if tr is not None:
+                    # a decode actor pushes its fetch as a remote phase
+                    # under this id; an in-process one annotates the open
+                    # kv_transfer phase
+                    rec["_reqtrace"] = {"request_id": tr.request_id,
+                                        "attempt": attempt}
+                with reqtrace.phase("kv_transfer", replica=rep.rid):
+                    hid = self._tier_call(rep, "decode", "start_decode",
+                                          rec, max_new_tokens - len(history),
+                                          eos_token, timeout_s)
+                t_dec = time.perf_counter()
                 if pslot is not None:
                     with self._lock:
                         pslot.rep = rep
@@ -1832,6 +1987,13 @@ class DisaggRouter:
                                           min(2.0, max(0.1, timeout_s / 4)))
                     toks = out.get("tokens") or []
                     if toks:
+                        if t_first_tok is None:
+                            t_first_tok = time.perf_counter()
+                            if tr is not None:
+                                tr.add_phase("decode_first_token",
+                                             (t_first_tok - t_dec) * 1e3,
+                                             replica=rep.rid)
+                        n_attempt_toks += len(toks)
                         history.extend(int(t) for t in toks)
                         if pslot is not None:
                             pslot.tokens = len(history)
@@ -1844,6 +2006,16 @@ class DisaggRouter:
                         if token_sleep_s > 0:
                             time.sleep(token_sleep_s * len(toks))
                     if out.get("done"):
+                        if tr is not None:
+                            spec_attrs = {k: int(out[k]) for k in (
+                                "spec_proposed", "spec_accepted")
+                                if out.get(k) is not None}
+                            tr.add_phase(
+                                "decode_steady",
+                                (time.perf_counter()
+                                 - (t_first_tok or t_dec)) * 1e3,
+                                replica=rep.rid, tokens=n_attempt_toks,
+                                **spec_attrs)
                         self._ack_transfer(pf, rec)
                         if preempt_resume():
                             break  # the cancelled slot drained: replay
@@ -1859,6 +2031,14 @@ class DisaggRouter:
                         self._check_deadline(deadline, tenant)
                     except RequestShedError as e:
                         # abandon the stream; the transfer is still acked
+                        if tr is not None:
+                            tr.add_phase(
+                                "decode_steady" if t_first_tok is not None
+                                else "decode_first_token",
+                                (time.perf_counter()
+                                 - (t_first_tok or t_dec)) * 1e3,
+                                replica=rep.rid, tokens=n_attempt_toks,
+                                error=getattr(e, "cause", None) or "shed")
                         try:
                             self._tier_call(rep, "decode", "cancel_decode",
                                             hid, getattr(e, "cause", None),
@@ -1874,6 +2054,15 @@ class DisaggRouter:
             except RequestShedError:
                 raise
             except Exception as e:  # noqa: BLE001 — death or stall
+                if tr is not None and t_dec is not None:
+                    # the failed attempt's partial decode is a phase of
+                    # its own
+                    tr.add_phase(
+                        "decode_steady" if t_first_tok is not None
+                        else "decode_first_token",
+                        (time.perf_counter() - (t_first_tok or t_dec))
+                        * 1e3, replica=rep.rid, tokens=n_attempt_toks,
+                        error=type(e).__name__)
                 if preempt_resume():
                     # the handle vanished under a preemption: resume
                     # without an attempt, the replica is alive
@@ -1900,6 +2089,8 @@ class DisaggRouter:
                         pass
                 self._ack_transfer(pf, rec)
                 self._attempt_failed("decode", rep.rid, attempt, e, tenant)
+                if tr is not None:
+                    tr.begin_attempt()
                 rep_box[0] = self._reserve_survivor(rep, deadline, tenant)
                 continue
             finally:
@@ -1992,6 +2183,17 @@ class DisaggRouter:
         if self._disagg_mode and self._kvplane_dir:
             _push("report_kvplane_stats", self.router_id,
                   self.kvplane_stats())
+        tenants = self.tenant_stats()
+        if tenants:
+            # the router's tenant counters ride the lora surface beside
+            # the pools' paging stats
+            with self._lock:
+                hits = self._stats["tenant_affinity_hits"]
+                total = self._stats["tenant_affinity_total"]
+            _push("report_lora_stats", self.router_id,
+                  {"role": "router", "router_id": self.router_id,
+                   "tenant_affinity_hits": hits,
+                   "tenant_affinity_total": total, "tenants": tenants})
 
     def servefault_stats(self) -> Dict[str, Any]:
         """The fault-tolerance snapshot of this router."""

@@ -26,9 +26,9 @@ The JAX package's knobs are arguments here, with its defaults:
 ``RAY_TPU_KVPLANE_DIRECTORY`` (on: ``directory=True`` of the router and
 the prefill server), ``RAY_TPU_KVPLANE_T3_MIN_BLOCKS`` (``T3_MIN_BLOCKS``,
 2) and ``RAY_TPU_KVPLANE_T3_TTL_S`` (the conductor's
-``KVPLANE_T3_TTL_S``, 600 s, or a lookup's ``ttl_s``). The Prometheus
-family is kept in this process (``kvplane_metrics()``); the CLI and the
-dashboard wait for their ports.
+``KVPLANE_T3_TTL_S``, 600 s, or a lookup's ``ttl_s``).
+``kvplane_metrics()`` is the ``ray_tpu_kvplane_*`` family on
+``util.metrics``; the CLI and the dashboard wait for their ports.
 """
 from __future__ import annotations
 
@@ -39,7 +39,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .handle import Counter, Gauge
 
 _EVENTS_KEPT = 512
 
@@ -51,33 +50,48 @@ _metrics_lock = threading.Lock()
 
 
 def kvplane_metrics() -> Dict[str, Any]:
-    """This process's KV-plane counters (the JAX package's
-    ``ray_tpu_kvplane_*`` family)."""
+    """The ``ray_tpu_kvplane_*`` family on ``util.metrics`` (JAX's
+    names, help and tags), created on first use."""
     global _metrics
+    m = _metrics
+    if m is not None:
+        return m
     with _metrics_lock:
         if _metrics is None:
+            from ..util.metrics import Counter, Gauge
+
             _metrics = dict(
-                hits=Counter("ray_tpu_kvplane_hits_total",
-                             "prefix blocks re-adopted from a lower tier",
-                             ("tier",)),
-                spills=Counter("ray_tpu_kvplane_spills_total",
-                               "evicted blocks spilled into the arena"),
-                evictions=Counter("ray_tpu_kvplane_evictions_total",
-                                  "blocks dropped out of a tier",
-                                  ("tier",)),
+                hits=Counter(
+                    "ray_tpu_kvplane_hits_total",
+                    "prefix blocks re-adopted from a lower tier",
+                    tag_keys=("tier",)),
+                spills=Counter(
+                    "ray_tpu_kvplane_spills_total",
+                    "HBM-evicted blocks spilled into the tier-2 host "
+                    "arena instead of dying"),
+                evictions=Counter(
+                    "ray_tpu_kvplane_evictions_total",
+                    "blocks dropped OUT of a kvplane tier (arena LRU, "
+                    "directory TTL/GC)",
+                    tag_keys=("tier",)),
                 fetched_bytes=Counter(
                     "ray_tpu_kvplane_fetched_bytes_total",
-                    "wire bytes pulled back out of a tier on a hit",
-                    ("tier",)),
+                    "wire-format bytes pulled back out of a tier on a "
+                    "hit",
+                    tag_keys=("tier",)),
                 reused_tokens=Counter(
                     "ray_tpu_kvplane_reused_tokens_total",
-                    "prompt tokens recovered from a tier", ("tier",)),
-                directory=Counter("ray_tpu_kvplane_directory_total",
-                                  "prefix-directory routing decisions",
-                                  ("outcome",)),
-                arena_bytes=Gauge("ray_tpu_kvplane_arena_bytes",
-                                  "tier-2 arena resident bytes"))
-        return _metrics
+                    "prompt tokens whose prefill was recovered from a "
+                    "kvplane tier",
+                    tag_keys=("tier",)),
+                directory=Counter(
+                    "ray_tpu_kvplane_directory_total",
+                    "prefix-directory routing decisions",
+                    tag_keys=("outcome",)),
+                arena_bytes=Gauge(
+                    "ray_tpu_kvplane_arena_bytes",
+                    "tier-2 host-arena resident bytes"))
+    return _metrics
 
 
 # ------------------------------------------------------------- tier 2

@@ -33,8 +33,11 @@ model (port of ray_tpu/serve/lora.py).
 
 The JAX package's knobs ``RAY_TPU_LORA_POOL_SLOTS`` and
 ``RAY_TPU_LORA_RANK_MAX`` are the ``slots=8`` and ``rank_max=8``
-arguments here. Not ported yet: the Prometheus metrics and conductor
-push; ``stats()`` and ``drain_events()`` carry the same numbers.
+arguments here. ``lora_metrics()`` is the ``ray_tpu_lora_*`` family on
+``util.metrics`` (created with the first pool), and
+``publish_telemetry`` pushes ``stats()`` and the pool's events to the
+conductor (``util.state.lora_status()``, the timeline's lora lane) at
+most every 0.5 s unless forced, after page-ins and hot swaps.
 """
 from __future__ import annotations
 
@@ -52,6 +55,47 @@ from ..models.generate import lora_targets
 
 _POOL_SEQ = itertools.count()
 _EVENTS_KEPT = 512
+_TELEMETRY_INTERVAL_S = 0.5
+
+# ----------------------------------------------------- prometheus (lazy)
+# Created with the first pool, never at import.
+
+_metrics: Optional[Dict[str, Any]] = None
+_metrics_lock = threading.Lock()
+
+
+def lora_metrics() -> Dict[str, Any]:
+    """The ``ray_tpu_lora_*`` family (JAX's names, help and tags)."""
+    global _metrics
+    m = _metrics
+    if m is not None:
+        return m
+    with _metrics_lock:
+        if _metrics is None:
+            from ..util.metrics import Counter, Gauge
+
+            _metrics = dict(
+                hits=Counter(
+                    "ray_tpu_lora_adapter_hits_total",
+                    "adapter-pool acquisitions served by a resident "
+                    "adapter", tag_keys=("tenant",)),
+                misses=Counter(
+                    "ray_tpu_lora_adapter_misses_total",
+                    "adapter-pool acquisitions that paged the adapter "
+                    "in", tag_keys=("tenant",)),
+                evictions=Counter(
+                    "ray_tpu_lora_adapter_evictions_total",
+                    "unpinned adapters LRU-evicted from the pool under "
+                    "pressure", tag_keys=("tenant",)),
+                swaps=Counter(
+                    "ray_tpu_lora_adapter_swaps_total",
+                    "resident adapters hot-swapped to a newer "
+                    "published version", tag_keys=("tenant",)),
+                utilization=Gauge(
+                    "ray_tpu_lora_pool_utilization",
+                    "fraction of adapter-pool rows holding a resident "
+                    "adapter"))
+    return _metrics
 
 
 def tenant_weights_name(tenant: str, prefix: str = "lora/") -> str:
@@ -321,6 +365,8 @@ class AdapterPool:
             "acquires", "hits", "misses", "evictions", "swaps",
             "page_in_bytes", "releases")}
         self._tenant_stats: Dict[str, Dict[str, int]] = {}
+        self._last_push = 0.0
+        lora_metrics()  # registered before the first event
 
     # ----------------------------------------------------------- helpers
 
@@ -423,6 +469,7 @@ class AdapterPool:
                     self._stats["acquires"] += 1
                     self._stats["hits"] += 1
                     self._tenant_locked(tenant)["hits"] += 1
+                    lora_metrics()["hits"].inc(tags={"tenant": tenant})
                     return r.row
                 loading = self._loading.get(tenant)
                 if loading is None:
@@ -432,8 +479,8 @@ class AdapterPool:
             loading.wait(timeout=120.0)
         try:
             version, adapter, moved = self.source.fetch(tenant)
-            row, prev_version = self._install(tenant, version, adapter,
-                                              moved)
+            row, prev_version, evicted = self._install(
+                tenant, version, adapter, moved)
         finally:
             with self._lock:
                 ev = self._loading.pop(tenant, None)
@@ -445,6 +492,7 @@ class AdapterPool:
             except BaseException:
                 self.release(tenant)
                 raise
+        self.publish_telemetry()
         return row
 
     def _fire_swap_listeners(self, tenant: str, old_version: int) -> None:
@@ -452,12 +500,14 @@ class AdapterPool:
             fn(tenant, old_version)
 
     def _install(self, tenant: str, version: int, adapter: Dict[str, Any],
-                 moved: int) -> Tuple[int, Optional[int]]:
-        """Returns ``(row, superseded version)``: the tenant's previous
-        version when this install moved it to a new one (a resident hot
-        swap or a page-in after a republish), else None."""
+                 moved: int) -> Tuple[int, Optional[int], Optional[str]]:
+        """Returns ``(row, superseded version, evicted tenant)``: the
+        tenant's previous version when this install moved it to a new
+        one (a resident hot swap or a page-in after a republish), else
+        None; the tenant whose row it took, else None."""
         rank = adapter_rank(adapter)
         nbytes = adapter_nbytes(adapter)
+        evicted: Optional[str] = None
         with self._lock:
             now = next(self._tick)
             r = self._by_tenant.get(tenant)
@@ -479,6 +529,7 @@ class AdapterPool:
                             f"requests")
                     del self._by_tenant[victim.tenant]
                     row = victim.row
+                    evicted = victim.tenant
                     self._stats["evictions"] += 1
                     self._tenant_locked(victim.tenant)["evictions"] += 1
                     self._event_locked({"kind": "evict",
@@ -513,7 +564,17 @@ class AdapterPool:
                                     "bytes": moved or nbytes,
                                     "superseded": superseded})
             self._stats["page_in_bytes"] += moved or nbytes
-            return r.row, superseded
+            row = r.row
+            util = len(self._by_tenant) / self.slots
+        m = lora_metrics()
+        if swapped:
+            m["swaps"].inc(tags={"tenant": tenant})
+        else:
+            m["misses"].inc(tags={"tenant": tenant})
+        if evicted is not None:
+            m["evictions"].inc(tags={"tenant": evicted})
+        m["utilization"].set(util)
+        return row, superseded, evicted
 
     def release(self, tenant: str) -> None:
         """Drop one pin. An unpinned adapter stays resident (that is the
@@ -550,7 +611,9 @@ class AdapterPool:
             self._tenant_locked(tenant)["swaps"] += 1
             self._event_locked({"kind": "swap", "tenant": tenant,
                                 "row": r.row, "version": version})
+        lora_metrics()["swaps"].inc(tags={"tenant": tenant})
         self._fire_swap_listeners(tenant, old_version)
+        self.publish_telemetry()
         return True
 
     # -------------------------------------------------------- device API
@@ -634,7 +697,27 @@ class AdapterPool:
             out, self._events = self._events, []
         return out
 
+    def publish_telemetry(self, force: bool = False) -> None:
+        """Push `stats()` and the pending events to the conductor (best
+        effort; without a cluster the buffer is only drained). At most
+        every 0.5 s unless `force`."""
+        now = time.monotonic()
+        if not force and now - self._last_push < _TELEMETRY_INTERVAL_S:
+            return
+        self._last_push = now
+        w = _worker()
+        if w is None:
+            self.drain_events()  # keep the buffer bounded
+            return
+        try:
+            w.conductor.notify("report_lora_stats", w.worker_id,
+                               self.pool_id, self.stats())
+            for ev in self.drain_events():
+                w.conductor.notify("report_lora_event", ev)
+        except Exception:  # noqa: BLE001 — cluster shutting down
+            pass
+
 
 __all__ = ["AdapterPool", "LocalAdapterSource", "LoraPoolExhausted",
            "adapter_nbytes", "adapter_rank", "build_pool", "len_blocks",
-           "make_lora_adapter", "tenant_weights_name"]
+           "lora_metrics", "make_lora_adapter", "tenant_weights_name"]

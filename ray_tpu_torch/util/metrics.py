@@ -131,6 +131,13 @@ class Metric:
                     "values": {self._encode_tags(k): v
                                for k, v in self._values.items()}}
 
+    def series(self) -> Dict[Tuple[str, ...], float]:
+        """This process's value of each series, by its tag values in
+        ``tag_keys`` order (the port's own reader; the push carries the
+        same numbers)."""
+        with self._lock:
+            return dict(self._values)
+
 
 class Counter(Metric):
     _type = "counter"

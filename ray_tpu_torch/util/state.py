@@ -9,10 +9,11 @@ objects, the task summary, the timeline, Prometheus text, RPC stats, the
 cluster summary) and the views of the ported subsystems: the flight
 recorder's training progress, the weight fabric's registry, the recovery
 subsystem, disaggregated serving, the global KV plane, serving fault
-tolerance, the serving autoscaler, the online learning loop and the MPMD
-pipelines. The serving views of subsystems not ported yet (KV-cache,
-speculation, LoRA, gateway, request traces, the oracle) wait with them
-(ROADMAP Queue 1); so do the CLI and dashboard surfaces of these views.
+tolerance, the serving autoscaler, the online learning loop, the MPMD
+pipelines, the paged KV cache, speculation, LoRA tenants and the request
+flight recorder. The gateway's and the oracle's views wait with their
+subsystems (ROADMAP Queue 1); so do the CLI and dashboard surfaces of
+these views.
 """
 from __future__ import annotations
 
@@ -123,6 +124,78 @@ def pipeline_status(name: Optional[str] = None) -> Dict[str, Any]:
                              if k == name},
                "mailbox_depth": out.get("mailbox_depth")}
     return out
+
+
+def kv_cache_stats(engine: Optional[str] = None) -> Dict[str, Any]:
+    """The paged KV prefix cache (models/kvcache.py): each engine's
+    snapshot (hits, misses, evictions, pool utilization, reused and
+    prefilled tokens) and cluster totals with the hit and token-reuse
+    rates. `engine` filters to one engine id."""
+    out = _worker().conductor.call("get_kvcache_stats", timeout=10.0)
+    if engine is not None:
+        out = {"engines": {k: v for k, v in out.get("engines", {}).items()
+                           if v.get("engine_id") == engine},
+               "totals": out.get("totals", {})}
+    return out
+
+
+def speculation_totals(engines: Dict[str, Dict[str, Any]]
+                       ) -> Dict[str, Any]:
+    """The one speculation rollup (counter sums, acceptance rate, tokens
+    per verify), shared by the conductor and `speculation_stats`'s
+    engine filter so the two views cannot disagree."""
+    totals: Dict[str, Any] = {
+        k: sum(int(e.get(k, 0)) for e in engines.values())
+        for k in ("spec_proposed", "spec_accepted",
+                  "spec_verify_ticks", "spec_emitted_tokens")}
+    totals["acceptance_rate"] = (
+        totals["spec_accepted"] / totals["spec_proposed"]
+        if totals["spec_proposed"] else 0.0)
+    totals["tokens_per_verify"] = (
+        totals["spec_emitted_tokens"] / totals["spec_verify_ticks"]
+        if totals["spec_verify_ticks"] else 0.0)
+    totals["engines"] = len(engines)
+    return totals
+
+
+def speculation_stats(engine: Optional[str] = None) -> Dict[str, Any]:
+    """Speculative decoding (models/engine.py): each speculating
+    engine's draft counters (proposed, accepted, verify steps, tokens
+    per verify, acceptance rate, the int8-KV flag) and cluster totals,
+    from the same snapshots as `kv_cache_stats`. `engine` filters to
+    one engine id; the totals then describe that engine."""
+    out = _worker().conductor.call("get_speculation_stats", timeout=10.0)
+    if engine is not None:
+        engines = {k: v for k, v in out.get("engines", {}).items()
+                   if v.get("engine_id") == engine}
+        out = {"engines": engines, "totals": speculation_totals(engines)}
+    return out
+
+
+def lora_status() -> Dict[str, Any]:
+    """Multi-tenant LoRA serving (serve/lora.py): each adapter pool's
+    paging snapshot (slots, residents, hits, misses, evictions, hot
+    swaps, page-in bytes), each router's tenant counters, a per-tenant
+    rollup and cluster totals."""
+    return _worker().conductor.call("get_lora_status", timeout=10.0)
+
+
+def requesttrace_status() -> Dict[str, Any]:
+    """The request flight recorder (observability/requests.py): each
+    store's retention counters (completed, kept, dropped, outcomes,
+    replayed and preempted requests), the cluster's slowest requests
+    with their phase breakdowns, and the p99 attribution over every
+    store's recent summaries."""
+    return _worker().conductor.call("get_requesttrace_status",
+                                    timeout=10.0)
+
+
+def request_trace(request_id: str) -> Optional[Dict[str, Any]]:
+    """One request's kept trace by id (None when it was sampled out or
+    aged out): outcome, attempts, its phases tagged with their attempt,
+    and the phases tiers in other processes pushed (`remote_phases`)."""
+    return _worker().conductor.call("get_request_trace", str(request_id),
+                                    timeout=10.0)
 
 
 def list_nodes() -> List[Dict[str, Any]]:
@@ -311,9 +384,11 @@ def cluster_summary() -> Dict[str, Any]:
 
 
 __all__ = ["autoscaler_status", "cluster_summary", "disagg_status",
-           "kvplane_status", "list_actors", "list_nodes", "list_objects",
-           "list_placement_groups", "list_tasks", "list_workers",
-           "online_status", "pipeline_status", "prometheus_metrics",
-           "recent_logs", "resilience_status", "rpc_stats",
-           "servefault_status", "summarize_tasks", "timeline",
+           "kv_cache_stats", "kvplane_status", "list_actors", "list_nodes",
+           "list_objects", "list_placement_groups", "list_tasks",
+           "list_workers", "lora_status", "online_status",
+           "pipeline_status", "prometheus_metrics", "recent_logs",
+           "request_trace", "requesttrace_status", "resilience_status",
+           "rpc_stats", "servefault_status", "speculation_stats",
+           "speculation_totals", "summarize_tasks", "timeline",
            "train_progress", "weight_versions"]

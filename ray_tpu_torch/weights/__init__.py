@@ -18,10 +18,10 @@ Versioned, sharded, in-memory train -> serve weight publication:
 - **Serving** (:class:`WeightSync`): hot-swaps a continuous-batching
   engine's params between decode ticks.
 
-The JAX package's weights/metrics.py numbers (publish time, fetched
-bytes, staleness in versions) are kept on the publisher, subscriber and
-sync objects (`stats()`); their Prometheus side waits for the port of
-`util/metrics.py`. Registry views:
+The publish time, fetched bytes and staleness in versions are kept on
+the publisher, subscriber and sync objects (`stats()`) and, as the JAX
+package's ``ray_tpu_weights_*`` families, on `util.metrics`
+(`weights/metrics.py`). Registry views:
 ``util.state.weight_versions()`` and the conductor's weight events.
 """
 from .publisher import WeightPublisher, leaf_content_hashes, publish

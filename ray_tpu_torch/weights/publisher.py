@@ -33,6 +33,7 @@ from ..train.async_checkpoint import _leaf_snapshots, _process
 from ..tree import tree_flatten
 from ..util import chunks
 from ..util.runtime import require_worker
+from .metrics import weight_metrics
 
 
 def _worker():
@@ -217,6 +218,9 @@ class WeightPublisher:
         ms = (time.perf_counter() - t0) * 1e3
         self.publish_ms.append(ms)
         self.published_bytes.append(nbytes)
+        m = weight_metrics()
+        m["publish_ms"].observe(ms, tags={"name": self.name})
+        m["published"].inc(1, tags={"name": self.name})
         return version
 
     def _fragment_landed(self, version: int) -> bool:

@@ -27,6 +27,7 @@ from ..train.checkpoint import storage_dtype, to_tensor
 from ..tree import tree_flatten, tree_unflatten
 from ..util import chunks
 from ..util.runtime import require_worker
+from .metrics import weight_metrics
 
 
 def _worker():
@@ -300,6 +301,11 @@ class WeightSubscriber:
         self.last_stats = stats
         self.fetch_ms.append(stats.elapsed_s * 1e3)
         self.fetched_bytes += stats.fetched_bytes
+        m = weight_metrics()
+        m["fetches"].inc(1, tags={"name": self.name})
+        if stats.fetched_bytes:
+            m["fetched_bytes"].inc(stats.fetched_bytes,
+                                   tags={"name": self.name})
         try:
             self._worker.conductor.notify("report_weight_event", {
                 "kind": "fetch", "name": self.name,

@@ -20,6 +20,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from .metrics import weight_metrics
 from .subscriber import WeightSubscriber
 
 logger = logging.getLogger("ray_tpu_torch.weights")
@@ -104,6 +105,9 @@ class WeightSync:
         self.max_staleness = staleness if self.max_staleness is None \
             else max(self.max_staleness, staleness)
         self.staleness_samples.append(staleness)
+        weight_metrics()["staleness"].set(
+            float(staleness),
+            tags={"name": self.name, "consumer": self.consumer})
         return staleness
 
     def status(self) -> Dict[str, Any]:

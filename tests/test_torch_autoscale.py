@@ -20,7 +20,7 @@ markers.
 
 Not twinned: test_replica_recent_window_in_get_metrics waits for the
 port of serve/replica.py; test_all_surfaces_report_consistent_numbers'
-CLI, dashboard and Prometheus legs for those surfaces.
+CLI and dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
 """
 from __future__ import annotations
 

@@ -503,3 +503,33 @@ def test_online_launch_gate_refuses_off_by_one_and_ce(name):
             chip_smoke.hold_launches("online", {**exact,
                                                 name: exact[name] + off},
                                      per_step, steps)
+
+
+def test_telemetry_gate_refuses_a_counter_off_by_one():
+    """serve_telemetry's equality gate: a surface's snapshot that equals
+    the object's own numbers passes; any one counter off by one fails,
+    in either direction, and so does a missing one."""
+    local = {k: 7 + i for i, k in enumerate(
+        chip_smoke.TELEMETRY_KV_KEYS + chip_smoke.TELEMETRY_SPEC_KEYS
+        + chip_smoke.TELEMETRY_LORA_KEYS)}
+    for keys in (chip_smoke.TELEMETRY_KV_KEYS,
+                 chip_smoke.TELEMETRY_SPEC_KEYS,
+                 chip_smoke.TELEMETRY_LORA_KEYS):
+        chip_smoke.hold_equal("surface", local, dict(local), keys)
+        for key in keys:
+            for delta in (1, -1):
+                with pytest.raises(AssertionError, match=key):
+                    chip_smoke.hold_equal(
+                        "surface", local, dict(local, **{key: local[key]
+                                                         + delta}), keys)
+            short = dict(local)
+            del short[key]
+            with pytest.raises(AssertionError, match=key):
+                chip_smoke.hold_equal("surface", local, short, keys)
+    text = ('ray_tpu_kvcache_lookups_total{WorkerId="abc"} 7.0\n'
+            'ray_tpu_kvcache_lookups_total{WorkerId="def"} 9.0\n')
+    assert chip_smoke.hold_covers(text, "ray_tpu_kvcache_lookups_total", 7,
+                                  WorkerId="abc") == 7.0
+    with pytest.raises(AssertionError, match="below the local 8"):
+        chip_smoke.hold_covers(text, "ray_tpu_kvcache_lookups_total", 8,
+                               WorkerId="abc")

@@ -15,7 +15,14 @@ across the row count M (M = 1 takes another path, and GPT-2's tied LM
 head differs at small M too), so a suffix prefill's logits can differ
 from a full prefill's in the last bits (5e-7 here). The streams stay
 equal; the logits are held to the fp32 op tolerance, atol 2e-5 / rtol
-2e-4 (tests/test_ops.py)."""
+2e-4 (tests/test_ops.py).
+
+The engine's telemetry push drains the pool's events with no cluster, as
+JAX's does; a case that reads them keeps every drained event. In a
+cluster (`telemetry_checks.kvcache_all_surfaces_report_consistent_
+numbers`), kv_cache_stats(), the prefix-hit events, the
+``ray_tpu_kvcache_*`` Prometheus families and the timeline's kvcache
+lane carry the engine's own numbers."""
 from __future__ import annotations
 
 import concurrent.futures as cf
@@ -684,9 +691,19 @@ def test_admission_cap_bounds_prefill_bursts(model):
             eng.stop()
 
 
+def _keep_drained(cache):
+    """Keep every event the engine's telemetry push drains (with no
+    cluster it only drains, as the JAX engine's does); the cache's
+    drain_events() then returns them all."""
+    drained = []
+    drain = cache.drain_events
+    cache.drain_events = lambda: drained.extend(drain()) or drained
+
+
 def test_stream_exposes_cache_outcome(model):
     _, tp = model
     eng = _engine(tp)
+    _keep_drained(eng.kv_cache)
     try:
         p = [41, 42, 43, 44, 45, 46, 47, 48]
         s1 = eng.stream(p, 3)
@@ -858,3 +875,25 @@ def test_stats_readers_race_the_loop(model):
         assert g == _reference(tp, p, 3), p
     st = eng.kv_stats()
     assert st["pinned_blocks"] == 0 and st["lookups"] == len(prompts)
+
+
+# ------------------------------------------- the surfaces, in a cluster
+# tests/test_kvcache.py test_all_surfaces_report_consistent_numbers's state, Prometheus and timeline legs: a check of
+# `_private/telemetry_checks.py` in a driver process of its own (its CLI
+# and dashboard legs wait for those surfaces, ROADMAP Queue 1 items 7-8).
+
+SURFACE_CHECKS = {"kvcache_all_surfaces_report_consistent_numbers": {
+    "num_cpus": 4, "_system_config": {"log_to_driver": 0}}}
+
+
+@pytest.fixture(scope="module")
+def surface_outcomes():
+    from ray_tpu_torch._private import isolated
+
+    return isolated.run_checks(SURFACE_CHECKS, timeout=200.0)
+
+
+@pytest.mark.parametrize("name", [*SURFACE_CHECKS, "__session_ended__"])
+def test_kvcache_surfaces_in_a_cluster(surface_outcomes, name):
+    ok, text = surface_outcomes[name]
+    assert ok, text

@@ -11,7 +11,13 @@ make every "tenants differ" check vacuous (the JAX package's own
 `test_lora::test_mixed_batch_bit_identity` fails that way on its bf16
 tiny model). Tolerances: single ops atol 2e-5 / rtol 2e-4 in fp32 and
 2e-2 in bf16 (tests/test_ops.py), a whole model's logits atol/rtol
-1e-4."""
+1e-4.
+
+The pool's and the engine's telemetry pushes drain their events with no
+cluster, as JAX's do; a case that reads them keeps every drained event.
+In a cluster (`telemetry_checks.lora_surfaces_one_set_of_numbers`),
+lora_status(), the ``ray_tpu_lora_*`` Prometheus families and the
+timeline's lora lane carry the pool's own numbers."""
 from __future__ import annotations
 
 import dataclasses
@@ -233,6 +239,11 @@ def test_pool_refcount_lru_pin_evict_match_jax(adapters):
     """The same acquire / release sequence on both packages' pools gives
     the same rows, exhaustion and `stats()`."""
     tpool, jpool = _pool(adapters, slots=2), _jpool(adapters, slots=2)
+    # the pool's telemetry push drains its events (with no cluster, as
+    # JAX's does): keep every drained event
+    drained = []
+    drain = tpool.drain_events
+    tpool.drain_events = lambda: drained.extend(drain()) or drained
 
     def both(op, tenant):
         got = getattr(tpool, op)(tenant)
@@ -388,6 +399,10 @@ def test_hot_swap_mid_decode_leaves_others_unchanged(model, adapters):
     _, tp = model
     pool = _pool(adapters, slots=3)
     eng = _engine(tp, lora_pool=pool)
+    # keep the kv events the engine's telemetry push drains
+    drained = []
+    drain = eng.kv_cache.drain_events
+    eng.kv_cache.drain_events = lambda: drained.extend(drain()) or drained
     try:
         pool.acquire("t2")
         pool.release("t2")
@@ -574,3 +589,25 @@ def test_fabric_source_and_tenant_trainer():
     for key in (name, isolated.SESSION_ENDED):
         ok, text = outcomes[key]
         assert ok, text
+
+
+# ------------------------------------------- the surfaces, in a cluster
+# tests/test_lora.py test_lora_surfaces_one_set_of_numbers's state, Prometheus and timeline legs: a check of
+# `_private/telemetry_checks.py` in a driver process of its own (its CLI
+# and dashboard legs wait for those surfaces, ROADMAP Queue 1 items 7-8).
+
+SURFACE_CHECKS = {"lora_surfaces_one_set_of_numbers": {
+    "num_cpus": 4, "_system_config": {"log_to_driver": 0}}}
+
+
+@pytest.fixture(scope="module")
+def surface_outcomes():
+    from ray_tpu_torch._private import isolated
+
+    return isolated.run_checks(SURFACE_CHECKS, timeout=200.0)
+
+
+@pytest.mark.parametrize("name", [*SURFACE_CHECKS, "__session_ended__"])
+def test_lora_surfaces_in_a_cluster(surface_outcomes, name):
+    ok, text = surface_outcomes[name]
+    assert ok, text

@@ -8,8 +8,8 @@ a check of `_private/mpmd_checks.py` run in a driver process of its own
 pipeline (its losses held here against the JAX test's own
 `_dense_reference()`, rtol 1e-4 / atol 1e-5 as there; its registry,
 timeline and metric-snapshot legs in the check), the surfaces' one set
-of numbers (and the stages' params after it against the same JAX
-reference), stage death, and the SPMD pipeline's microbatch check.
+of numbers (its Prometheus leg among them; and the stages' params after
+it against the same JAX reference), stage death, and the SPMD pipeline's microbatch check.
 
 The slice as a whole: Llama tiny fp32 as a two-stage PipelineTrainer
 (embedding + block 0 | block 1 + norm_f + lm_head + loss) under both
@@ -21,9 +21,8 @@ tests/test_torch_train.py's Adam rule. A channel carries a bf16 and an
 fp32 tree bit for bit.
 
 Not twinned: test_builtin_pipeline_layouts_report_bubble
-(analysis/layouts.py, ROADMAP Queue 1 item 7) and the CLI / dashboard /
-Prometheus legs (items 7-8; the stages' metric snapshots stand in for
-the Prometheus ones).
+(analysis/layouts.py, ROADMAP Queue 1 item 7) and the CLI / dashboard
+legs (items 7-8).
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ as it was, whatever is written in place later), a CUDA tensor's record
 where no GPU is leased, whole-GPU leases under a driver's
 CUDA_VISIBLE_DEVICES, pid identity of forked workers, calls that would
 end the driver, a failed arena build, the parts this slice leaves out,
-the fork template without torch, no RAY_TPU_* knob, and the
-conductor's KV, pubsub and tables.
+the fork template without torch, no RAY_TPU_* knob, the
+conductor's KV, pubsub and tables, and task submission that parks no
+thread per task (a wait on a borrowed dependency delays no independent
+task; an argument that does not serialize fails its own task alone).
 
 Every check runs in a driver process of its own
 (`ray_tpu_torch._private.isolated.run_checks`, hard timeout 200 s):
@@ -37,6 +39,8 @@ CHECKS = {
     "port_package_import_is_lazy": None,
     "port_reads_no_ray_tpu_knob": None,
     "port_conductor_kv_pubsub_and_tables": C2,
+    "port_borrowed_dep_wait_delays_no_independent_task": {"num_cpus": 4},
+    "port_unsendable_argument_fails_its_task_alone": C2,
 }
 
 

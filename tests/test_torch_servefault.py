@@ -26,8 +26,8 @@ servefault_actor_decode_kill_mid_stream_heals_and_completes`, its
 streams held against the JAX engine).
 
 Not twinned: test_generic_replica_drain_rejects_with_cause waits for
-serve/replica.py; test_all_surfaces_report_one_set_of_numbers' CLI,
-dashboard and Prometheus legs for those surfaces.
+serve/replica.py; test_all_surfaces_report_one_set_of_numbers' CLI and
+dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
 """
 from __future__ import annotations
 

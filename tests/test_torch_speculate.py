@@ -11,7 +11,14 @@ gets logits on every column and leaves the cache rows below the window's
 end as they were. The speculating engine meets that case whenever an
 idle slot's last request ran to the end of the window. Tolerances: the
 whole model's logits and caches within atol/rtol 1e-4 (the frameworks sum
-in different orders); streams and counters equal."""
+in different orders); streams and counters equal.
+
+The engine's telemetry push drains its spec events with no cluster, as
+JAX's does; a case that reads them keeps every drained event. In a
+cluster (`telemetry_checks.speculate_all_surfaces_report_consistent_
+numbers`), speculation_stats(), the spec events, the ``ray_tpu_spec_*``
+Prometheus families and the timeline's speculation lane carry the
+engine's own numbers."""
 from __future__ import annotations
 
 import concurrent.futures as cf
@@ -259,12 +266,17 @@ def test_default_proposer_matches_jax(model, gpt2_model, family):
     base = _engine(tp, cfg)
     eng = _engine(tp, cfg, speculate_k=4)
     jeng = _jengine(jp, jcfg, speculate_k=4)
+    # the engine's telemetry push drains its events (with no cluster, as
+    # JAX's does): keep every drained event
+    events = []
+    drain = eng._drain_spec_events
+    eng._drain_spec_events = lambda: events.extend(drain()) or []
     try:
         want = [base.generate(p, 20) for p in jobs]
         got = [eng.generate(p, 20) for p in jobs]
         jgot = [jeng.generate(p, 20) for p in jobs]
         st, jst = eng.kv_stats(), jeng.kv_stats()
-        events = eng._drain_spec_events()
+        eng._drain_spec_events()
     finally:
         base.stop()
         eng.stop()
@@ -455,3 +467,25 @@ def test_cancel_under_speculation_frees_the_slot(model):
         eng.stop()
     assert st["cancelled_by_reason"] == {"disconnect": 1}
     assert st["pinned_blocks"] == 0 and eng.free_slots == 1
+
+
+# ------------------------------------------- the surfaces, in a cluster
+# tests/test_speculate.py test_all_surfaces_report_consistent_numbers's state, Prometheus and timeline legs: a check of
+# `_private/telemetry_checks.py` in a driver process of its own (its CLI
+# and dashboard legs wait for those surfaces, ROADMAP Queue 1 items 7-8).
+
+SURFACE_CHECKS = {"speculate_all_surfaces_report_consistent_numbers": {
+    "num_cpus": 4, "_system_config": {"log_to_driver": 0}}}
+
+
+@pytest.fixture(scope="module")
+def surface_outcomes():
+    from ray_tpu_torch._private import isolated
+
+    return isolated.run_checks(SURFACE_CHECKS, timeout=200.0)
+
+
+@pytest.mark.parametrize("name", [*SURFACE_CHECKS, "__session_ended__"])
+def test_speculation_surfaces_in_a_cluster(surface_outcomes, name):
+    ok, text = surface_outcomes[name]
+    assert ok, text

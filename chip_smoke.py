@@ -1863,16 +1863,35 @@ def phase_moe_train_check(kernels, moe, moe_ops, tree) -> None:
           "card": card_line()})
 
 
+# the first moe_train_args' weights, kept on the host until mesh_train
+# has run: moe_init draws ~2.2e9 normals on the CPU (~20 s on the card
+# machine), and the two mesh_train runs need the same weights again
+_MOE_HOST_PARAMS: dict = {}
+
+
 def moe_train_args(moe) -> tuple:
     """Mixtral 8x7B's widths cut to MOE_LAYERS layers at tokens [1, 4096]
-    from fixed seeds: (train_run's arguments, seconds moe_init took)."""
+    from fixed seeds: (train_run's arguments, seconds moe_init took). The
+    first call draws the weights and keeps a host copy; later calls copy
+    it back to the card, bit-equal (a step updates its weights in place)."""
+    from ray_tpu_torch.tree import tree_map
+
     cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
                               num_layers=MOE_LAYERS)
     t0 = time.perf_counter()
-    params = moe.moe_init(cfg, torch.Generator().manual_seed(42),
-                          device="cuda")
+    host = _MOE_HOST_PARAMS.get("params")
+    if host is None:
+        params = moe.moe_init(cfg, torch.Generator().manual_seed(42),
+                              device="cuda")
+    else:
+        params = tree_map(lambda t: t.to(_MOE_HOST_PARAMS["device"],
+                                         copy=True), host)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    if host is None:
+        _MOE_HOST_PARAMS["device"] = params["tok_emb"].device
+        _MOE_HOST_PARAMS["params"] = tree_map(
+            lambda t: t.to("cpu", copy=True), params)
     return ("mixtral-8x7b-2l",
             lambda p, bt: moe.moe_loss(p, bt["tokens"], bt["targets"], cfg),
             cfg, params, *MOE_TRAIN_TOKENS, 43,
@@ -2949,7 +2968,7 @@ def phase_serve_paged_int8(cfg, params, engine_mod, generate_mod,
 # window (prompt + new tokens = max_seq_len)
 SPEC_K = 4
 SPEC_BOUNDARY = {"gpt2-small": (1000, 24), "llama-small": (2000, 48)}
-SPEC_REPEATS = 3
+SPEC_REPEATS = 2
 _SPEC_KEYS = ("spec_proposed", "spec_accepted", "spec_verify_ticks",
               "spec_emitted_tokens")
 
@@ -4373,6 +4392,62 @@ def end_session(rt, session_dir: str, what: str, procs=()) -> None:
     check(not left, f"{what}: processes {left} outlived the cluster")
 
 
+def _proc_table() -> dict:
+    """pid -> (ppid, state, comm) of every process in /proc."""
+    table = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", "rb") as f:
+                stat = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        rest = stat[stat.rindex(")") + 2:].split()
+        table[int(d)] = (int(rest[1]), rest[0],
+                         stat[stat.index("(") + 1:stat.rindex(")")])
+    return table
+
+
+def stop_descendants() -> list:
+    """SIGKILL every live descendant of this process and reap its zombie
+    children, until none is left; returns what it found. A C++ stack
+    symbolization (the memory snapshot's `record_memory_history`) starts
+    torch's addr2line helpers, which live as long as this process: left
+    to its exit, they linger as orphans after it. Call it once every
+    subprocess.Popen of the script has been waited."""
+    me = os.getpid()
+    found = {}
+    deadline = time.monotonic() + 10.0
+    while True:
+        table = _proc_table()
+        kids, todo = [], [me]
+        while todo:
+            parent = todo.pop()
+            for pid, (ppid, _, _) in table.items():
+                if ppid == parent:
+                    kids.append(pid)
+                    todo.append(pid)
+        if not kids or time.monotonic() > deadline:
+            break
+        for pid in kids:
+            ppid, state, comm = table[pid]
+            found.setdefault(pid, {"pid": pid, "comm": comm, "state": state})
+            if state != "Z":
+                try:
+                    os.kill(pid, 9)
+                except OSError:
+                    pass
+            if ppid == me:
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+        time.sleep(0.05)
+    check(not kids, f"processes {kids} outlived the script's sweep")
+    return sorted(found.values(), key=lambda p: p["pid"])
+
+
 def phase_fabric(kernels, gpt2, generate_mod) -> None:
     """The trainer publishes, a GPU actor's engine hot-swaps (see
     fabric_body)."""
@@ -4657,9 +4732,10 @@ def disagg_decode_actor(rt):
             self.init_at = boot_clock()
             _no_tf32()
             DecodeServer.__init__(self, *args, **kwargs)
+            self.ready_at = boot_clock()
 
         def where(self) -> dict:
-            return {**_where(self.init_at),
+            return {**_where(self.init_at), "ready_at": self.ready_at,
                     "param_device": str(tree_device(self.engine.params))}
 
         def push_telemetry(self) -> dict:
@@ -5219,7 +5295,7 @@ def autoscale_round(autoscale, disagg, generate_mod, params, cfg, pf,
 
 
 ONLINE_NAME = "online"
-ONLINE_CONFIG = {"num_samplers": 1, "num_steps": 10, "batch_size": 8,
+ONLINE_CONFIG = {"num_samplers": 1, "num_steps": 4, "batch_size": 8,
                  "publish_every": 2, "max_prompt_len": 64,
                  "max_new_tokens": 64}
 ONLINE_LAUNCHES_PER_STEP = {**_NO_LAUNCHES, "flash_fwd": 12,
@@ -5295,7 +5371,8 @@ def online_body(rt, kernels, gpt2, generate_mod) -> dict:
     """`OnlineTrainer` on GPT-2 small bf16: the learner in this process on
     the card (TrainStep, frozen_adam, the distillation loss on [8, 127]),
     one RolloutSampler GPU actor on the card's lease, ONLINE_CONFIG.
-    Held: no error, 10 finite losses, 80 rollouts ingested, the sampler's
+    Held: no error, a finite loss a step, num_steps x batch_size rollouts
+    ingested, the sampler's
     staleness <= 1 with a swap and no rpc bytes, every delta version
     smaller than whole, `wpe` bit-equal in every version, the learner's
     launches exactly ONLINE_LAUNCHES_PER_STEP a step (no CE kernel, no
@@ -6740,6 +6817,614 @@ def phase_serve_telemetry(kernels, gpt2, generate_mod) -> None:
           "predicted": TELEMETRY_PREDICTED})
 
 
+# the gateway phase: GPT-2 small fp32 behind the HTTP front door, every
+# request over http.client to 127.0.0.1
+GATEWAY_SEED = 77
+GATEWAY_LENGTHS = [8, 24, 56, 96]  # three completions' and one chat's
+GATEWAY_CHAT = "the gateway speaks OpenAI's chat format on the card"
+GATEWAY_NEW = 24
+GATEWAY_BATCH = 4
+GATEWAY_PREEMPT_NEW = 600
+GATEWAY_INTERACTIVE_NEW = 16
+GATEWAY_PACE_S = 0.05
+GATEWAY_REAP_S = 15.0
+GATEWAY_KEYS = {"sk-gpu": "tenant-a", "sk-zero": "tenant-z"}
+GATEWAY_MARKERS = ("accept", "first_byte", "preempt", "rate_limit",
+                   "disconnect")
+GATEWAY_PREDICTED = {"gateway_ttft_cost_ms": [0.5, 15],
+                     "direct_ttft_ms": [10, 80],
+                     "streamed_over_direct_tokens_per_s": [0.8, 1.05],
+                     "actor_cold_start_s": [10, 30],
+                     "phase_s": [40, 90]}
+
+
+def gateway_prompts(cfg, codec) -> list:
+    """Three completions as token lists and one chat: (prompt tokens,
+    request body)."""
+    gen = torch.Generator().manual_seed(GATEWAY_SEED)
+    out = []
+    for n in GATEWAY_LENGTHS[:-1]:
+        toks = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+        out.append((toks, {"prompt": toks}))
+    messages = [{"role": "user", "content": GATEWAY_CHAT}]
+    out.append((codec.encode(f"user: {GATEWAY_CHAT}"),
+                {"messages": messages}))
+    return out
+
+
+def sse_texts(resp, stop_after=None):
+    """The SSE frames off a response: (deltas, saw_done, status); a chat
+    frame's delta is its content. `stop_after` stops after N frames."""
+    deltas, done = [], False
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.strip()
+        if not line.startswith(b"data: "):
+            continue
+        payload = line[len(b"data: "):]
+        if payload == b"[DONE]":
+            done = True
+            break
+        choice = json.loads(payload)["choices"][0]
+        deltas.append(choice["delta"].get("content", "")
+                      if "delta" in choice else choice["text"])
+        if stop_after is not None and len(deltas) >= stop_after:
+            break
+    return deltas, done
+
+
+def gw_request(host, port, path, body, headers=None, timeout=300.0):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    hdrs = {"Content-Type": "application/json"}
+    hdrs.update(headers or {})
+    conn.request("POST", path, json.dumps(body), hdrs)
+    return conn, conn.getresponse()
+
+
+def hold_gateway_text(what: str, text: str, want) -> None:
+    """A served text equal to ByteCodec's rendering of generate()'s
+    tokens, token for token."""
+    try:
+        got = [int(t) for t in text.split()]
+    except ValueError:
+        check(False, f"{what}: the text is not a token rendering: "
+              f"{text[:80]!r}")
+    hold_stream(what, got, list(want))
+
+
+def hold_reaped(what: str, before: dict, after: dict) -> None:
+    """A client gone: the router shed one more request with cause
+    disconnect, the engine cancelled one more slot under that reason,
+    and it holds no active slot."""
+    check(after["router_disconnect"] == before["router_disconnect"] + 1
+          and after["engine_disconnect"] == before["engine_disconnect"] + 1
+          and after["active_slots"] == 0,
+          f"{what}: not reaped: before {before}, after {after}")
+
+
+def reap_counts(router, engine) -> dict:
+    return {"router_disconnect": router.stats()["sheds_by_cause"].get(
+                "disconnect", 0),
+            "engine_disconnect": engine.kv_stats()["cancelled_by_reason"]
+            .get("disconnect", 0),
+            "active_slots": engine.active_slots}
+
+
+def hold_by_code(text: str, by_code: dict, worker: str) -> dict:
+    """The ray_tpu_gateway_requests_total samples of this process, summed
+    by code, equal the gateways' own by_code."""
+    from ray_tpu_torch._private.telemetry_checks import prom_samples
+
+    got: dict = {}
+    for labels, v in prom_samples(text, "ray_tpu_gateway_requests_total"):
+        if labels.get("WorkerId") == worker:
+            got[labels["code"]] = got.get(labels["code"], 0.0) + v
+    want = {k: float(v) for k, v in by_code.items()}
+    check(got == want, f"gateway: ray_tpu_gateway_requests_total by code "
+          f"{got} is not by_code {want}")
+    return got
+
+
+def gateway_colocated(params, cfg, modules, jobs, want) -> dict:
+    """The colocated leg: 8 concurrent requests (each job as SSE and as
+    a blocking twin), the protocol errors, then the per-request TTFT and
+    decode rate through the gateway against router.generate."""
+    engine_mod, disagg, gateway, qos = modules
+    from ray_tpu_torch.tree import tree_device
+
+    eng = engine_mod.ContinuousBatchingEngine(
+        params, cfg, max_batch=GATEWAY_BATCH, prefix_cache=False)
+    check(str(tree_device(eng.params)).startswith("cuda"),
+          f"gateway: the engine's params on {tree_device(eng.params)}")
+    router = disagg.DisaggRouter(colocated=eng)
+    gate = qos.QosGate(api_keys=dict(GATEWAY_KEYS), policies={
+        "tenant-z": qos.TenantPolicy(rate_rps=0.0, burst=0.0)},
+        router=router)
+    gw = gateway.GatewayServer(router, model="gpt2-small",
+                               vocab_size=cfg.vocab_size, qos=gate,
+                               max_tokens_cap=GATEWAY_PREEMPT_NEW)
+    host, port = gw.ready()
+    out = {"gw": gw, "router": router, "engine": eng, "host": host,
+           "port": port}
+    results, errors = {}, []
+
+    def run(i, stream):
+        toks, body = jobs[i]
+        path = ("/v1/chat/completions" if "messages" in body
+                else "/v1/completions")
+        try:
+            conn, resp = gw_request(
+                host, port, path, dict(body, max_tokens=GATEWAY_NEW,
+                                       stream=stream),
+                {"Authorization": "Bearer sk-gpu"})
+            if stream:
+                deltas, done = sse_texts(resp)
+                results[(i, stream)] = ("".join(deltas), done, resp.status)
+            else:
+                obj = json.loads(resp.read())
+                choice = obj["choices"][0]
+                results[(i, stream)] = (
+                    choice["message"]["content"] if "message" in choice
+                    else choice["text"], True, resp.status)
+            conn.close()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, s))
+               for i in range(len(jobs)) for s in (True, False)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300.0)
+    check(not errors and len(results) == 2 * len(jobs),
+          f"gateway: concurrent requests failed: {errors[:2]}")
+    for (i, stream), (text, done, status) in sorted(results.items()):
+        check(status == 200 and done, f"gateway: request {i} stream "
+              f"{stream}: status {status}, [DONE] {done}")
+        hold_gateway_text(f"gateway request {i} stream {stream}", text,
+                          want[i])
+        check(text == results[(i, not stream)][0], f"gateway: request {i}'s "
+              f"stream is not its blocking twin's text")
+    # the protocol errors, each with its JSON body
+    errs = {}
+    for name, body, hdrs, code in (
+            ("401", {"prompt": [1, 2]}, {"Authorization": "Bearer sk-no"},
+             401),
+            ("404", {"model": "gpt-nope", "prompt": [1, 2]}, {}, 404),
+            ("400", {"prompt": {"no": 1}}, {}, 400),
+            ("429", {"prompt": [1, 2]}, {"Authorization": "Bearer sk-zero"},
+             429)):
+        conn, resp = gw_request(host, port, "/v1/completions", body, hdrs)
+        err = json.loads(resp.read())["error"]
+        check(resp.status == code and err["message"] and err["type"],
+              f"gateway: {name}: status {resp.status}, body {err}")
+        if code == 429:
+            check(int(resp.getheader("Retry-After", "0")) >= 1
+                  and resp.getheader("X-Shed-Cause") == "rate_limit",
+                  f"gateway: 429 headers {resp.getheaders()}")
+        errs[name] = err["type"]
+        conn.close()
+    out["errors"] = errs
+    # TTFT and decode rate: each job through the gateway (SSE, first frame)
+    # and through router.generate (on_first_token), one at a time, in
+    # alternating order
+    gw_ttft, direct_ttft, gw_rate, direct_rate = [], [], [], []
+    for rnd in range(2):
+        for i, (toks, body) in enumerate(jobs):
+            for via in (("gw", "direct") if (i + rnd) % 2 == 0
+                        else ("direct", "gw")):
+                t0 = time.perf_counter()
+                if via == "gw":
+                    conn, resp = gw_request(
+                        host, port, "/v1/completions",
+                        {"prompt": toks, "max_tokens": GATEWAY_NEW,
+                         "stream": True})
+                    first = None
+                    deltas = []
+                    while True:
+                        d, done = sse_texts(resp, stop_after=1)
+                        if first is None:
+                            first = time.perf_counter()
+                        deltas += d
+                        if done or not d:
+                            break
+                    t_end = time.perf_counter()
+                    conn.close()
+                    hold_gateway_text(f"gateway timed {i}", "".join(deltas),
+                                      want[i])
+                    gw_ttft.append(first - t0)
+                    gw_rate.append((GATEWAY_NEW - 1) / (t_end - first))
+                else:
+                    mark = {}
+                    got = router.generate(
+                        toks, GATEWAY_NEW, timeout_s=300.0,
+                        on_first_token=lambda: mark.setdefault(
+                            "t", time.perf_counter()))
+                    t_end = time.perf_counter()
+                    hold_stream(f"gateway direct {i}", list(got), want[i])
+                    direct_ttft.append(mark["t"] - t0)
+                    direct_rate.append((GATEWAY_NEW - 1) / (t_end - mark["t"]))
+    out["ttft_ms"] = {"gateway": quantiles_ms(gw_ttft),
+                      "direct": quantiles_ms(direct_ttft)}
+    out["ttft_cost_ms"] = (statistics.median(gw_ttft)
+                           - statistics.median(direct_ttft)) * 1e3
+    out["decode_tokens_per_s"] = {
+        "streamed": statistics.median(gw_rate),
+        "direct": statistics.median(direct_rate)}
+    return out
+
+
+def gateway_disconnect(colo, cfg, gateway) -> dict:
+    """A paced stream walked away from after 3 frames, then a scripted
+    drop_connection at its 5th token: each reaped within GATEWAY_REAP_S."""
+    import http.client
+    import socket
+
+    gw, router, eng = colo["gw"], colo["router"], colo["engine"]
+    out = {}
+    before = reap_counts(router, eng)
+    conn, resp = gw_request(colo["host"], colo["port"], "/v1/completions",
+                            {"prompt": [3, 1], "max_tokens": 400,
+                             "stream": True, "token_sleep_s": GATEWAY_PACE_S})
+    deltas, _ = sse_texts(resp, stop_after=3)
+    check(resp.status == 200 and len(deltas) == 3,
+          f"gateway: the paced stream gave {len(deltas)} frames")
+    t0 = time.perf_counter()
+    conn.sock.shutdown(socket.SHUT_RDWR)
+    conn.close()
+    after = settle_until(lambda: reap_counts(router, eng),
+                         lambda v: v["router_disconnect"]
+                         > before["router_disconnect"]
+                         and v["engine_disconnect"]
+                         > before["engine_disconnect"]
+                         and v["active_slots"] == 0, GATEWAY_REAP_S)
+    out["socket_reap_s"] = time.perf_counter() - t0
+    hold_reaped("gateway: the socket shutdown", before, after)
+    chaos = gateway.GatewayServer(
+        router, model="gpt2-small", vocab_size=cfg.vocab_size,
+        chaos_spec=json.dumps({"actions": [
+            {"action": "drop_connection", "at": "token:5"}]}))
+    host, port = chaos.ready()
+    try:
+        before = reap_counts(router, eng)
+        conn, resp = gw_request(host, port, "/v1/completions",
+                                {"prompt": [9, 9], "max_tokens": 400,
+                                 "stream": True,
+                                 "token_sleep_s": GATEWAY_PACE_S})
+        t0 = time.perf_counter()
+        try:
+            deltas, done = sse_texts(resp)
+        except (OSError, http.client.HTTPException):
+            deltas, done = None, False  # the abort cut a chunk short
+        conn.close()
+        check(not done, "gateway: the scripted drop let the stream finish")
+        after = settle_until(lambda: reap_counts(router, eng),
+                             lambda v: v["router_disconnect"]
+                             > before["router_disconnect"]
+                             and v["engine_disconnect"]
+                             > before["engine_disconnect"]
+                             and v["active_slots"] == 0, GATEWAY_REAP_S)
+        out["chaos_reap_s"] = time.perf_counter() - t0
+        hold_reaped("gateway: drop_connection at token:5", before, after)
+        out["chaos_frames"] = None if deltas is None else len(deltas)
+    finally:
+        chaos.stop()
+    out["chaos_gw"] = chaos
+    return out
+
+
+def settle_until(read, done, bound_s: float):
+    deadline = time.monotonic() + bound_s
+    while True:
+        value = read()
+        if done(value) or time.monotonic() >= deadline:
+            return value
+        time.sleep(0.05)
+
+
+def gateway_preempt(params, cfg, modules, prompt, want_batch, inter,
+                    want_inter) -> dict:
+    """max_batch=1: a batch SSE stream of GATEWAY_PREEMPT_NEW tokens; an
+    interactive request sent once its first frame is read preempts it;
+    both texts equal generate(); the batch request's kept trace has two
+    attempts or more under its one X-Request-Id."""
+    engine_mod, disagg, gateway, qos = modules
+    from ray_tpu_torch.observability import requests as reqtrace
+
+    store = reqtrace.configure()
+    eng = engine_mod.ContinuousBatchingEngine(params, cfg, max_batch=1,
+                                              prefix_cache=False)
+    router = disagg.DisaggRouter(colocated=eng, max_queue_depth=0)
+    gw = gateway.GatewayServer(router, model="gpt2-small",
+                               vocab_size=cfg.vocab_size,
+                               qos=qos.QosGate(router=router),
+                               max_tokens_cap=GATEWAY_PREEMPT_NEW)
+    host, port = gw.ready()
+    out, first, errors = {}, threading.Event(), []
+
+    def batch():
+        try:
+            conn, resp = gw_request(host, port, "/v1/completions",
+                                    {"prompt": prompt, "stream": True,
+                                     "max_tokens": GATEWAY_PREEMPT_NEW,
+                                     "priority": "batch"})
+            out["rid"] = resp.getheader("X-Request-Id")
+            head, _ = sse_texts(resp, stop_after=1)
+            first.set()
+            rest, done = sse_texts(resp)
+            out["batch"] = ("".join(head + rest), done, resp.status)
+            conn.close()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            first.set()
+
+    try:
+        th = threading.Thread(target=batch)
+        th.start()
+        check(first.wait(300.0), "gateway: the batch stream never began")
+        conn, resp = gw_request(host, port, "/v1/completions",
+                                {"prompt": inter, "priority": "interactive",
+                                 "max_tokens": GATEWAY_INTERACTIVE_NEW})
+        text = json.loads(resp.read())["choices"][0]["text"]
+        conn.close()
+        check(resp.status == 200, f"gateway: the interactive request "
+              f"{resp.status}")
+        hold_gateway_text("gateway: the interactive request", text,
+                          want_inter)
+        th.join(timeout=600.0)
+        check(not errors and "batch" in out,
+              f"gateway: the batch stream failed: {errors[:1]}")
+        text, done, status = out["batch"]
+        check(status == 200 and done, f"gateway: the batch stream status "
+              f"{status}, [DONE] {done}")
+        hold_gateway_text("gateway: the preempted batch stream", text,
+                          want_batch)
+        rs = router.stats()
+        check(rs["preemptions"] >= 1 and rs["preempted_requests"] >= 1,
+              f"gateway: preemptions {rs['preemptions']}, preempted "
+              f"requests {rs['preempted_requests']}")
+        kept = settle_until(lambda: store.trace(out["rid"]),
+                            lambda v: v is not None, 10.0)
+        check(kept is not None and kept["attempts"] >= 2
+              and kept["preempts"] >= 1 and kept["outcome"] == "ok",
+              f"gateway: the batch request's trace {out['rid']}: "
+              f"{None if kept is None else {k: kept[k] for k in ('attempts', 'preempts', 'outcome')}}")
+        return {"gw": gw, "preemptions": rs["preemptions"],
+                "attempts": kept["attempts"], "request_id": out["rid"],
+                "cancelled_by_reason": eng.kv_stats()["cancelled_by_reason"]}
+    finally:
+        gw.stop()
+        eng.stop()
+        reqtrace.configure()
+
+
+def gateway_decode_actor(rt, params, cfg) -> tuple:
+    """Start the disaggregated leg's GPU decode actor on a thread of its
+    own (an actor's .remote() returns once its __init__ has run), so it
+    boots while the colocated legs run: (a future of the actor, its
+    .remote() on boot_clock())."""
+    from ray_tpu_torch.tree import tree_map
+
+    Actor = disagg_decode_actor(rt)
+    host = tree_map(lambda t: t.cpu(), params)
+    pool = cf.ThreadPoolExecutor(1)
+    t0 = boot_clock()
+    fut = pool.submit(Actor.remote, host, cfg, max_batch=GATEWAY_BATCH,
+                      device="cuda")
+    pool.shutdown(wait=False)
+    return fut, t0
+
+
+def gateway_disagg(rt, params, cfg, modules, jobs, want, started) -> dict:
+    """Prefill here, decode in one GPU actor (`started`, from
+    gateway_decode_actor): 4 SSE requests through the gateway, each equal
+    to generate(). Its cold start runs from .remote() to the end of its
+    __init__."""
+    engine_mod, disagg, gateway, qos = modules
+
+    fut, t0 = started
+    actor = fut.result(timeout=300.0)
+    where = rt.get(actor.where.remote(), timeout=300.0)
+    cold_s = where["ready_at"] - t0
+    check(where["param_device"].startswith("cuda"),
+          f"gateway: the GPU actor's params on {where['param_device']}")
+    pf = disagg.PrefillServer(params, cfg, kv_block_size=16)
+    router = disagg.DisaggRouter(decode=[actor], prefill=[pf],
+                                 affinity_tokens=16)
+    gw = gateway.GatewayServer(router, model="gpt2-small",
+                               vocab_size=cfg.vocab_size)
+    host, port = gw.ready()
+    results, errors = {}, []
+
+    def run(i):
+        toks, _ = jobs[i]
+        try:
+            t_0 = time.perf_counter()
+            conn, resp = gw_request(host, port, "/v1/completions",
+                                    {"prompt": toks, "stream": True,
+                                     "max_tokens": GATEWAY_NEW})
+            deltas, done = sse_texts(resp)
+            results[i] = ("".join(deltas), done, resp.status,
+                          time.perf_counter() - t_0)
+            conn.close()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(jobs))]
+        t_wall = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300.0)
+        wall = time.perf_counter() - t_wall
+        check(not errors and len(results) == len(jobs),
+              f"gateway: disaggregated requests failed: {errors[:1]}")
+        for i, (text, done, status, _) in sorted(results.items()):
+            check(status == 200 and done, f"gateway: disaggregated request "
+                  f"{i}: status {status}, [DONE] {done}")
+            hold_gateway_text(f"gateway: disaggregated request {i}", text,
+                              want[i])
+        tel = rt.get(actor.push_telemetry.remote(), timeout=60.0)
+    finally:
+        gw_stats = gw.stats()
+        gw.stop()
+        rt.get(actor.stop.remote(), timeout=60.0)
+        rt.kill(actor)
+    return {"gw": gw, "actor_cold_start_s": cold_s,
+            "decode_tokens_per_s": len(jobs) * GATEWAY_NEW / wall,
+            "request_s": [results[i][3] for i in sorted(results)],
+            "completed": gw_stats["completed"],
+            "actor_launches": tel["launches"]}
+
+
+def gateway_surfaces(rt, gws, state) -> dict:
+    """After every gateway's forced push: each replica's snapshot in
+    gateway_status() is its own stats() (accepted, completed, by_code,
+    by_class), the totals are their sums, the Prometheus request counter
+    by code equals by_code, and the timeline's gateway lane holds every
+    marker kind the phase caused."""
+    from ray_tpu_torch._private.telemetry_checks import prometheus_when
+    from ray_tpu_torch.util import metrics
+
+    me = rt._private.worker.global_worker.worker_id[:12]
+    for gw in gws:
+        gw.publish_telemetry(force=True)
+    mine = {gw.gateway_id: gw.stats() for gw in gws}
+    keys = ("accepted", "completed", "by_code", "by_class")
+
+    def caught_up(st):
+        return all(all(st["gateways"].get(g, {}).get(k) == s[k]
+                       for k in keys) for g, s in mine.items())
+
+    st = settle(state.gateway_status, caught_up)
+    for g, s in mine.items():
+        hold_equal(f"gateway_status()[{g}]", s, st["gateways"].get(g, {}),
+                   keys)
+    total = {"accepted": sum(s["accepted"] for s in mine.values()),
+             "completed": sum(s["completed"] for s in mine.values()),
+             "by_code": {}, "by_class": {}}
+    for s in mine.values():
+        for code, n in s["by_code"].items():
+            total["by_code"][code] = total["by_code"].get(code, 0) + n
+        for cls, row in s["by_class"].items():
+            agg = total["by_class"].setdefault(cls, {})
+            for k, v in row.items():
+                agg[k] = agg.get(k, 0) + v
+    hold_equal("gateway_status() totals", total, st["totals"], keys)
+    metrics.flush()
+
+    def by_code_ok(text):
+        try:
+            hold_by_code(text, total["by_code"], me)
+            return True
+        except AssertionError:
+            return False
+
+    try:
+        prom = prometheus_when(by_code_ok, bound_s=TELEMETRY_SETTLE_S,
+                               what="the gateway's request counter")
+    except AssertionError:
+        prom = state.prometheus_metrics()
+    prom_by_code = hold_by_code(prom, total["by_code"], me)
+    lane = settle(lambda: [e for e in state.timeline(merged=True)
+                           if e.get("pid") == "gateway"],
+                  lambda v: set(GATEWAY_MARKERS) <= {e["tid"] for e in v})
+    kinds = {}
+    for e in lane:
+        kinds[e["tid"]] = kinds.get(e["tid"], 0) + 1
+    missing = [k for k in GATEWAY_MARKERS if k not in kinds]
+    check(not missing, f"gateway: the timeline's gateway lane lacks "
+          f"{missing} ({kinds})")
+    return {"totals": {k: st["totals"][k] for k in (
+                "gateways", "accepted", "completed", "streamed",
+                "disconnects", "rate_limited", "errors", "preemptions",
+                "by_code")},
+            "prometheus_by_code": prom_by_code, "lane_markers": kinds}
+
+
+def phase_gateway(kernels, gpt2, generate_mod) -> None:
+    """The HTTP front door on GPT-2 small fp32, full width, over real
+    sockets. Colocated leg: an engine of 4 slots, a DisaggRouter, a QoS
+    gate (two API keys, one tenant at rate 0) and a GatewayServer; 8
+    concurrent requests (4 SSE, 4 blocking, 2 of them chat) each equal to
+    generate() rendered by ByteCodec, each stream equal to its blocking
+    twin; 401, 404, 400 and 429 with their bodies; TTFT and decode rate
+    through the gateway against router.generate. Preemption: one slot, a
+    600-token batch stream preempted by an interactive request sent at its
+    first frame, both equal to generate(), its kept trace two attempts
+    under one id. Disconnect: a paced stream's socket shut down after 3
+    frames, and a drop_connection at token 5, each reaped (router shed,
+    engine cancel, no active slot) within 15 s. Disaggregated leg: decode
+    in one GPU actor, 4 SSE requests equal to generate(). Surfaces:
+    gateway_status(), Prometheus and the timeline's gateway lane against
+    the gateways' own numbers. No kernel launches here or in the actor."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import engine as engine_mod
+    from ray_tpu_torch.serve import disagg, gateway, qos
+    from ray_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = gpt2.GPT2Config(dtype=torch.float32)
+    params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(2),
+                            device="cuda")
+    codec = gateway.ByteCodec(cfg.vocab_size)
+    jobs = gateway_prompts(cfg, codec)
+    inter = jobs[0][0][:6]
+    with torch.inference_mode():
+        want = [generate_mod.generate(params, cfg, [toks],
+                                      max_new_tokens=GATEWAY_NEW)[0].tolist()
+                for toks, _ in jobs]
+        want_inter = generate_mod.generate(
+            params, cfg, [inter],
+            max_new_tokens=GATEWAY_INTERACTIVE_NEW)[0].tolist()
+        want_batch = generate_mod.generate(
+            params, cfg, [jobs[1][0]],
+            max_new_tokens=GATEWAY_PREEMPT_NEW)[0].tolist()
+    modules = (engine_mod, disagg, gateway, qos)
+    reset_counts(kernels)
+    info = rt.init(num_cpus=4)
+    gws = []
+    try:
+        started = gateway_decode_actor(rt, params, cfg)
+        colo = gateway_colocated(params, cfg, modules, jobs, want)
+        gws.append(colo["gw"])
+        try:
+            disc = gateway_disconnect(colo, cfg, gateway)
+            gws.append(disc.pop("chaos_gw"))
+        finally:
+            colo["gw"].stop()
+            colo["engine"].stop()
+        pre = gateway_preempt(params, cfg, modules, jobs[1][0], want_batch,
+                              inter, want_inter)
+        gws.append(pre.pop("gw"))
+        dis = gateway_disagg(rt, params, cfg, modules, jobs, want,
+                             started)
+        gws.append(dis.pop("gw"))
+        surf = gateway_surfaces(rt, gws, state)
+    finally:
+        end_session(rt, info["session_dir"], "gateway")
+    launches = check_no_kernel(kernels, "the gateway path")
+    check(not any(dis["actor_launches"].values()),
+          f"gateway: the decode actor launched {dis['actor_launches']}")
+    emit({"phase": "gateway", "card": card_line(), "model": "gpt2-small",
+          "dtype": "float32", "requests": 2 * len(jobs),
+          "new_tokens": GATEWAY_NEW, "preempt_tokens": GATEWAY_PREEMPT_NEW,
+          "colocated": {k: v for k, v in colo.items()
+                        if k not in ("gw", "router", "engine", "host",
+                                     "port")},
+          "disconnect": disc, "preempt": pre, "disagg": dis,
+          "surfaces": surf, "driver_launches": launches,
+          "phase_s": time.perf_counter() - t_phase,
+          "predicted": GATEWAY_PREDICTED})
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -6872,6 +7557,7 @@ def main() -> int:
     phase_mesh_train(kernels, gpt2, llama, moe,
                      {"gpt2-small": gpt2_line, "llama-small": llama_line,
                       "mixtral-8x7b-2l": moe_line})
+    _MOE_HOST_PARAMS.clear()
     # ring and Ulysses attention, all_to_all, counted from 0
     phase_seq_parallel(kernels, attention)
     # checkpoints and the trainer's fit loop, each leg counted from 0
@@ -6909,6 +7595,13 @@ def main() -> int:
     # request recorder's surfaces against their own numbers, colocated
     # and with a GPU decode actor (no kernel launches)
     phase_serve_telemetry(kernels, gpt2, generate_mod)
+    # the HTTP front door: GPT-2 small over real sockets, colocated and
+    # through a GPU decode actor, with preemption, disconnects and its
+    # surfaces (no kernel launches)
+    phase_gateway(kernels, gpt2, generate_mod)
+    # the processes the phases started and left: torch's addr2line
+    # helpers (runtime_surface's memory snapshot) and zombie children
+    emit({"phase": "teardown", "stopped": stop_descendants()})
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
@@ -6920,4 +7613,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        # a failed phase leaves nothing running either
+        stop_descendants()

@@ -715,13 +715,28 @@ def mn_node_affinity_strategies():
 
 def _crash_and_restart(resources, **kwargs):
     from ray_tpu_torch._private.conductor import Conductor
+    from ray_tpu_torch._private.rpc import ConnectionLost
 
     old = rt._conductor
     old.handler._stopped = True
     old.server.stop()
     host, port = old.address
-    return Conductor(resources, old.handler._session_dir, host=host,
-                     port=port, **kwargs).start()
+    new = Conductor(resources, old.handler._session_dir, host=host,
+                    port=port, **kwargs).start()
+    # the driver's client re-dials on its next call, but a call sent
+    # before it has seen the old connection drop raises ConnectionLost
+    # (recovery is the caller's retry): one idempotent call, retried, so
+    # the check's own calls go to the new conductor
+    deadline = time.monotonic() + 10.0
+    while True:
+        try:
+            _worker().conductor.call("kv_get", b"__restart_probe__",
+                                     "default", timeout=5.0)
+            return new
+        except ConnectionLost:
+            if time.monotonic() >= deadline:
+                raise
+            time.sleep(0.05)
 
 
 def _wait_snapshot():
@@ -854,7 +869,14 @@ def port_restart_worker_before_its_node():
         NodeAffinitySchedulingStrategy
 
     period = node_agent._heartbeat_period
+    parked = threading.Event()
     resume = threading.Event()
+
+    def park() -> float:
+        parked.set()
+        resume.wait(60.0)
+        return 0.0
+
     agent = NodeAgent(_worker().conductor_address, {"CPU": 4.0}).start()
     new = None
     try:
@@ -866,9 +888,12 @@ def port_restart_worker_before_its_node():
         assert n == 1
         _wait_snapshot()
         # the agent's heartbeat loop waits for `resume` before its next
-        # heartbeat, so its worker re-registers (every 5 s) first
-        node_agent._heartbeat_period = lambda: (resume.wait(60.0), 0.0)[1]
-        time.sleep(1.5)  # the loop's current wait runs out
+        # heartbeat, so its worker re-registers (every 5 s) first. The
+        # loop asks for the period once its current wait and beat are
+        # over: `parked` says it has, however late a loaded machine
+        # runs the beat.
+        node_agent._heartbeat_period = park
+        assert parked.wait(30.0), "the agent's heartbeat loop never parked"
         new = _crash_and_restart({"CPU": 4.0})
         _wait_until(lambda: any(
             wk["pid"] == pid for wk in new.handler.list_workers()), 15.0,

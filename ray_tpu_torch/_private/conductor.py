@@ -55,10 +55,9 @@ Responsibilities:
   RTT_JOB_ID; `shutdown_cluster` ends a standalone head and raises in a
   driver that hosts the conductor.
 
-Left out (ROADMAP Queue 1): the report and get methods of the serving
-subsystems not ported yet (the KV-cache, speculation, LoRA, gateway,
-request-trace and oracle reads, the pending demand), each with its
-subsystem. An RPC of those is absent: calling it raises.
+Left out (ROADMAP Queue 1): the report and get methods of the
+subsystems not ported yet (the oracle's reads, the pending demand), each
+with its subsystem. An RPC of those is absent: calling it raises.
 """
 from __future__ import annotations
 
@@ -316,6 +315,11 @@ class ConductorHandler:
         self._lora_events: List[Dict[str, Any]] = []
         self._requesttrace_stats: Dict[str, Dict[str, Any]] = {}
         self._requesttrace_events: List[Dict[str, Any]] = []
+        # the HTTP front door (serve/gateway.py): replica snapshots and
+        # the accept / first_byte / preempt / rate_limit / disconnect
+        # markers; in memory as in the JAX package
+        self._gateway_stats: Dict[str, Dict[str, Any]] = {}
+        self._gateway_events: List[Dict[str, Any]] = []
         # the serving autoscaler (serve/autoscale.py) and the online
         # learning loop (online/): snapshots and instant markers, in
         # memory as in the JAX package
@@ -2155,6 +2159,62 @@ class ConductorHandler:
     def get_lora_events(self, limit: int = 10_000) -> List[Dict[str, Any]]:
         with self._lock:
             return self._lora_events[-limit:]
+
+    # ------------------------------------------------ HTTP front door
+    # Gateway replicas (serve/gateway.py) push request counters by
+    # priority class and status code plus TTFT windows; the QoS gate and
+    # routers push instant markers for the merged timeline's gateway
+    # lane. util.state.gateway_status() reads the aggregate.
+
+    _GATEWAY_EVENTS_KEPT = 10_000
+    _GATEWAY_STATS_KEPT = 64
+
+    def report_gateway_stats(self, worker_id: str, component_id: str,
+                             stats: Dict[str, Any]) -> None:
+        if not isinstance(stats, dict):
+            return
+        with self._lock:
+            self._keep_snapshot_locked(self._gateway_stats,
+                                       self._GATEWAY_STATS_KEPT, worker_id,
+                                       component_id, stats)
+
+    def get_gateway_status(self) -> Dict[str, Any]:
+        """Per-replica snapshots and cluster totals: requests by outcome,
+        the per-class accept / complete / shed / disconnect split, the
+        status-code histogram, preemptions."""
+        with self._lock:
+            gateways = {k: dict(v)
+                        for k, v in self._gateway_stats.items()}
+        by_class: Dict[str, Dict[str, int]] = {}
+        by_code: Dict[str, int] = {}
+        for g in gateways.values():
+            for cls, row in (g.get("by_class") or {}).items():
+                agg = by_class.setdefault(cls, {})
+                for k, v in row.items():
+                    agg[k] = agg.get(k, 0) + int(v)
+            for code, n in (g.get("by_code") or {}).items():
+                by_code[code] = by_code.get(code, 0) + int(n)
+        totals: Dict[str, Any] = {
+            "gateways": len(gateways),
+            "by_class": by_class,
+            "by_code": by_code,
+        }
+        for key in ("accepted", "completed", "streamed", "tokens_out",
+                    "rate_limited", "sheds", "disconnects", "errors",
+                    "preemptions"):
+            totals[key] = sum(int(g.get(key, 0))
+                              for g in gateways.values())
+        return {"gateways": gateways, "totals": totals}
+
+    def report_gateway_event(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._append_event_locked(self._gateway_events, event,
+                                      self._GATEWAY_EVENTS_KEPT)
+
+    def get_gateway_events(self, limit: int = 10_000
+                           ) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._gateway_events[-limit:]
 
     # ------------------------------------------------ request traces
     # Each process's RequestTraceStore (observability/requests.py) pushes

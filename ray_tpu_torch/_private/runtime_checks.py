@@ -1733,10 +1733,9 @@ def port_failed_arena_build_raises():
         _native._SRC, _native._lib = saved
 
 
-# the gateway's and the oracle's report and get methods wait for their
-# subsystems (ROADMAP Queue 1 items 3-8)
+# the oracle's report and get methods wait for its subsystem (ROADMAP
+# Queue 1 item 8)
 OMITTED_RPCS = [
-    ("get_gateway_status", ()),
     ("get_oracle_status", ()),
 ]
 

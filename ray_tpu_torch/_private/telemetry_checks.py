@@ -1,8 +1,8 @@
 """The serving plane's telemetry checks that need a cluster, run by
 `isolated.run_checks` in a driver process of their own
 (tests/test_torch_requesttrace.py, test_torch_kvcache.py,
-test_torch_speculate.py and test_torch_lora.py make each one a test
-case).
+test_torch_speculate.py, test_torch_lora.py and test_torch_gateway.py
+make each one a test case).
 
 The twins of the JAX package's cluster cases carry their names; each
 holds one workload's numbers equal across the object's own `stats()`,
@@ -90,6 +90,7 @@ def _families() -> Dict[str, Dict[str, Any]]:
     from ..serve.handle import shed_counter
     from ..serve.kvplane import kvplane_metrics
     from ..serve.lora import lora_metrics
+    from ..serve.qos import gateway_metrics
     from ..weights.metrics import weight_metrics
 
     return {"shed": {"shed": shed_counter()}, "disagg": disagg_metrics(),
@@ -98,13 +99,14 @@ def _families() -> Dict[str, Dict[str, Any]]:
             "autoscale": autoscale_metrics(), "online": online_metrics(),
             "pipeline": pipeline_metrics(), "weights": weight_metrics(),
             "kvcache": kvcache_metrics(), "spec": spec_metrics(),
-            "lora": lora_metrics(), "reqtrace": reqtrace_metrics()}
+            "lora": lora_metrics(), "reqtrace": reqtrace_metrics(),
+            "gateway": gateway_metrics()}
 
 
 def port_every_family_reaches_prometheus():
     """Every family of the serving plane (shed, disagg, servefault,
     kvplane, autoscale, online, pipeline, weights, kvcache, spec, lora,
-    reqtrace) takes one probe sample here and shows in the driver's
+    reqtrace, gateway) takes one probe sample here and shows in the driver's
     `prometheus_metrics()` with it. Returns {group: [family names]}."""
     from ..util.metrics import Gauge, Histogram
 
@@ -485,6 +487,134 @@ def port_actor_decode_telemetry_crosses_its_process():
         rt.get(actor.stop.remote(), timeout=60.0)
         rt.kill(actor)
     return {"request_id": rid}
+
+
+def requesttrace_chaos_chunk_delay_makes_kv_transfer_the_tail_owner():
+    """delay_chunk_fetch ms=200 on one decode replica: the request it
+    slows tops the slowest list with kv_transfer owning its breakdown,
+    and the p99 attribution names kv_transfer. The plan is the slow
+    replica's ``chaos=`` (where the JAX test sets the environment for one
+    request): a second router over the same prefill replica sends that
+    one request there."""
+    from ..observability import requests as reqtrace
+    from ..serve.disagg import DecodeServer, DisaggRouter, PrefillServer
+
+    cfg, params = tiny_llama()
+    pf = PrefillServer(params, cfg, kv_block_size=BS, kv_pool_blocks=32,
+                       device="cpu")
+    dec = DecodeServer(params, cfg, max_batch=2, device="cpu")
+    slow = DecodeServer(params, cfg, max_batch=2, device="cpu", chaos=[
+        {"action": "delay_chunk_fetch", "ms": 200}])
+    router = DisaggRouter(decode=[dec], prefill=[pf], max_queue_depth=2,
+                          affinity_tokens=BS)
+    slow_router = DisaggRouter(decode=[slow], prefill=[pf],
+                               max_queue_depth=2, affinity_tokens=BS)
+    try:
+        # a warm-up first, its trace dropped, then a baseline population
+        # (distinct prompts: no prefix-cache shortcut hides the
+        # transfer), then the one slowed request
+        router.generate([1, 2, 3, 4], 4)
+        store = reqtrace.configure()
+        for i in range(6):
+            router.generate([10 + i, 20 + i, 30 + i, 40 + i], 4)
+        slow_router.generate([91, 92, 93, 94], 4)
+    finally:
+        dec.stop()
+        slow.stop()
+    slowest = store.slowest(1)[0]
+    # each leaf pull sleeps 200 ms: kv_transfer owns the slowed request
+    assert slowest["phase_ms"]["kv_transfer"] >= 300.0, slowest
+    assert slowest["phase_ms"]["kv_transfer"] >= \
+        0.5 * slowest["total_ms"], slowest
+    kv_phase = next(p for p in slowest["phases"]
+                    if p["phase"] == "kv_transfer")
+    assert kv_phase.get("pulls", 0) >= 2, kv_phase  # the fetcher's note
+    assert kv_phase.get("pull_ms", 0.0) >= 300.0, kv_phase
+    rep = store.stats()["attribution"]
+    assert rep["tail_owner"] == "kv_transfer", rep
+    return {"kv_transfer_ms": slowest["phase_ms"]["kv_transfer"],
+            "total_ms": slowest["total_ms"]}
+
+
+# --------------------------------------------- tests/test_gateway.py
+
+def gateway_state_api_sees_gateway_telemetry():
+    """One request through a gateway: state.gateway_status() carries the
+    replica's own stats() (accepted, completed, by_class, by_code), the
+    conductor's gateway events hold its accept and first_byte markers
+    and render in the timeline's gateway lane, and the
+    ray_tpu_gateway_requests_total samples sum by code to by_code."""
+    import http.client
+    import json
+
+    from ..models.engine import ContinuousBatchingEngine
+    from ..observability.timeline import gateway_trace_events
+    from ..serve.disagg import DisaggRouter
+    from ..serve.gateway import GatewayServer
+    from ..serve.qos import QosGate
+    from ..util import state
+
+    cfg, params = tiny_llama()
+    engine = ContinuousBatchingEngine(params, cfg, max_batch=2)
+    router = DisaggRouter(colocated=engine, max_queue_depth=8)
+    gw = GatewayServer(router, model="tiny", vocab_size=cfg.vocab_size,
+                       qos=QosGate(router=router))
+    host, port = gw.ready()
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=60.0)
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"model": "tiny", "prompt": [1, 2],
+                                 "max_tokens": 8}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200, resp.status
+        resp.read()
+        conn.close()
+        gw.publish_telemetry(force=True)
+        mine = gw.stats()
+
+        def landed():
+            g = state.gateway_status()["gateways"].get(gw.gateway_id)
+            return g is not None and g.get("completed") == 1
+
+        _wait_until(landed, 10.0, "gateway_status never caught up")
+        st = state.gateway_status()
+        totals = st["totals"]
+        assert totals["accepted"] == mine["accepted"] == 1, totals
+        assert totals["completed"] == mine["completed"] == 1, totals
+        assert totals["by_class"] == mine["by_class"], totals
+        assert totals["by_class"]["interactive"]["accepted"] == 1
+        assert totals["by_code"] == mine["by_code"] == {"200": 1}, totals
+
+        def kinds():
+            return {e.get("kind") for e in _conductor().call(
+                "get_gateway_events", 10_000, timeout=10.0)}
+
+        _wait_until(lambda: {"accept", "first_byte"} <= kinds(), 10.0,
+                    lambda: f"gateway events: {kinds()}")
+        events = _conductor().call("get_gateway_events", 10_000,
+                                   timeout=10.0)
+        lane = gateway_trace_events(events)
+        assert lane and all(ev["pid"] == "gateway" for ev in lane)
+        merged = [e for e in state.timeline(merged=True)
+                  if e.get("pid") == "gateway"]
+        assert {e["tid"] for e in merged} >= {"accept", "first_byte"}
+
+        def by_code(text: str) -> Dict[str, float]:
+            out: Dict[str, float] = {}
+            for labels, v in prom_samples(
+                    text, "ray_tpu_gateway_requests_total"):
+                out[labels["code"]] = out.get(labels["code"], 0.0) + v
+            return out
+
+        prom = prometheus_when(lambda t: by_code(t) == {"200": 1.0},
+                               what="the gateway's request counter")
+        assert "# TYPE ray_tpu_gateway_ttft_ms " in prom
+        return {"totals": {k: totals[k] for k in (
+            "accepted", "completed", "by_code")}}
+    finally:
+        gw.stop()
+        engine.stop()
 
 
 __all__ = ["prom_samples", "prom_total", "prometheus_when"]

@@ -37,6 +37,9 @@ subsystems' markers as chrome-trace events, merged into one sorted list.
   spec_reject markers, the spec_* slice of the kvcache channel;
 - lora:        pid = "lora",       tid = event kind: adapter page_in /
   evict / swap markers;
+- gateway:     pid = "gateway",    tid = event kind: the HTTP front
+  door's accept / first_byte / preempt / rate_limit / disconnect
+  markers;
 - requests:    pid = "requests",   tid = request id prefix: each kept
   request trace as one enclosing X span and one X span per phase (a
   replay's phases carry an " a<n>" suffix).
@@ -335,6 +338,33 @@ def lora_trace_events(events: List[Dict[str, Any]]
     return out
 
 
+def gateway_trace_events(events: List[Dict[str, Any]]
+                         ) -> List[Dict[str, Any]]:
+    """Instant markers of the HTTP front door under pid "gateway", so
+    ingress pressure and preemptions read against the router's shed and
+    transfer markers and the lora lane's tenant paging."""
+    out: List[Dict[str, Any]] = []
+    for ev in events:
+        ts = ev.get("ts")
+        if ts is None:
+            continue
+        kind = str(ev.get("kind", "event"))
+        label = kind
+        if ev.get("class"):
+            label += f":{ev['class']}"
+        if ev.get("tenant"):
+            label += f"@{ev['tenant']}"
+        if ev.get("ttft_ms") is not None:
+            label += f" {ev['ttft_ms']}ms"
+        out.append({
+            "name": label, "cat": "gateway", "ph": "i", "s": "g",
+            "ts": ts * 1e6, "pid": "gateway", "tid": kind,
+            "args": {k: v for k, v in ev.items()
+                     if k != "ts" and v is not None},
+        })
+    return out
+
+
 def requests_trace_events(events: List[Dict[str, Any]]
                           ) -> List[Dict[str, Any]]:
     """Spans of the kept request traces under pid "requests": per
@@ -402,6 +432,8 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
                         lora_events: Optional[
                             List[Dict[str, Any]]] = None,
                         requesttrace_events: Optional[
+                            List[Dict[str, Any]]] = None,
+                        gateway_events: Optional[
                             List[Dict[str, Any]]] = None
                         ) -> List[Dict[str, Any]]:
     """Merge the sources into one list sorted by time."""
@@ -429,6 +461,8 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
         trace.extend(speculation_trace_events(kvcache_events))
     if lora_events:
         trace.extend(lora_trace_events(lora_events))
+    if gateway_events:
+        trace.extend(gateway_trace_events(gateway_events))
     if requesttrace_events:
         trace.extend(requests_trace_events(requesttrace_events))
     trace.sort(key=lambda e: e.get("ts", 0.0))
@@ -437,9 +471,10 @@ def merged_chrome_trace(task_events: List[Dict[str, Any]],
 
 def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
     """Pull the task events, spans, step records and the resilience,
-    weight, disagg, KV-plane, autoscale, online, pipeline, kvcache, LoRA
-    and request-trace events from the live cluster and merge them. Flushes this process's pending task
-    events and spans first, so a short driver's trace is complete."""
+    weight, disagg, KV-plane, autoscale, online, pipeline, kvcache, LoRA,
+    request-trace and gateway events from the live cluster and merge
+    them. Flushes this process's pending task events and spans first, so
+    a short driver's trace is complete."""
     from .._private import worker as worker_mod
 
     w = worker_mod.global_worker
@@ -459,4 +494,5 @@ def merged_timeline(limit: int = 10_000) -> List[Dict[str, Any]]:
         w.conductor.call("get_pipeline_events", limit, timeout=30.0),
         w.conductor.call("get_kvcache_events", limit, timeout=30.0),
         w.conductor.call("get_lora_events", limit, timeout=30.0),
-        w.conductor.call("get_requesttrace_events", limit, timeout=30.0))
+        w.conductor.call("get_requesttrace_events", limit, timeout=30.0),
+        w.conductor.call("get_gateway_events", limit, timeout=30.0))

@@ -44,8 +44,11 @@ Actions (all fields beyond ``action`` optional unless noted):
   prefill replica's prefix pool at the start of its N-th request (with
   the KV plane's host arena attached they spill there). Non-lethal: the
   replica takes the count with ``take_storm()``.
-- ``drop_connection`` parses as in the JAX package; the HTTP gateway
-  that executes it is not ported yet.
+- ``{"action": "drop_connection", "at": "token:K"|"request:N",
+  "replica": R}``: the matching HTTP gateway replica
+  (``serve/gateway.py``, its ``chaos_spec``) aborts the connection of
+  the request that crossed the count: the router sees a client that
+  vanished and reaps the decode (shed cause ``disconnect``).
 
 A plan handed to a serving replica (``chaos=``) may also be the list of
 action dicts itself.

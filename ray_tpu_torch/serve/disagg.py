@@ -62,10 +62,15 @@ failover's replay under its attempt number), and a decode actor pushes
 its fetch as a remote phase under the request's id. The servers push
 their pools' kvcache and LoRA telemetry beside their own.
 
+The HTTP gateway (``serve/gateway.py``) hangs on ``generate``: its
+``cancel_event`` sheds the request with cause ``disconnect`` (the engine
+slot is cancelled under that reason), and a fired preemption counts
+into ``gateway_metrics()["preemptions"]`` with a ``preempt`` gateway
+event.
+
 Not ported with it: a serve request's multiplexed tenant as the default
-``tenant`` (``serve/multiplex.py``: pass ``tenant=``), the HTTP
-gateway's hooks (``generate(cancel_event=)``, its preemption metrics),
-the load harness's (``reset_signal_windows``, the servers'
+``tenant`` (``serve/multiplex.py``: pass ``tenant=``), the load
+harness's (``reset_signal_windows``, the servers'
 ``reset_chaos_counts``), and the servers' local adapter publish
 (``publish_adapter`` / ``refresh_adapter``; a replica's tenants come
 from its ``lora=``). The
@@ -738,6 +743,9 @@ class DecodeServer:
         self.server_id = server_id or f"dec-{os.getpid()}-{next(_SERVER_SEQ)}"
         self.machine = local_machine_id()
         self._chaos = serve_monkey_from_spec(chaos, "decode", chaos_replica)
+        # the plan's delay_chunk_fetch stretches this replica's KV pulls
+        # (the JAX package's fetchers read it from the environment)
+        self._chaos_plan = chaos
         self._lock = threading.Lock()
         # open pull handles: handle -> [stream, last activity]; abandoned
         # ones are reaped by idle age
@@ -766,7 +774,8 @@ class DecodeServer:
                 raise RuntimeError(
                     "a chunk-published transfer needs a live cluster "
                     "(ray_tpu_torch.init) on the decode side")
-            fetcher = chunks.ChunkFetcher(w, caller="kv")
+            fetcher = chunks.ChunkFetcher(w, caller="kv",
+                                          chaos_plan=self._chaos_plan)
             tree = chunks.fetch_tree(w, desc, fetcher)
             kv_k, kv_v = tree["k"], tree["v"]
             acc = fetcher.stats()
@@ -1190,6 +1199,17 @@ class DisaggRouter:
                            "tier": tier})
         return woke
 
+    def _lora_enabled(self) -> bool:
+        """Whether this deployment serves tenant-tagged requests: a tier
+        replica advertised an adapter pool (describe()'s `lora`), or the
+        colocated engine holds one. The gateway hands a tenant to the
+        data plane only then."""
+        if self._colocated is not None and \
+                getattr(self._colocated, "lora_pool", None) is not None:
+            return True
+        with self._lock:
+            return any(r.lora for r in self._prefill + self._decode)
+
     def _tier(self, tier: str) -> List[_TierReplica]:
         if tier not in ("prefill", "decode"):
             raise ValueError(f"unknown tier {tier!r}")
@@ -1445,12 +1465,26 @@ class DisaggRouter:
         return victim
 
     def _fire_preemption(self, victim: _PreemptSlot) -> None:
+        """Cancel the victim's live stream (tagged ``preempt`` in the
+        engine) and count the preemption into the gateway's surface. The
+        victim's loop sees its stream end early and replays; its
+        reservation never moves."""
         fn = victim.cancel_fn
         if fn is not None:
             try:
                 fn()
             except Exception:  # noqa: BLE001 — victim mid-teardown
                 pass
+        try:
+            from .qos import gateway_metrics, push_gateway_event
+
+            gateway_metrics()["preemptions"].inc()
+            push_gateway_event({"kind": "preempt",
+                                "router": self.router_id,
+                                "victim_tenant": victim.tenant,
+                                "tokens_done": victim.tokens})
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
         _notify_event({"kind": "preempt", "router": self.router_id,
                        "victim_tenant": victim.tenant})
         self.publish_telemetry()
@@ -1564,6 +1598,19 @@ class DisaggRouter:
                 f"disagg router {self.router_id}: request outlived its "
                 f"deadline; retry after {self.retry_after_s:.1f}s", tenant)
 
+    def _check_abort(self, deadline: Optional[float],
+                     tenant: Optional[str] = None,
+                     cancel_event: Any = None) -> None:
+        """`_check_deadline` plus the gateway's client-gone signal: a set
+        `cancel_event` sheds with cause ``disconnect``, so an abandoned
+        decode stops taking ticks for a socket nobody reads."""
+        self._check_deadline(deadline, tenant)
+        if cancel_event is not None and cancel_event.is_set():
+            raise self._shed(
+                "disconnect",
+                f"disagg router {self.router_id}: client disconnected "
+                f"mid-request; decode cancelled", tenant)
+
     def _ack_transfer(self, pf: _TierReplica, rec: Dict[str, Any]) -> None:
         """Release the sender's chunk refs (the sender may be dead: then
         its refs died with it)."""
@@ -1665,14 +1712,17 @@ class DisaggRouter:
                  on_first_token=None, token_sleep_s: float = 0.0,
                  tenant: Optional[str] = None,
                  priority: Optional[str] = None,
-                 on_tokens=None) -> List[int]:
+                 on_tokens=None, cancel_event: Any = None) -> List[int]:
         """One request end to end; its tokens. `on_first_token()` fires
         when the first token exists (at the prefill's end under
         disaggregation). `token_sleep_s` paces a slow client;
         `deadline_s` bounds the request's wall time (past it: shed with
         cause ``deadline``). `tenant`: serve under that tenant's adapter.
         `priority` ``"batch"`` may be preempted, ``"interactive"`` may
-        preempt; `on_tokens(list)` gets each delivered chunk. Once
+        preempt; `on_tokens(list)` gets each delivered chunk.
+        `cancel_event` (a threading.Event; the gateway sets it when the
+        HTTP client goes away) sheds the request with cause
+        ``disconnect`` once set. Once
         admitted, the request returns every token, bit-identical to an
         uninterrupted greedy run, or raises a RequestShedError with a
         cause."""
@@ -1708,13 +1758,14 @@ class DisaggRouter:
                         out = self._generate_colocated(
                             prompt, max_new_tokens, eos_token, timeout_s,
                             deadline, on_first_token, token_sleep_s,
-                            t_admit, tenant, pslot, on_tokens, rep_box)
+                            t_admit, tenant, pslot, on_tokens, cancel_event,
+                            rep_box)
                     else:
                         out = self._generate_disagg(
                             rep_box, prompt, max_new_tokens, eos_token,
                             timeout_s, deadline, on_first_token,
                             token_sleep_s, t_admit, tenant, pslot,
-                            on_tokens)
+                            on_tokens, cancel_event)
                     ok = True
                     if owned and tr is not None:
                         tr.finish("ok", tokens=len(out))
@@ -1767,7 +1818,8 @@ class DisaggRouter:
     def _generate_colocated(self, prompt, max_new_tokens, eos_token,
                             timeout_s, deadline, on_first_token,
                             token_sleep_s, t_admit, tenant=None, pslot=None,
-                            on_tokens=None, rep_box=None) -> List[int]:
+                            on_tokens=None, cancel_event=None,
+                            rep_box=None) -> List[int]:
         """The single-engine path, a replay loop as the disaggregated
         one: a preempted batch stream resumes from prompt + history."""
         history: List[int] = []
@@ -1816,9 +1868,10 @@ class DisaggRouter:
                             pass
                     if token_sleep_s > 0:
                         time.sleep(token_sleep_s)
-                    self._check_deadline(deadline, tenant)
+                    self._check_abort(deadline, tenant, cancel_event)
             except RequestShedError as e:
-                # shed mid-stream: the engine frees the slot
+                # shed mid-stream (deadline, disconnect): the engine frees
+                # the slot at its tick boundary, counted under the cause
                 if tr is not None:
                     tr.add_phase(
                         "decode_steady" if t_first_tok is not None
@@ -1858,7 +1911,7 @@ class DisaggRouter:
     def _generate_disagg(self, rep_box, prompt, max_new_tokens, eos_token,
                          timeout_s, deadline, on_first_token, token_sleep_s,
                          t_admit, tenant=None, pslot=None,
-                         on_tokens=None) -> List[int]:
+                         on_tokens=None, cancel_event=None) -> List[int]:
         """The failover loop: `history` holds every delivered token; a
         replay prefills prompt + history and decodes the rest on a
         survivor. A preemption rides the same loop without using an
@@ -1890,7 +1943,7 @@ class DisaggRouter:
         while True:
             rep = rep_box[0]
             attempt += 1
-            self._check_deadline(deadline, tenant)
+            self._check_abort(deadline, tenant, cancel_event)
             if self._finished(history, max_new_tokens, eos_token):
                 # the replica died between the last token and DONE
                 return history
@@ -2028,7 +2081,7 @@ class DisaggRouter:
                                 self._stats["preempted_requests"] += 1
                         return history
                     try:
-                        self._check_deadline(deadline, tenant)
+                        self._check_abort(deadline, tenant, cancel_event)
                     except RequestShedError as e:
                         # abandon the stream; the transfer is still acked
                         if tr is not None:

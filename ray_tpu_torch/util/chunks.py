@@ -216,7 +216,16 @@ class ChunkFetcher:
         was_local = self._worker.store.contains(oid)
         ref = ObjectRef(oid, locator=tuple(entry["locator"]),
                         owner=tuple(entry["locator"]))
+        t_pull = time.perf_counter()
         arr = self._get_with_retries(ref)
+        # the request trace current on this thread (a KV adoption under
+        # the router's kv_transfer phase) adds up each pull's wall time,
+        # a chaos delay_chunk_fetch stretch included: that is what names
+        # kv_transfer as the tail owner
+        from ..observability.requests import annotate
+
+        annotate(pull_ms=round((time.perf_counter() - t_pull) * 1e3, 3),
+                 pulls=1)
         nbytes = int(entry.get("nbytes", arr.nbytes))
         same_host = entry.get("machine", self._machine) == self._machine
         if was_local:

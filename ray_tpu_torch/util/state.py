@@ -10,9 +10,9 @@ cluster summary) and the views of the ported subsystems: the flight
 recorder's training progress, the weight fabric's registry, the recovery
 subsystem, disaggregated serving, the global KV plane, serving fault
 tolerance, the serving autoscaler, the online learning loop, the MPMD
-pipelines, the paged KV cache, speculation, LoRA tenants and the request
-flight recorder. The gateway's and the oracle's views wait with their
-subsystems (ROADMAP Queue 1); so do the CLI and dashboard surfaces of
+pipelines, the paged KV cache, speculation, LoRA tenants, the request
+flight recorder and the HTTP gateway. The oracle's view waits with its
+subsystem (ROADMAP Queue 1); so do the CLI and dashboard surfaces of
 these views.
 """
 from __future__ import annotations
@@ -178,6 +178,16 @@ def lora_status() -> Dict[str, Any]:
     swaps, page-in bytes), each router's tenant counters, a per-tenant
     rollup and cluster totals."""
     return _worker().conductor.call("get_lora_status", timeout=10.0)
+
+
+def gateway_status() -> Dict[str, Any]:
+    """HTTP front-door view (serve/gateway.py): per-replica request
+    counters split by priority class (interactive / batch accepted /
+    completed / shed / disconnects) and status code, recent TTFT windows
+    per class, the QoS gate's admission stats, batch-slot preemptions,
+    and cluster totals. The accept / first_byte / preempt / rate_limit /
+    disconnect markers ride the merged timeline's ``gateway`` lane."""
+    return _worker().conductor.call("get_gateway_status", timeout=10.0)
 
 
 def requesttrace_status() -> Dict[str, Any]:

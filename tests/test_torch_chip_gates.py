@@ -21,8 +21,19 @@ that skips a block (the port's `ring_attention` over 4 emulated ranks),
 serving control loop's and the online loop's gates: `hold_heal` refuses
 a replacement or death count off by one, a breaker trip or a shed;
 `hold_stream` refuses a stream one token off; the online learner's
-launch gate refuses a flash count off by one and any CE launch."""
+launch gate refuses a flash count off by one and any CE launch. The
+gateway phase's gates: `hold_gateway_text` refuses a stream one token
+short of generate(), `hold_reaped` a disconnect that leaves a slot
+active, `hold_by_code` a status code's total off by one against
+Prometheus. And the script's last sweep (`stop_descendants`), in a
+process of its own: a live child, a grandchild and a zombie child are
+all stopped and reaped."""
 from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -533,3 +544,102 @@ def test_telemetry_gate_refuses_a_counter_off_by_one():
     with pytest.raises(AssertionError, match="below the local 8"):
         chip_smoke.hold_covers(text, "ray_tpu_kvcache_lookups_total", 8,
                                WorkerId="abc")
+
+
+def test_gateway_text_gate_refuses_a_stream_one_token_short():
+    """The gateway phase's text gate: ByteCodec's rendering of generate()'s
+    tokens passes; a stream one token short, one token changed, or a text
+    that is not a token rendering fails."""
+    from ray_tpu_torch.serve.gateway import ByteCodec
+
+    want = list(range(500, 524))
+    text = ByteCodec(50304).decode(want)
+    chip_smoke.hold_gateway_text("gateway", text, want)
+    short = ByteCodec(50304).decode(want[:-1])
+    with pytest.raises(AssertionError, match="at token 23 "):
+        chip_smoke.hold_gateway_text("gateway", short, want)
+    with pytest.raises(AssertionError, match="at token 5 "):
+        chip_smoke.hold_gateway_text(
+            "gateway", text.replace(" 505 ", " 506 "), want)
+    with pytest.raises(AssertionError, match="not a token rendering"):
+        chip_smoke.hold_gateway_text("gateway", text + " x", want)
+
+
+def test_gateway_reap_gate_refuses_a_slot_left_active():
+    """The disconnect gate: one more router shed and one more engine
+    cancel under ``disconnect`` with no active slot passes; a slot left
+    active, or a shed or cancel not counted, fails."""
+    before = {"router_disconnect": 2, "engine_disconnect": 1,
+              "active_slots": 1}
+    after = {"router_disconnect": 3, "engine_disconnect": 2,
+             "active_slots": 0}
+    chip_smoke.hold_reaped("gateway", before, after)
+    for fault in ({"active_slots": 1}, {"router_disconnect": 2},
+                  {"engine_disconnect": 1}, {"engine_disconnect": 3}):
+        with pytest.raises(AssertionError, match="not reaped"):
+            chip_smoke.hold_reaped("gateway", before, {**after, **fault})
+
+
+def test_gateway_prometheus_gate_refuses_a_code_off_by_one():
+    """The surfaces gate: ray_tpu_gateway_requests_total of this process
+    summed by code equal to by_code passes (another process's samples
+    aside); any code's total off by one, or a code missing, fails."""
+    lines = []
+    for code, n, route, cls in (("200", 5, "completions", "interactive"),
+                                ("200", 2, "chat", "batch"),
+                                ("429", 1, "completions", "interactive"),
+                                ("499", 2, "completions", "batch")):
+        lines.append(f'ray_tpu_gateway_requests_total{{WorkerId="me",'
+                     f'route="{route}",class="{cls}",code="{code}"}} {n}.0')
+    lines.append('ray_tpu_gateway_requests_total{WorkerId="other",'
+                 'route="chat",class="batch",code="200"} 9.0')
+    text = "\n".join(lines) + "\n"
+    by_code = {"200": 7, "429": 1, "499": 2}
+    assert chip_smoke.hold_by_code(text, by_code, "me") == \
+        {"200": 7.0, "429": 1.0, "499": 2.0}
+    for code in by_code:
+        for delta in (1, -1):
+            with pytest.raises(AssertionError, match="is not by_code"):
+                chip_smoke.hold_by_code(
+                    text, {**by_code, code: by_code[code] + delta}, "me")
+    with pytest.raises(AssertionError, match="is not by_code"):
+        chip_smoke.hold_by_code(text, {"200": 7, "429": 1}, "me")
+
+
+_SWEEP = r"""
+import json, os, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+live = subprocess.Popen(["sleep", "60"])
+shell = subprocess.Popen(["sh", "-c", "sleep 60 & wait"])
+pid = os.fork()
+if pid == 0:
+    os._exit(0)
+while chip_smoke._proc_table().get(pid, (0, "R"))[1] != "Z":
+    time.sleep(0.01)
+while not any(ppid == shell.pid for ppid, _, _ in
+              chip_smoke._proc_table().values()):
+    time.sleep(0.01)
+stopped = chip_smoke.stop_descendants()
+table = chip_smoke._proc_table()
+print(json.dumps({"stopped": stopped, "zombie": pid,
+                  "left": [p for p, (ppid, _, _) in table.items()
+                           if ppid == os.getpid()]}))
+"""
+
+
+def test_sweep_stops_every_descendant():
+    """`stop_descendants`, run where it runs on the card (at the end of a
+    process of its own): a live `sleep`, a shell and its backgrounded
+    `sleep`, and a forked child left a zombie are each found, killed and
+    reaped, and the process has no child left."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _SWEEP, root],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    comms = sorted(p["comm"] for p in got["stopped"])
+    assert comms.count("sleep") == 2 and "sh" in comms, got
+    assert {p["pid"]: p["state"] for p in got["stopped"]}[got["zombie"]] \
+        == "Z", got
+    assert got["left"] == [], got

@@ -18,22 +18,27 @@ The cluster cases are checks of `_private/telemetry_checks.py`, each in
 a driver process of its own (`isolated.run_checks`): the one set of
 numbers (state view, request_trace by id, the ``ray_tpu_reqtrace_*``
 Prometheus families, the timeline's requests lane), the remote child
-phase merged into a kept trace, and a decode actor's remote phase and
-disagg counters crossing its process (`port_*`).
+phase merged into a kept trace, the chunk-delay chaos case (the slow
+decode replica's ``chaos=`` in place of the JAX test's environment
+variable), and a decode actor's remote phase and disagg counters
+crossing its process (`port_*`).
 
-Not twinned: the five gateway cases (test_gateway_honors_traceparent_
-and_stamps_request_id, test_request_id_header_on_errors_and_streams,
-test_gateway_stream_records_sse_flush_and_tokens,
-test_chaos_chunk_delay_makes_kv_transfer_the_tail_owner,
-test_preempted_stream_resumes_as_child_span_one_id) wait for the
-gateway / QoS front door (ROADMAP Queue 1), and the CLI and dashboard
-legs of test_all_surfaces_report_one_set_of_numbers for those surfaces
-(items 7-8).
+The gateway cases drive the port's `GatewayServer` over real sockets:
+the incoming traceparent and the X-Request-Id header, the header on
+errors and streams, the stream's ``sse_flush`` phase, and a preempted
+stream's replay under one id (its interactive request sent once the batch
+stream's first SSE frame has been read, not after a sleep).
+
+Not twinned: the CLI and dashboard legs of
+test_all_surfaces_report_one_set_of_numbers (ROADMAP Queue 1 items 7-8).
 """
 from __future__ import annotations
 
 import dataclasses
+import http.client
+import json
 import random
+import threading
 import time
 
 import jax
@@ -51,13 +56,16 @@ from ray_tpu.serve import disagg as jdisagg
 from ray_tpu_torch._private import isolated
 from ray_tpu_torch._private.conductor import ConductorHandler as THandler
 from ray_tpu_torch._private.serve_checks import FlakyDecode
+from ray_tpu_torch.models.engine import ContinuousBatchingEngine
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import from_jax_params
 from ray_tpu_torch.observability import requests as reqtrace
 from ray_tpu_torch.observability import timeline as ttimeline
 from ray_tpu_torch.serve.disagg import (DecodeServer, DisaggRouter,
                                         PrefillServer)
+from ray_tpu_torch.serve.gateway import GatewayServer
 from ray_tpu_torch.serve.handle import RequestShedError
+from ray_tpu_torch.serve.qos import QosGate
 
 JCFG = dataclasses.replace(JLlamaConfig.tiny(), dtype=jnp.float32)
 TCFG = dataclasses.replace(tllama.LlamaConfig.tiny(), dtype=torch.float32)
@@ -67,6 +75,7 @@ C4 = {"num_cpus": 4, "_system_config": {"log_to_driver": 0}}
 CHECKS = {name: C4 for name in (
     "requesttrace_all_surfaces_report_one_set_of_numbers",
     "requesttrace_remote_child_phases_merge_into_the_kept_trace",
+    "requesttrace_chaos_chunk_delay_makes_kv_transfer_the_tail_owner",
     "port_actor_decode_telemetry_crosses_its_process")}
 
 
@@ -549,3 +558,166 @@ def test_merged_trace_with_the_new_lanes_matches_jax():
     assert got == want
     assert {e["pid"] for e in got} == {"kvcache", "speculation", "lora",
                                        "requests"}
+
+
+# ---------------------------------------------------- gateway headers
+
+
+@pytest.fixture(scope="module")
+def gw_stack(model):
+    _, tp = model
+    engine = ContinuousBatchingEngine(tp, TCFG, max_batch=2)
+    router = DisaggRouter(colocated=engine, max_queue_depth=8)
+    gw = GatewayServer(router, model="tiny", vocab_size=TCFG.vocab_size,
+                       qos=QosGate(router=router), max_tokens_cap=64)
+    host, port = gw.ready()
+    yield {"host": host, "port": port, "engine": engine, "gw": gw}
+    gw.stop()
+    engine.stop()
+
+
+def _post(host, port, path, body=None, headers=None, raw=None,
+          timeout=60.0):
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    payload = raw if raw is not None else json.dumps(body)
+    hdrs = {"Content-Type": "application/json"}
+    hdrs.update(headers or {})
+    conn.request("POST", path, payload, hdrs)
+    return conn, conn.getresponse()
+
+
+def _kept(rid):
+    store = reqtrace.store()
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        kept = store.trace(rid)
+        if kept is not None:
+            return kept
+        time.sleep(0.05)
+    return store.trace(rid)
+
+
+def test_gateway_honors_traceparent_and_stamps_request_id(gw_stack):
+    incoming_trace = "ab" * 16
+    tp = f"00-{incoming_trace}-{'12' * 8}-01"
+    conn, resp = _post(gw_stack["host"], gw_stack["port"],
+                       "/v1/completions",
+                       body={"model": "tiny", "prompt": [1, 2, 3],
+                             "max_tokens": 4},
+                       headers={"traceparent": tp})
+    assert resp.status == 200
+    rid = resp.getheader("X-Request-Id")
+    assert rid and rid.startswith("cmpl-")
+    assert json.loads(resp.read())["id"] == rid
+    conn.close()
+    # the gateway-minted trace took the INCOMING W3C trace id
+    kept = reqtrace.store().trace(rid)
+    assert kept is not None
+    assert kept["trace_id"] == incoming_trace
+    assert kept["source"] == "gateway"
+    assert "qos_admission" in kept["phase_ms"]
+
+
+def test_request_id_header_on_errors_and_streams(gw_stack):
+    host, port = gw_stack["host"], gw_stack["port"]
+    conn, resp = _post(host, port, "/v1/completions", raw=b"{not json")
+    assert resp.status == 400
+    assert resp.getheader("X-Request-Id")
+    conn.close()
+    conn, resp = _post(host, port, "/v1/completions",
+                       body={"model": "nope", "prompt": [1]})
+    assert resp.status == 404
+    assert resp.getheader("X-Request-Id")
+    conn.close()
+    conn, resp = _post(host, port, "/v1/completions",
+                       body={"model": "tiny", "prompt": [4, 5],
+                             "max_tokens": 4, "stream": True})
+    assert resp.status == 200
+    rid = resp.getheader("X-Request-Id")
+    assert rid and rid.startswith("cmpl-")
+    while resp.readline():  # drain, so the slot frees cleanly
+        pass
+    conn.close()
+    # routes other than the completions get the fallback id
+    c2 = http.client.HTTPConnection(host, port, timeout=30.0)
+    c2.request("GET", "/v1/models")
+    r2 = c2.getresponse()
+    assert r2.getheader("X-Request-Id", "").startswith("req-")
+    r2.read()
+    c2.close()
+
+
+def test_gateway_stream_records_sse_flush_and_tokens(gw_stack):
+    conn, resp = _post(gw_stack["host"], gw_stack["port"],
+                       "/v1/completions",
+                       body={"model": "tiny", "prompt": [6, 7, 8],
+                             "max_tokens": 5, "stream": True})
+    assert resp.status == 200
+    rid = resp.getheader("X-Request-Id")
+    while resp.readline():
+        pass
+    conn.close()
+    kept = _kept(rid)
+    assert kept is not None, rid
+    assert kept["outcome"] == "ok"
+    assert kept.get("streamed") is True
+    flush = [p for p in kept["phases"] if p["phase"] == "sse_flush"]
+    assert flush and flush[0]["concurrent"] is True
+    assert flush[0]["writes"] >= 1
+
+
+def test_preempted_stream_resumes_as_child_span_one_id(model):
+    """A batch SSE stream preempted by an interactive arrival resumes and
+    completes under ONE request id with the replay attempt-tagged."""
+    _, tp = model
+    cfg = dataclasses.replace(TCFG, max_seq_len=1024)
+    engine = ContinuousBatchingEngine(tp, cfg, max_batch=1)
+    router = DisaggRouter(colocated=engine, max_queue_depth=0)
+    gw = GatewayServer(router, model="tiny", vocab_size=cfg.vocab_size,
+                       qos=QosGate(router=router), max_tokens_cap=800)
+    host, port = gw.ready()
+    out = {}
+    first = threading.Event()
+    try:
+        def batch_client():
+            conn, resp = _post(host, port, "/v1/completions",
+                               body={"model": "tiny",
+                                     "prompt": [7, 8, 9],
+                                     "max_tokens": 600, "stream": True,
+                                     "priority": "batch"},
+                               timeout=180.0)
+            out["rid"] = resp.getheader("X-Request-Id")
+            out["status"] = resp.status
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if line.startswith(b"data: "):
+                    first.set()
+            conn.close()
+
+        th = threading.Thread(target=batch_client, daemon=True)
+        th.start()
+        assert first.wait(60.0)  # the batch stream is producing
+        conn, resp = _post(host, port, "/v1/completions",
+                           body={"model": "tiny", "prompt": [4, 5],
+                                 "max_tokens": 16,
+                                 "priority": "interactive"},
+                           timeout=120.0)
+        assert resp.status == 200
+        resp.read()
+        conn.close()
+        th.join(timeout=120)
+        assert not th.is_alive()
+        assert out["status"] == 200
+    finally:
+        gw.stop()
+        engine.stop()
+    kept = _kept(out["rid"])
+    assert kept is not None, out
+    assert kept["outcome"] == "ok"
+    assert kept["preempts"] >= 1  # preempted: anomalous, kept
+    assert kept["attempts"] >= 2
+    # the decode after the preemption is a child span under the SAME id
+    replay = [p for p in kept["phases"] if p["attempt"] >= 2]
+    assert any(p["phase"].startswith("decode") for p in replay), kept

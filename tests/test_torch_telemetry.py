@@ -4,8 +4,8 @@ against the JAX package's, on the CPU.
 Every counter family of the serving plane and its neighbours is a
 `util.metrics` family with the JAX package's name, help string, tag keys,
 type and buckets, letter for letter: shed, disagg, servefault, kvplane,
-autoscale, online, pipeline, weights, kvcache, spec, lora and reqtrace
-(each group a case here). Each is created on first use: importing the
+autoscale, online, pipeline, weights, kvcache, spec, lora, reqtrace and
+gateway (each group a case here). Each is created on first use: importing the
 modules starts no metrics pusher. A cluster case (`_private/
 telemetry_checks.py`, in a driver process of its own) gives every family
 one probe sample and finds each by name, with that sample, in the
@@ -33,6 +33,7 @@ def _jax_families():
     from ray_tpu.serve.handle import shed_counter
     from ray_tpu.serve.kvplane import kvplane_metrics
     from ray_tpu.serve.lora import lora_metrics
+    from ray_tpu.serve.qos import gateway_metrics
     from ray_tpu.weights.metrics import weight_metrics
 
     return {"shed": {"shed": shed_counter()}, "disagg": disagg_metrics(),
@@ -41,11 +42,13 @@ def _jax_families():
             "autoscale": autoscale_metrics(), "online": online_metrics(),
             "pipeline": pipeline_metrics(), "weights": weight_metrics(),
             "kvcache": kvcache_metrics(), "spec": spec_metrics(),
-            "lora": lora_metrics(), "reqtrace": reqtrace_metrics()}
+            "lora": lora_metrics(), "reqtrace": reqtrace_metrics(),
+            "gateway": gateway_metrics()}
 
 
 GROUPS = ["shed", "disagg", "servefault", "kvplane", "autoscale", "online",
-          "pipeline", "weights", "kvcache", "spec", "lora", "reqtrace"]
+          "pipeline", "weights", "kvcache", "spec", "lora", "reqtrace",
+          "gateway"]
 
 
 def _shape(m):
@@ -72,6 +75,7 @@ def test_families_are_made_on_first_use():
         "import ray_tpu_torch.serve.autoscale, ray_tpu_torch.serve.disagg\n"
         "import ray_tpu_torch.serve.handle, ray_tpu_torch.serve.kvplane\n"
         "import ray_tpu_torch.serve.lora, ray_tpu_torch.weights\n"
+        "import ray_tpu_torch.serve.qos, ray_tpu_torch.serve.gateway\n"
         "from ray_tpu_torch.util import metrics\n"
         "print(len(metrics._registry._metrics),"
         " [t.name for t in threading.enumerate()])\n")

@@ -116,7 +116,16 @@ under a driver span (and in the merged timeline), its CUPTI trace from
 their counts and device time printed), its metric in the Prometheus
 text and its calls in the state API, a `ray://` client in a subprocess
 getting the same loss and refused a CUDA tensor, and the control-plane
-microbenchmark (`_private/perf.py`) on this machine's CPUs.
+microbenchmark (`_private/perf.py`) on this machine's CPUs. Serve
+deployments (`serve_deploy`): one application of a GPU replica holding
+GPT-2 small fp32 in a 4-slot engine and a CPU replica composing it
+behind the HTTP proxy; 4 prompts streamed 4 at a time through each
+replica's handle and over the proxy (chunked and SSE), each stream
+equal to `generate()`; the replica's bf16 loss bit-equal to this
+driver's, its 12 `flash_fwd` and 1 `ce_fwd` launches counted in its
+process; the replicas' request counts; TTFT and batch-1 decode through
+the handle and the proxy against the engine in the replica; the
+replica's cold start split; nothing left after `serve.shutdown()`.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
@@ -1881,8 +1890,10 @@ def moe_train_args(moe) -> tuple:
     t0 = time.perf_counter()
     host = _MOE_HOST_PARAMS.get("params")
     if host is None:
-        params = moe.moe_init(cfg, torch.Generator().manual_seed(42),
-                              device="cuda")
+        # drawn on the card: the CPU's normals took ~20 s of the phase
+        params = moe.moe_init(
+            cfg, torch.Generator(device="cuda").manual_seed(42),
+            device="cuda")
     else:
         params = tree_map(lambda t: t.to(_MOE_HOST_PARAMS["device"],
                                          copy=True), host)
@@ -7425,6 +7436,445 @@ def phase_gateway(kernels, gpt2, generate_mod) -> None:
           "predicted": GATEWAY_PREDICTED})
 
 
+# serve deployments (serve_deploy): one application of two deployments
+# on a one-node cluster holding the card. `Model` is one GPU replica of
+# GPT-2 small fp32 (the gateway phase's weights) in a 4-slot engine,
+# which also scores on the kernels in bf16; `Ingress` is a CPU replica
+# composing it through a bound handle, behind the HTTP proxy.
+SERVE_DEPLOY_SEED = 2
+SERVE_DEPLOY_LENGTHS = [8, 24, 56, 96]
+SERVE_DEPLOY_NEW = 24
+SERVE_DEPLOY_BATCH = 4
+SERVE_DEPLOY_SCORE = (4, 512)
+SERVE_DEPLOY_ROUTE = "/serve"
+# after serve.shutdown(): every actor dead, its process gone, the card's
+# lease back, within this bound
+SERVE_DEPLOY_GONE_S = 20.0
+SERVE_DEPLOY_PREDICTED = {
+    "replica_cold_start_s": [12, 35],
+    "engine_ttft_ms": [8, 40],
+    "handle_ttft_ms": [10, 60],
+    "proxy_ttft_ms": [12, 80],
+    "engine_decode_tokens_per_s": [55, 110],
+    "handle_over_engine_tokens_per_s": [0.8, 1.05],
+    "proxy_over_engine_tokens_per_s": [0.7, 1.05],
+    "phase_s": [35, 75]}
+
+
+class ServeDeployModel:
+    """serve_deploy's GPU replica: GPT-2 small fp32 from `seed` in a
+    continuous-batching engine of SERVE_DEPLOY_BATCH slots, streaming
+    greedy tokens; `score` runs gpt2_loss in bf16 on the same weights
+    cast, with this process's launches counted from 0."""
+
+    def __init__(self, seed: int):
+        self.init_at = boot_clock()
+        from ray_tpu_torch.models import engine, gpt2
+        from ray_tpu_torch.tree import tree_map
+
+        self.healthy_at = None
+        _no_tf32()
+        cfg = gpt2.GPT2Config(dtype=torch.float32)
+        params = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(seed),
+                                device="cuda")
+        self.score_params = tree_map(lambda t: t.to(torch.bfloat16), params)
+        self.engine = engine.ContinuousBatchingEngine(
+            params, cfg, max_batch=SERVE_DEPLOY_BATCH)
+        self.ready_at = boot_clock()
+
+    def __call__(self, prompt, n: int):
+        yield from self.engine.stream(prompt, n, timeout_s=300.0)
+
+    def engine_timing(self, prompt, n: int) -> dict:
+        """The engine called here, in the replica: its tokens, TTFT and
+        the decode rate after the first token."""
+        t0 = time.perf_counter()
+        toks, at = [], []
+        for tok in self.engine.stream(prompt, n, timeout_s=300.0):
+            toks.append(int(tok))
+            at.append(time.perf_counter())
+        return {"tokens": toks, "ttft_s": at[0] - t0,
+                "decode_tokens_per_s": (len(at) - 1) / (at[-1] - at[0])}
+
+    def score(self, tokens, targets):
+        from ray_tpu_torch import kernels
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.ops import attention
+
+        kernels.reset_launches()
+        attention.PLAIN_CALLS["attention"] = 0
+        with torch.inference_mode():
+            loss = gpt2.gpt2_loss(self.score_params, tokens, targets,
+                                  gpt2.GPT2Config.small())
+        torch.cuda.synchronize()
+        return (loss.clone(), dict(kernels.LAUNCHES),
+                attention.PLAIN_CALLS["attention"])
+
+    def where(self) -> dict:
+        from ray_tpu_torch._private import worker as worker_mod
+
+        return {**_where(self.init_at), "ready_at": self.ready_at,
+                "healthy_at": self.healthy_at,
+                "startup": dict(worker_mod.STARTUP),
+                "param_device": str(self.engine.device)}
+
+    def check_health(self) -> None:
+        if self.healthy_at is None:
+            self.healthy_at = boot_clock()
+
+    def shutdown(self) -> None:
+        self.engine.stop()
+
+
+class ServeDeployIngress:
+    """serve_deploy's CPU replica: composes `Model` through the bound
+    handle; `stream` for handle callers, `__call__` for HTTP (a JSON
+    body {"prompt": [...], "n": N}, each token sent as "<id> ")."""
+
+    def __init__(self, model):
+        self.init_at = boot_clock()
+        self.model = model
+
+    def where(self) -> dict:
+        from ray_tpu_torch._private import worker as worker_mod
+
+        return {"pid": os.getpid(), "process_start": _process_start(),
+                "init_at": self.init_at,
+                "startup": dict(worker_mod.STARTUP)}
+
+    def stream(self, prompt, n: int):
+        yield from self.model.options(stream=True).remote(prompt, n)
+
+    def __call__(self, request):
+        body = request.json()
+        toks = self.model.options(stream=True).remote(body["prompt"],
+                                                      body["n"])
+        return (f"{int(t)} " for t in toks)
+
+
+def startup_split(t0: float, where: dict) -> dict:
+    """A replica's start in spans (boot_clock()), from `t0` to its
+    user class's __init__: the process's spawn, the interpreter and the
+    package (to worker_main), a GPU worker's torch import (on its main
+    thread, before the worker's threads start), the worker's RPC server
+    and registration, the conductor's lease (to become_actor), the actor
+    spec (the replica class) and the user class's unpickling."""
+    up = where["startup"]
+    torch_at = up.get("torch_imported", up["main"])
+    return {"spawn_s": where["process_start"] - t0,
+            "to_main_s": up["main"] - where["process_start"],
+            "torch_import_s": torch_at - up["main"],
+            "register_s": up["registered"] - torch_at,
+            "lease_s": up["become_actor"] - up["registered"],
+            "actor_spec_s": up["actor_spec_loaded"] - up["become_actor"],
+            "user_class_s": where["init_at"] - up["actor_spec_loaded"]}
+
+
+def serve_deploy_prompts(cfg) -> list:
+    gen = torch.Generator().manual_seed(SERVE_DEPLOY_SEED + 100)
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in SERVE_DEPLOY_LENGTHS]
+
+
+def serve_http_stream(host, port, prompt, n: int, sse: bool) -> dict:
+    """POST to the proxy and read the streamed body as it arrives: the
+    tokens, the status, the transfer encoding, the seconds to the first
+    chunk and the decode rate after it."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=300.0)
+    try:
+        hdrs = {"Content-Type": "application/json"}
+        if sse:
+            hdrs["Accept"] = "text/event-stream"
+        t0 = time.perf_counter()
+        conn.request("POST", SERVE_DEPLOY_ROUTE,
+                     json.dumps({"prompt": prompt, "n": n}), hdrs)
+        r = conn.getresponse()
+        chunks, at = [], []
+        while True:
+            data = r.read1(65536)
+            if not data:
+                break
+            chunks.append(data)
+            at.append(time.perf_counter())
+        text = b"".join(chunks).decode()
+        if sse:
+            text = "".join(ln[len("data: "):] for ln in text.splitlines()
+                           if ln.startswith("data: "))
+        return {"tokens": [int(t) for t in text.split()],
+                "status": r.status,
+                "encoding": r.getheader("Transfer-Encoding"),
+                "content_type": r.getheader("Content-Type"),
+                "ttft_s": at[0] - t0 if at else None,
+                "decode_tokens_per_s": ((n - 1) / (at[-1] - at[0])
+                                        if len(at) > 1 and at[-1] > at[0]
+                                        else None)}
+    finally:
+        conn.close()
+
+
+def serve_handle_stream(handle, prompt, n: int) -> dict:
+    """One stream through a DeploymentHandle, timed in the driver."""
+    t0 = time.perf_counter()
+    toks, at = [], []
+    for tok in handle.options(stream=True).remote(prompt, n):
+        toks.append(int(tok))
+        at.append(time.perf_counter())
+    return {"tokens": toks, "ttft_s": at[0] - t0,
+            "decode_tokens_per_s": (len(at) - 1) / (at[-1] - at[0])}
+
+
+def serve_left(actors, pids, gpus_free: float) -> dict:
+    """What of a Serve session is still there: the actors (the
+    conductor's list) not DEAD, the listed processes alive (a zombie is
+    gone), and whether the card's lease is back (`gpus_free`)."""
+    table = _proc_table()
+    return {"actors": sorted(a["actor_id"][:12] for a in actors
+                             if a["state"] != "DEAD"),
+            "processes": sorted(p for p in pids
+                                if p in table and table[p][1] != "Z"),
+            "gpu_back": gpus_free >= 1.0}
+
+
+def hold_serve_gone(what: str, left: dict) -> None:
+    """Nothing of the application outlived serve.shutdown()."""
+    check(not left["actors"] and not left["processes"] and left["gpu_back"],
+          f"{what}: left after serve.shutdown(): {left}")
+
+
+def wait_serve_gone(rt, pids, bound_s: float) -> dict:
+    """serve_left() once nothing is left, or at `bound_s`."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    deadline = time.monotonic() + bound_s
+    while True:
+        left = serve_left(
+            worker_mod.global_worker.conductor.call("list_actors",
+                                                    timeout=30.0),
+            pids, rt.available_resources().get("GPU", 0.0))
+        if (not left["actors"] and not left["processes"]
+                and left["gpu_back"]) or time.monotonic() > deadline:
+            return left
+        time.sleep(0.1)
+
+
+def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
+    """Serve deployments on the card: `serve.start()`, then one
+    application: `Model`, one GPU replica (ray_actor_options num_gpus 1)
+    of GPT-2 small fp32 in a 4-slot engine, and `Ingress`, a CPU replica
+    composing it through a bound handle behind the HTTP proxy. Streams:
+    4 prompts of 8-96 tokens, 24 new tokens each, 4 at a time through
+    the Model's handle, through Ingress's, and over http.client to the
+    proxy (chunked, and SSE), each equal to generate(). Scoring: the
+    replica's gpt2_loss in bf16 bit-equal to this driver's, with its
+    flash_fwd and ce_fwd launches counted in its process (12 and 1 for
+    one loss). Surfaces: serve.status() RUNNING, each replica's
+    get_metrics() counting the requests sent. Timed, each path batch-1:
+    TTFT and streamed decode rate through the handle and the proxy
+    against the engine called in the replica; the replica's cold start
+    split. After serve.shutdown() no actor, process or lease is left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    info = rt.init(num_cpus=4)
+    try:
+        serve.start()
+        Model = serve.deployment(
+            name="Model", max_ongoing_requests=2 * SERVE_DEPLOY_BATCH,
+            ray_actor_options={"num_gpus": 1})(ServeDeployModel)
+        Ingress = serve.deployment(name="Ingress")(ServeDeployIngress)
+        t_deploy = boot_clock()
+        ingress_h = serve.run(Ingress.bind(Model.bind(SERVE_DEPLOY_SEED)),
+                              name="llm", route_prefix=SERVE_DEPLOY_ROUTE,
+                              _blocking=False)
+        model_h = serve.get_deployment_handle("Model", "llm")
+        # while the GPU replica boots: the driver's references on the
+        # card, and the proxy's own routes
+        cfg = gpt2.GPT2Config(dtype=torch.float32)
+        params = gpt2.gpt2_init(
+            cfg, torch.Generator().manual_seed(SERVE_DEPLOY_SEED),
+            device="cuda")
+        prompts = serve_deploy_prompts(cfg)
+        tgen = torch.Generator().manual_seed(SERVE_DEPLOY_SEED + 1)
+        tok_d = torch.randint(0, cfg.vocab_size, SERVE_DEPLOY_SCORE,
+                              generator=tgen).cuda()
+        tgt_d = torch.randint(0, cfg.vocab_size, SERVE_DEPLOY_SCORE,
+                              generator=tgen).cuda()
+        with torch.inference_mode():
+            want = [generate_mod.generate(
+                params, cfg, [p], max_new_tokens=SERVE_DEPLOY_NEW
+            )[0].tolist() for p in prompts]
+            loss_d = gpt2.gpt2_loss(
+                tree_map(lambda t: t.to(torch.bfloat16), params), tok_d,
+                tgt_d, gpt2.GPT2Config.small())
+        del params
+        host, port = serve.proxy_address()
+        import http.client
+
+        conn = http.client.HTTPConnection(host, port, timeout=60.0)
+        conn.request("GET", "/-/healthz")
+        r = conn.getresponse()
+        check(r.status == 200 and r.read() == b"success",
+              f"serve_deploy: /-/healthz answered {r.status}")
+        conn.close()
+        deadline = time.monotonic() + 300.0
+        while True:
+            st = serve.status()["applications"].get("llm", {})
+            if st.get("status") == "RUNNING":
+                running_at = boot_clock()
+                break
+            check(time.monotonic() < deadline,
+                  f"serve_deploy: the application is {st.get('status')} "
+                  f"after 300 s")
+            time.sleep(0.05)
+        # the proxy takes the route table by long poll: wait for ours
+        while True:
+            conn = http.client.HTTPConnection(host, port, timeout=60.0)
+            conn.request("GET", "/-/routes")
+            routes = json.loads(conn.getresponse().read())
+            conn.close()
+            if SERVE_DEPLOY_ROUTE in routes:
+                break
+            check(time.monotonic() < deadline,
+                  f"serve_deploy: the proxy's routes are {routes}")
+            time.sleep(0.05)
+        where = model_h.where.remote().result(timeout_s=60.0)
+        check(where["count"] == 1 and where["param_device"].startswith(
+            "cuda"), f"serve_deploy: the replica runs on {where}")
+        iwhere = ingress_h.where.remote().result(timeout_s=60.0)
+        cold = {**startup_split(t_deploy, where),
+                "imports_s": where["init_at"] - where["process_start"],
+                "init_s": where["ready_at"] - where["init_at"],
+                "health_check_ready_s": where["healthy_at"]
+                - where["ready_at"],
+                "app_running_s": running_at - where["healthy_at"],
+                "ingress": startup_split(where["healthy_at"], iwhere),
+                "ingress_to_running_s": running_at - iwhere["init_at"]}
+        cold["total_s"] = running_at - t_deploy
+        sent = {"Model": 1, "Ingress": 1}  # the where() calls
+
+        # streams, 4 at a time on each path, each equal to generate()
+        def concurrent(fn):
+            with cf.ThreadPoolExecutor(len(prompts)) as pool:
+                return list(pool.map(fn, prompts))
+
+        got = {
+            "handle": concurrent(lambda p: serve_handle_stream(
+                model_h, p, SERVE_DEPLOY_NEW)),
+            "ingress_handle": concurrent(lambda p: serve_handle_stream(
+                ingress_h.options(method_name="stream"), p,
+                SERVE_DEPLOY_NEW)),
+            "http_chunked": concurrent(lambda p: serve_http_stream(
+                host, port, p, SERVE_DEPLOY_NEW, sse=False)),
+            "http_sse": concurrent(lambda p: serve_http_stream(
+                host, port, p, SERVE_DEPLOY_NEW, sse=True))}
+        sent["Model"] += 4 * len(prompts)
+        sent["Ingress"] += 3 * len(prompts)
+        for path, outs in got.items():
+            for i, out in enumerate(outs):
+                hold_stream(f"serve_deploy: {path} stream {i}",
+                            out["tokens"], want[i])
+        for i, out in enumerate(got["http_chunked"]):
+            check(out["status"] == 200 and out["encoding"] == "chunked",
+                  f"serve_deploy: chunked stream {i}: {out['status']} "
+                  f"{out['encoding']}")
+        for i, out in enumerate(got["http_sse"]):
+            check(out["status"] == 200 and (out["content_type"] or "")
+                  .startswith("text/event-stream"),
+                  f"serve_deploy: SSE stream {i}: {out['status']} "
+                  f"{out['content_type']}")
+
+        # scoring in the replica on the kernels, against this driver's
+        loss_r, launches, plain = model_h.score.remote(
+            tok_d, tgt_d).result(timeout_s=300.0)
+        sent["Model"] += 1
+        hold_launches("serve_deploy: the GPU replica's score", launches,
+                      {**_NO_LAUNCHES, "flash_fwd": cfg.num_layers,
+                       "ce_fwd": 1}, 1)
+        check(plain == 0, f"serve_deploy: {plain} attention calls took "
+              f"the plain route in the replica")
+        bit_equal = bool(loss_r.device.type == "cuda"
+                         and torch.equal(loss_r, loss_d))
+        check(bit_equal, f"serve_deploy: the replica's loss "
+              f"{float(loss_r)} is not the driver's {float(loss_d)}")
+
+        # batch-1 timing: the engine in the replica, the handle, the
+        # proxy, one prompt at a time, alternating
+        timing = {"engine": [], "handle": [], "proxy": []}
+        for i, p in enumerate(prompts):
+            e = model_h.engine_timing.remote(
+                p, SERVE_DEPLOY_NEW).result(timeout_s=300.0)
+            h = serve_handle_stream(model_h, p, SERVE_DEPLOY_NEW)
+            x = serve_http_stream(host, port, p, SERVE_DEPLOY_NEW,
+                                  sse=False)
+            for path, out in (("engine", e), ("handle", h), ("proxy", x)):
+                hold_stream(f"serve_deploy: timed {path} stream {i}",
+                            out["tokens"], want[i])
+                timing[path].append(out)
+        sent["Model"] += 3 * len(prompts)
+        sent["Ingress"] += len(prompts)
+
+        def med(path, key, scale=1.0):
+            vals = [o[key] for o in timing[path] if o[key] is not None]
+            return statistics.median(vals) * scale if vals else None
+
+        ttft = {p: med(p, "ttft_s", 1e3) for p in timing}
+        rate = {p: med(p, "decode_tokens_per_s") for p in timing}
+
+        # surfaces: the application and each replica's own counts
+        st = serve.status()["applications"]["llm"]
+        check(st["status"] == "RUNNING", f"serve_deploy: status {st}")
+        ctrl = rt.get_actor("SERVE_CONTROLLER")
+        counts = {}
+        for dep in ("Model", "Ingress"):
+            _, reps = rt.get(ctrl.get_replicas.remote("llm", dep),
+                             timeout=60.0)
+            check(len(reps) == 1, f"serve_deploy: {dep} has {len(reps)} "
+                  f"replicas")
+            m = rt.get(reps[0][1].get_metrics.remote(), timeout=60.0)
+            counts[dep] = {"num_requests": m["num_requests"],
+                           "num_errors": m["num_errors"],
+                           "recent_latency_n": m["recent"]["latency_ms"]["n"]}
+            check(m["num_requests"] == sent[dep] and m["num_errors"] == 0,
+                  f"serve_deploy: {dep}'s get_metrics() counts "
+                  f"{m['num_requests']} requests ({m['num_errors']} errors), "
+                  f"{sent[dep]} were sent")
+
+        # shutdown: nothing of the application is left
+        pids = [w["pid"] for w in worker_mod.global_worker.conductor.call(
+            "list_workers", timeout=30.0)
+            if w["state"] == "ACTOR" and w["pid"]]
+        check(where["pid"] in pids,
+              f"serve_deploy: the replica's pid {where['pid']} is not "
+              f"among the actor workers {pids}")
+        t0 = time.perf_counter()
+        serve.shutdown()
+        left = wait_serve_gone(rt, pids, SERVE_DEPLOY_GONE_S)
+        gone_s = time.perf_counter() - t0
+        hold_serve_gone("serve_deploy", left)
+    finally:
+        end_session(rt, info["session_dir"], "serve_deploy")
+    emit({"phase": "serve_deploy", "card": card_line(),
+          "model": "gpt2-small", "dtype": "float32",
+          "score_dtype": "bfloat16", "prompts": SERVE_DEPLOY_LENGTHS,
+          "new_tokens": SERVE_DEPLOY_NEW,
+          "streams": {k: len(v) for k, v in got.items()},
+          "replica_cold_start": cold, "replica_launches": launches,
+          "loss": float(loss_r), "loss_bit_equal": bit_equal,
+          "ttft_median_ms": ttft, "decode_tokens_per_s_median": rate,
+          "handle_over_engine_tokens_per_s": rate["handle"] / rate["engine"],
+          "proxy_over_engine_tokens_per_s": rate["proxy"] / rate["engine"],
+          "requests": counts, "shutdown_s": gone_s,
+          "left_after_shutdown": left,
+          "phase_s": time.perf_counter() - t_phase,
+          "predicted": SERVE_DEPLOY_PREDICTED})
+
+
 def check_no_kernel(kernels, path: str) -> dict:
     """Fails if `path` launched a kernel or an attention call took the
     plain route since reset_counts(): the cached prefill and decode attend
@@ -7599,6 +8049,10 @@ def main() -> int:
     # through a GPU decode actor, with preemption, disconnects and its
     # surfaces (no kernel launches)
     phase_gateway(kernels, gpt2, generate_mod)
+    # serve deployments: a GPU replica of GPT-2 small streaming through a
+    # handle, a composing CPU replica and the HTTP proxy, and scoring on
+    # the kernels (its launches counted in its process from 0)
+    phase_serve_deploy(kernels, gpt2, generate_mod)
     # the processes the phases started and left: torch's addr2line
     # helpers (runtime_surface's memory snapshot) and zombie children
     emit({"phase": "teardown", "stopped": stop_descendants()})

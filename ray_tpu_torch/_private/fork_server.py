@@ -96,10 +96,22 @@ def _spawn_from_request(srv: socket.socket, conn: socket.socket,
 
 def serve(sock_path: str) -> None:
     # warm the import cache before any fork — this is the entire point
+    import encodings.idna  # noqa: F401 — the first getaddrinfo's codec
+    import signal
+
+    import ray_tpu_torch._private.refcount  # noqa: F401
     import ray_tpu_torch._private.serialization  # noqa: F401
     import ray_tpu_torch._private.worker  # noqa: F401
     import ray_tpu_torch._private.worker_main  # noqa: F401
-    import signal
+    from ray_tpu_torch import _native
+
+    # a worker's store maps the arena: ctypes and the dlopen of the built
+    # library are paid here once, not in each child (a failure here is
+    # met again, and raised, in a child that needs the arena)
+    try:
+        _native.load_shm_store()
+    except (OSError, RuntimeError):
+        pass
 
     def _reap(_sig, _frm):
         try:

@@ -6,14 +6,17 @@
 
 Each named check is a function of `runtime_checks.py`,
 `cluster_checks.py`, `fabric_checks.py`, `serve_checks.py`,
-`online_checks.py`, `mpmd_checks.py`, `surface_checks.py` or
-`telemetry_checks.py` (modules of the package, so
-worker processes can import what a check pickles by reference). `run_checks` starts a fresh `python -m
+`online_checks.py`, `mpmd_checks.py`, `surface_checks.py`,
+`telemetry_checks.py` or `deploy_checks.py` (modules of the package, so
+worker processes can import what a check pickles by reference).
+`run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
 starts and stops its own), runs the check, shuts the cluster down and
 records the outcome: (True, "") or (False, traceback); a check that
-returns a value other than None has it as JSON in place of "".
+returns a value other than None has it as JSON in place of "". A
+caller may hand the checks JSON `inputs` (e.g. the path of a weights
+file a test wrote); a check reads them with `inputs()`.
 
 The parent waits under a hard timeout and kills the driver when it
 expires. Either way it then finds every process of the run — the
@@ -35,7 +38,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 SESSION_ENDED = "__session_ended__"
 # every cluster of a run: orphans of a killed driver exit within about
@@ -43,6 +46,13 @@ SESSION_ENDED = "__session_ended__"
 SYSTEM_CONFIG = {"worker_orphan_grace": 2.0}
 
 Outcomes = Dict[str, Tuple[bool, str]]
+
+_INPUTS: Dict[str, Any] = {}
+
+
+def inputs() -> Dict[str, Any]:
+    """The `inputs` the running checks were handed by `run_checks`."""
+    return _INPUTS
 
 
 def session_processes(root: str) -> List[int]:
@@ -94,7 +104,8 @@ def _tail(path: str, n: int = 4000) -> str:
 
 
 def run_checks(checks: Dict[str, Optional[dict]],
-               timeout: float = 240.0) -> Outcomes:
+               timeout: float = 240.0,
+               inputs: Optional[Dict[str, Any]] = None) -> Outcomes:
     """Run `checks` (name -> init kwargs, or None) in a driver process
     of their own; see the module docstring."""
     from .. import session_root
@@ -108,7 +119,7 @@ def run_checks(checks: Dict[str, Optional[dict]],
     log = os.path.join(root, "driver.log")
     with open(payload, "w") as f:
         json.dump({"checks": list(checks.items()), "root": root,
-                   "results": results}, f)
+                   "results": results, "inputs": inputs or {}}, f)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     child_env = dict(os.environ)
@@ -170,15 +181,19 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import (cluster_checks, fabric_checks, mpmd_checks,
-                   online_checks, runtime_checks, serve_checks,
-                   surface_checks, telemetry_checks)
+    from . import (cluster_checks, deploy_checks, fabric_checks,
+                   mpmd_checks, online_checks, runtime_checks,
+                   serve_checks, surface_checks, telemetry_checks)
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
     # where the parent finds their processes
     rt.session_root = lambda: p["root"]
     config.apply(SYSTEM_CONFIG)
+    # checks import this module by name; the driver runs as __main__
+    from . import isolated as named
+
+    named._INPUTS.update(p.get("inputs") or {})
     results: Dict[str, list] = {}
 
     def record(name: str, ok: bool, text: str) -> None:
@@ -197,7 +212,8 @@ def _driver_main(payload_path: str) -> int:
                 or getattr(online_checks, name, None) \
                 or getattr(mpmd_checks, name, None) \
                 or getattr(surface_checks, name, None) \
-                or getattr(telemetry_checks, name)
+                or getattr(telemetry_checks, name, None) \
+                or getattr(deploy_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

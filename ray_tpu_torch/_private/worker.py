@@ -64,6 +64,17 @@ global_worker: Optional["Worker"] = None
 
 DEFAULT_MAX_RETRIES = 3
 
+# Where this worker process's start went, on the boot clock (one clock
+# for every process of the machine): `worker_main` entered, a GPU
+# worker's torch imported, registered, `become_actor` reached, the
+# actor's spec unpickled. A caller splits an actor's cold start from
+# them (chip_smoke.py's `serve_deploy`).
+STARTUP: Dict[str, float] = {}
+
+
+def stamp_startup(name: str) -> None:
+    STARTUP.setdefault(name, time.clock_gettime(time.CLOCK_BOOTTIME))
+
 
 def loaded(module: str):
     """A module of the package ("util.tracing") if this process imported
@@ -255,6 +266,9 @@ class Worker:
         self._pub_lock = threading.Lock()
         self._pub_handlers: Dict[str, list] = {}
         self._pub_channels: set = set()
+        # local endpoints remote producers push stream_chunk frames at
+        # (reference: streaming generator refs, task_manager ObjectRefStream)
+        self._streams: Dict[str, "queue.Queue"] = {}
         # executor-side: return_id -> thread ident running it (for the
         # cooperative async-exception interrupt)
         self._exec_threads: Dict[str, int] = {}
@@ -1633,6 +1647,25 @@ class Worker:
             except ConnectionLost:
                 pass
 
+    # ------------------------------------------------------------ streaming
+
+    def open_stream(self) -> Tuple[str, "queue.Queue"]:
+        """Create a local stream endpoint. A remote producer pushes
+        (seq, payload) frames at it with the stream_chunk RPC; the
+        consumer drains the returned queue (serve's streaming responses,
+        reference: streaming ObjectRefGenerator, replica.py:470)."""
+        stream_id = uuid.uuid4().hex
+        q: "queue.Queue" = queue.Queue()
+        with self._state_lock:
+            self._streams[stream_id] = q
+        return stream_id, q
+
+    def close_stream(self, stream_id: str) -> None:
+        """Drop the endpoint; the producer's later pushes are answered
+        False, so it stops generating."""
+        with self._state_lock:
+            self._streams.pop(stream_id, None)
+
     # ----------------------------------------------------------- async get
 
     def get_future(self, ref: ObjectRef) -> Future:
@@ -1946,7 +1979,9 @@ class WorkerHandler:
         return self.w.execute_task(wire)
 
     def become_actor(self, actor_id: str, spec_bytes: bytes) -> bool:
+        stamp_startup("become_actor")
         cls, args, kwargs, options = serialization.loads(spec_bytes)
+        stamp_startup("actor_spec_loaded")
         self.w._actor_runtime = ActorRuntime(self.w, actor_id, cls, args,
                                              kwargs, options)
         return True
@@ -2073,6 +2108,16 @@ class WorkerHandler:
     def free_objects(self, object_ids: List[str]) -> None:
         for oid in object_ids:
             self.w.store.delete(oid)
+
+    def stream_chunk(self, stream_id: str, seq: int, payload: bytes) -> bool:
+        """A producer's push into a local stream endpoint; False tells
+        the producer the consumer is gone (stop generating)."""
+        with self.w._state_lock:
+            q = self.w._streams.get(stream_id)
+        if q is None:
+            return False
+        q.put((seq, payload))
+        return True
 
     def start_device_profile(self, tag: str, device: Optional[str] = None
                              ) -> str:

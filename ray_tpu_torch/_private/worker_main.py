@@ -28,6 +28,36 @@ def _bound_gpus():
     return gpus or None
 
 
+def reregister_until_orphaned(register, grace: float,
+                              sleep=time.sleep, clock=time.monotonic) -> None:
+    """Re-register every period (idempotent; the reconnecting client
+    re-dials underneath) and return when the worker must exit: the
+    conductor answered False (it wrote this worker off, and its GPUs may
+    be leased to another process), or the outage lasted `grace`, counted
+    from the first failed call. Counted from the last success instead,
+    one failed call a full period later (the first call on a connection
+    a restarted conductor dropped) ended a worker whose period is its
+    grace."""
+    period = min(50, max(1, int(grace * 10)))
+    failing_since = None
+    while True:
+        # chunked: in fork-server children the kernel often delivers
+        # SIGTERM to a non-main thread, which only sets CPython's signal
+        # flag — the main thread notices at its next bytecode
+        for _ in range(1 if failing_since is not None else period):
+            sleep(0.1)
+        try:
+            if register() is False:
+                return
+            failing_since = None
+        except Exception:  # noqa: BLE001 — conductor unreachable
+            now = clock()
+            if failing_since is None:
+                failing_since = now
+            elif now - failing_since > grace:
+                return
+
+
 def main() -> None:
     from .config import config
 
@@ -56,41 +86,34 @@ def main() -> None:
     from . import worker as worker_mod
     from .worker import Worker
 
+    worker_mod.stamp_startup("main")
+    if os.environ.get(ENV_GPU_INDICES):
+        # a GPU worker's actor needs torch: imported here, on the main
+        # thread before the worker's threads start, it loads in a fresh
+        # interpreter's time; imported by the actor's unpickling on an
+        # RPC thread, it took up to twice that on the card's host
+        import torch  # noqa: F401
+
+        worker_mod.stamp_startup("torch_imported")
     w = Worker(mode="worker", conductor_address=(host, int(port)),
                session_dir=session_dir, worker_id=worker_id)
     worker_mod.global_worker = w
     gpus = _bound_gpus()
     w.conductor.call("register_worker", worker_id, w.address, os.getpid(),
                      node_id, gpus, timeout=30.0)
+    worker_mod.stamp_startup("registered")
 
     def _term(signum, frame):
         os._exit(0)
 
     signal.signal(signal.SIGTERM, _term)
 
-    # Park the main thread; all work arrives via the RPC server. Re-register
-    # periodically (idempotent; the reconnecting client re-dials
-    # underneath). Exit after a sustained outage: the cluster is gone.
-    grace = config.worker_orphan_grace
-    last_ok = time.monotonic()
-    while True:
-        # chunked: in fork-server children the kernel often delivers
-        # SIGTERM to a non-main thread, which only sets CPython's signal
-        # flag — the main thread notices at its next bytecode
-        for _ in range(min(50, max(1, int(grace * 10)))):
-            time.sleep(0.1)
-        try:
-            ok = w.conductor.call(
-                "register_worker", worker_id, w.address, os.getpid(),
-                node_id, gpus, timeout=5.0)
-            if ok is False:
-                # the conductor wrote this worker off (its GPUs may be
-                # leased to another process): it must not run on
-                os._exit(0)
-            last_ok = time.monotonic()
-        except Exception:  # noqa: BLE001 — conductor unreachable
-            if time.monotonic() - last_ok > grace:
-                os._exit(0)
+    # Park the main thread; all work arrives via the RPC server.
+    reregister_until_orphaned(
+        lambda: w.conductor.call("register_worker", worker_id, w.address,
+                                 os.getpid(), node_id, gpus, timeout=5.0),
+        config.worker_orphan_grace)
+    os._exit(0)
 
 
 if __name__ == "__main__":

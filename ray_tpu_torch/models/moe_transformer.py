@@ -87,9 +87,11 @@ class MoEConfig:
 def moe_init(config: MoEConfig,
              generator: Optional[torch.Generator] = None,
              device: Device = "cuda") -> Params:
-    """Random parameters (N(0, 0.02) weights, unit norm scales), drawn on
-    the CPU from `generator` (seed 0 when None) and moved to `device`;
-    the JAX package's keys and layouts."""
+    """Random parameters (N(0, 0.02) weights, unit norm scales), drawn
+    from `generator` (a CPU one seeded 0 when None) on its own device
+    and moved to `device`; the JAX package's keys and layouts. A CUDA
+    generator draws on the card: at Mixtral's widths the CPU's normals
+    take ~20 s."""
     c = config
     if c.num_heads % c.num_kv_heads:
         raise ValueError("num_heads must be a multiple of num_kv_heads")
@@ -98,7 +100,8 @@ def moe_init(config: MoEConfig,
         torch.Generator().manual_seed(0)
 
     def norm(*shape):
-        return (torch.randn(shape, generator=gen) * 0.02).to(dev, c.dtype)
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * 0.02).to(dev, c.dtype)
 
     def ones():
         return {"scale": torch.ones(c.d_model, dtype=c.dtype, device=dev)}

@@ -27,8 +27,6 @@ import contextlib
 import time
 from typing import Any, Deque, Dict, List, Optional
 
-from . import flops as _flops
-
 _now = time.perf_counter
 
 PHASES = ("data_wait", "bubble_wait", "compile", "device_step",
@@ -175,6 +173,11 @@ class StepTimer:
             rec["tokens"] = self.tokens_per_step
             rec["tokens_per_sec"] = self.tokens_per_step / max(total_s, 1e-9)
         device_s = self._acc.get("device_step", 0.0) or total_s
+        # flops imports torch: imported here, a process that imports
+        # this module (a serve replica, through serve.autoscale) does
+        # not import torch for it
+        from . import flops as _flops
+
         m = _flops.mfu(self.flops_per_step, device_s, self.peak_flops_total)
         if m is not None:
             rec["mfu"] = m

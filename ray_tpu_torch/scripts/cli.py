@@ -1,5 +1,5 @@
 """The cluster CLI (port of the JAX package's scripts/cli.py: `start`,
-`stop`, `status`, `list` and `job`), an analog of the reference's
+`stop`, `status`, `list`, `job` and `serve`), an analog of the reference's
 python/ray/scripts/scripts.py (`ray start` :568, `stop` :1044,
 `submit` :1578) and util/state/state_cli.py (`ray list ...`).
 
@@ -7,12 +7,13 @@ python/ray/scripts/scripts.py (`ray start` :568, `stop` :1044,
     python -m ray_tpu_torch start --address HOST:PORT --num-gpus 1
     python -m ray_tpu_torch status --address HOST:PORT
     python -m ray_tpu_torch job --address HOST:PORT submit -- python x.py
+    python -m ray_tpu_torch serve --address HOST:PORT deploy app.yaml
     python -m ray_tpu_torch stop --address HOST:PORT
 
 A command's address is `--address`, else RTT_ADDRESS, else the file the
 last head started on this machine wrote. The JAX CLI's other commands
-(dashboard, timeline, metrics, the subsystem views, serve, ...) are not
-ported yet (ROADMAP Queue 1 item 7) and are not in the parser.
+(dashboard, timeline, metrics, the subsystem views, ...) are not ported
+yet (ROADMAP Queue 1 item 7) and are not in the parser.
 """
 from __future__ import annotations
 
@@ -222,6 +223,63 @@ def cmd_job(args) -> None:
         print(json.dumps(client.list_jobs(), indent=2, default=str))
 
 
+def _connect(args) -> None:
+    import ray_tpu_torch as rt
+
+    rt.init(address=_resolve_address(args.address), ignore_reinit_error=True)
+
+
+def cmd_serve(args) -> None:
+    """`serve run|deploy|status|config|delete|shutdown` — reference
+    python/ray/serve/scripts.py:147-746 (run/deploy/config/status) over
+    the declarative schema (serve/schema.py). `serve config` prints the
+    deployed config as JSON, which YAML readers take as it is."""
+    _connect(args)
+    from .. import serve
+    from ..serve.schema import (ServeDeploySchema, deploy_config,
+                                get_deployed_config)
+
+    if args.serve_cmd in ("run", "deploy"):
+        if args.config_or_import.endswith((".yaml", ".yml")):
+            schema = ServeDeploySchema.from_yaml_file(args.config_or_import)
+        else:
+            # bare import path: one app with defaults
+            schema = ServeDeploySchema.from_dict({"applications": [
+                {"import_path": args.config_or_import}]})
+        names = deploy_config(schema)
+        print(f"deployed application(s): {', '.join(names)}")
+        addr = serve.proxy_address()
+        if addr:
+            print(f"HTTP ingress at http://{addr[0]}:{addr[1]}")
+        if args.serve_cmd == "run":
+            # reference `serve run` stays attached and tears down on ^C
+            try:
+                while True:
+                    time.sleep(3600)
+            except KeyboardInterrupt:
+                for name in names:
+                    serve.delete(name)
+                print("applications deleted")
+    elif args.serve_cmd == "status":
+        try:
+            print(json.dumps(serve.status(), indent=2, default=str))
+        except RuntimeError as e:
+            print(json.dumps({"applications": {}, "error": str(e)}))
+    elif args.serve_cmd == "config":
+        cfg = get_deployed_config()
+        if cfg is None:
+            print("no config deployed (code-deployed apps have no "
+                  "declarative config)")
+        else:
+            print(json.dumps(cfg, indent=2))
+    elif args.serve_cmd == "delete":
+        serve.delete(args.name)
+        print(f"application {args.name!r} deleted")
+    elif args.serve_cmd == "shutdown":
+        serve.shutdown()
+        print("serve shut down")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="ray_tpu_torch", description="ray_tpu_torch cluster CLI")
@@ -273,6 +331,24 @@ def main(argv=None) -> None:
         j.add_argument("job_id")
     jsub.add_parser("list")
     sp.set_defaults(fn=cmd_job)
+
+    sp = sub.add_parser("serve", help="Serve applications: run/deploy from "
+                                      "a YAML config, status, shutdown")
+    sp.add_argument("--address")
+    ssub = sp.add_subparsers(dest="serve_cmd", required=True)
+    for sc in ("run", "deploy"):
+        s = ssub.add_parser(sc, help="deploy apps from a YAML config or a "
+                                     "module:attr import path"
+                                     + (" and stay attached"
+                                        if sc == "run" else ""))
+        s.add_argument("config_or_import",
+                       help="path/to/config.yaml or module:application")
+    ssub.add_parser("status")
+    ssub.add_parser("config", help="echo the last deployed config")
+    s = ssub.add_parser("delete")
+    s.add_argument("name")
+    ssub.add_parser("shutdown")
+    sp.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
     args.fn(args)

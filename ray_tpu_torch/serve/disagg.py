@@ -68,9 +68,10 @@ slot is cancelled under that reason), and a fired preemption counts
 into ``gateway_metrics()["preemptions"]`` with a ``preempt`` gateway
 event.
 
-Not ported with it: a serve request's multiplexed tenant as the default
-``tenant`` (``serve/multiplex.py``: pass ``tenant=``), the load
-harness's (``reset_signal_windows``, the servers'
+On a LoRA router a serve request's multiplexed model id is the default
+``tenant`` (``serve/multiplex.py``'s ``request_tenant``).
+
+Not ported with it: the load harness's (``reset_signal_windows``, the servers'
 ``reset_chaos_counts``), and the servers' local adapter publish
 (``publish_adapter`` / ``refresh_adapter``; a replica's tenants come
 from its ``lora=``). The
@@ -1729,6 +1730,13 @@ class DisaggRouter:
         if priority is not None and priority not in ("interactive", "batch"):
             raise ValueError(f"unknown priority class {priority!r}; "
                              f"expected 'interactive' or 'batch'")
+        if tenant is None and self._lora_enabled():
+            # a LoRA deployment's default tenant is the serve request's
+            # multiplexed model id; a pool-less router keeps serving
+            # multiplexed requests as before
+            from .multiplex import request_tenant
+
+            tenant = request_tenant()
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         deadline = (None if deadline_s is None
                     else time.perf_counter() + float(deadline_s))

@@ -41,7 +41,8 @@ surface stays bit-checkable against the engine's ``generate()``.
 ``prompt`` may also be a list of token ids.
 
 Where the port differs: the HTTP/1.1 server is the standard library's
-``asyncio.start_server`` (the JAX package's is aiohttp's). It reads a
+``asyncio.start_server`` (serve/_http.py, shared with the serve proxy;
+the JAX package's is aiohttp's). It reads a
 ``Content-Length`` body (over 64 MiB, aiohttp's ``client_max_size``:
 413, refused before it is read; a ``Transfer-Encoding`` body: 501),
 answers JSON with ``Content-Length`` and SSE in chunked transfer
@@ -57,8 +58,6 @@ streaming one. JAX's knobs ``RAY_TPU_GATEWAY_MAX_TOKENS`` (512) and
 from __future__ import annotations
 
 import asyncio
-import email.utils
-import http
 import itertools
 import json
 import logging
@@ -71,6 +70,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..observability import requests as reqtrace
+from ._http import (_CLIENT_GONE, _CLOSED, HttpServer, _json_response,
+                    _Request, _StreamResponse, _stop, _text_response)
 from .autoscale import SlidingWindow
 from .handle import RequestShedError
 from .qos import (CLASSES, INTERACTIVE, QosGate, gateway_metrics,
@@ -84,16 +85,8 @@ MAX_TOKENS_CAP = 512
 POOL_SIZE = 32
 CLIENT_MAX_SIZE = 64 * 1024 * 1024
 
-# write failures that mean "the client went away", not "we broke"
-_CLIENT_GONE = (ConnectionResetError, ConnectionAbortedError,
-                BrokenPipeError)
-
 _SERVER = (f"Python/{sys.version_info[0]}.{sys.version_info[1]} "
            f"ray_tpu_torch-gateway")
-_JSON = "application/json; charset=utf-8"
-_TEXT = "text/plain; charset=utf-8"
-_MAX_LINE = 64 * 1024
-_MAX_HEADERS = 128
 
 
 class ByteCodec:
@@ -125,221 +118,6 @@ def _sse_frame(payload: Any) -> bytes:
     else:
         data = json.dumps(payload, default=str).encode()
     return b"data: " + data + b"\n\n"
-
-
-# ------------------------------------------------------------ HTTP/1.1
-
-
-class _BadRequest(Exception):
-    """A request the parser refuses: answered with `status` and `text`,
-    then the connection closes."""
-
-    def __init__(self, status: int, text: str):
-        super().__init__(text)
-        self.status = status
-        self.text = text
-
-
-class _Headers:
-    """Request headers, looked up without regard to case."""
-
-    def __init__(self, items: List[Tuple[str, str]]):
-        self._d = {k.lower(): v for k, v in items}
-
-    def get(self, key: str, default: Optional[str] = None
-            ) -> Optional[str]:
-        return self._d.get(key.lower(), default)
-
-
-class _Conn:
-    """One client connection. Every read goes through `_fill`, which
-    appends to a buffer the parser consumes; a watcher task (`watch`)
-    reads the same way while a response is pending, so EOF or a reset
-    marks the connection gone and bytes a client sends early stay for
-    the next request."""
-
-    def __init__(self, reader: asyncio.StreamReader,
-                 writer: asyncio.StreamWriter):
-        self.reader = reader
-        self.writer = writer
-        self.buf = bytearray()
-        self.gone = False
-        self._on_gone: List[Any] = []
-
-    async def _fill(self) -> bool:
-        """Read more into the buffer; False at EOF or on a reset."""
-        try:
-            data = await self.reader.read(65536)
-        except (ConnectionError, OSError):
-            data = b""
-        if not data:
-            self._mark_gone()
-            return False
-        self.buf += data
-        return True
-
-    def _mark_gone(self) -> None:
-        if self.gone:
-            return
-        self.gone = True
-        for fn in self._on_gone:
-            fn()
-
-    def on_gone(self, fn) -> None:
-        """Call `fn` (on the loop) once the client is gone; at once if it
-        already is. Held until `clear_on_gone` (each request's end)."""
-        if self.gone:
-            fn()
-        else:
-            self._on_gone.append(fn)
-
-    def clear_on_gone(self) -> None:
-        self._on_gone.clear()
-
-    async def readline(self) -> Optional[bytes]:
-        """One CRLF-ended line without its ending; None at EOF before
-        any byte of it."""
-        while True:
-            i = self.buf.find(b"\n")
-            if i >= 0:
-                line = bytes(self.buf[:i + 1])
-                del self.buf[:i + 1]
-                return line.rstrip(b"\r\n")
-            if len(self.buf) > _MAX_LINE:
-                raise _BadRequest(400, "Got more than 65536 bytes when "
-                                       "reading a line")
-            if not await self._fill():
-                if self.buf:
-                    raise _BadRequest(400, "incomplete request")
-                return None
-
-    async def readexactly(self, n: int) -> bytes:
-        while len(self.buf) < n:
-            if not await self._fill():
-                raise _BadRequest(400, "incomplete request body")
-        data = bytes(self.buf[:n])
-        del self.buf[:n]
-        return data
-
-    async def watch(self) -> None:
-        """Read until the client goes (run while a response is pending,
-        cancelled when it is written)."""
-        while await self._fill():
-            pass
-
-    async def write(self, data: bytes) -> None:
-        if self.writer.transport.is_closing():
-            raise ConnectionResetError("client connection closed")
-        self.writer.write(data)
-        await self.writer.drain()
-
-    def abort(self) -> None:
-        self.writer.transport.abort()
-        self._mark_gone()
-
-
-class _Request:
-    def __init__(self, conn: _Conn, method: str, path: str, version: str,
-                 headers: _Headers, body: bytes):
-        self.conn = conn
-        self.method = method
-        self.path = path
-        self.version = version
-        self.headers = headers
-        self.body = body
-        self.req_id: Optional[str] = None
-
-    @property
-    def keep_alive(self) -> bool:
-        c = (self.headers.get("Connection") or "").lower()
-        if self.version == "HTTP/1.0":
-            return c == "keep-alive"
-        return c != "close"
-
-
-def _status_line(version: str, status: int) -> bytes:
-    reason = http.HTTPStatus(status).phrase
-    return f"{version} {status} {reason}\r\n".encode("latin-1")
-
-
-def _header_block(headers: List[Tuple[str, str]]) -> bytes:
-    return b"".join(f"{k}: {v}\r\n".encode("latin-1")
-                    for k, v in headers) + b"\r\n"
-
-
-class _Response:
-    """A whole response, sent with Content-Length."""
-
-    def __init__(self, body: bytes, status: int = 200,
-                 content_type: str = _JSON,
-                 headers: Optional[Dict[str, str]] = None):
-        self.body = body
-        self.status = status
-        self.headers = dict(headers or {})
-        self.headers.setdefault("Content-Type", content_type)
-
-    def encode(self, version: str, close: bool = False) -> bytes:
-        hdrs = list(self.headers.items())
-        hdrs.append(("Content-Length", str(len(self.body))))
-        hdrs.append(("Date", email.utils.formatdate(usegmt=True)))
-        hdrs.append(("Server", _SERVER))
-        if close:
-            hdrs.append(("Connection", "close"))
-        return (_status_line(version, self.status) + _header_block(hdrs)
-                + self.body)
-
-
-def _json_response(obj: Any, status: int = 200,
-                   headers: Optional[Dict[str, str]] = None) -> _Response:
-    return _Response(json.dumps(obj).encode(), status, _JSON, headers)
-
-
-def _text_response(text: str, status: int = 200,
-                   headers: Optional[Dict[str, str]] = None) -> _Response:
-    return _Response(text.encode(), status, _TEXT, headers)
-
-
-class _StreamResponse:
-    """A 200 event stream in chunked transfer encoding; its status line
-    and headers go out with the first frame (`prepare`)."""
-
-    def __init__(self, request: _Request, headers: Dict[str, str]):
-        self.request = request
-        self.headers = dict(headers)
-        self.prepared = False
-        self.finished = False
-
-    async def prepare(self) -> None:
-        if self.prepared:
-            return
-        hdrs = list(self.headers.items())
-        hdrs.append(("Transfer-Encoding", "chunked"))
-        hdrs.append(("Date", email.utils.formatdate(usegmt=True)))
-        hdrs.append(("Server", _SERVER))
-        self.prepared = True
-        await self.request.conn.write(
-            _status_line(self.request.version, 200) + _header_block(hdrs))
-
-    async def write(self, data: bytes) -> None:
-        await self.prepare()
-        await self.request.conn.write(
-            f"{len(data):x}\r\n".encode() + data + b"\r\n")
-
-    async def write_eof(self) -> None:
-        await self.prepare()
-        await self.request.conn.write(b"0\r\n\r\n")
-        self.finished = True
-
-
-async def _stop(task: "asyncio.Task") -> None:
-    """Cancel a connection's watcher and wait until it has let go of the
-    reader (a StreamReader takes one reader at a time)."""
-    task.cancel()
-    await asyncio.gather(task, return_exceptions=True)
-
-
-# connection-level outcomes a handler returns instead of a response
-_CLOSED = object()   # the transport is gone (aborted, client left)
 
 
 class GatewayServer:
@@ -402,33 +180,27 @@ class GatewayServer:
         self._ttft_win: Dict[str, SlidingWindow] = {
             c: SlidingWindow() for c in CLASSES}
         self._last_push = 0.0
-        self._ready = threading.Event()
-        self._bound_port: Optional[int] = None
-        self._start_error: Optional[BaseException] = None
-        self._shutdown = threading.Event()
-        self._loop: Optional[asyncio.AbstractEventLoop] = None
-        self._conns: set = set()
         self._pool = ThreadPoolExecutor(
             max_workers=int(pool_size),
             thread_name_prefix="gateway-generate")
-        self._thread = threading.Thread(target=self._serve_thread,
-                                        daemon=True, name="gateway-http")
-        self._thread.start()
+        self._http = HttpServer(
+            self._dispatch, host, port, name="gateway-http",
+            server=_SERVER, label=f"gateway {self.gateway_id}",
+            max_body=lambda: CLIENT_MAX_SIZE,
+            on_bound=lambda: self.publish_telemetry(force=True))
+        self._http.start()
         gateway_metrics()
 
     # --------------------------------------------------------- control
 
     def ready(self) -> tuple:
-        if not self._ready.wait(timeout=30.0) or self._bound_port is None:
-            raise RuntimeError("gateway HTTP server failed to start") \
-                from self._start_error
-        return (self._host, self._bound_port)
+        return (self._host,
+                self._http.wait_ready(30.0, "gateway HTTP server"))
 
     def stop(self) -> bool:
         """Close the listening socket and every open connection, stop
         the loop's thread and push the last snapshot."""
-        self._shutdown.set()
-        self._thread.join(timeout=10.0)
+        self._http.stop()
         self._pool.shutdown(wait=False, cancel_futures=True)
         self.publish_telemetry(force=True)
         return True
@@ -540,7 +312,7 @@ class GatewayServer:
         s["role"] = "gateway"
         s["gateway_id"] = self.gateway_id
         s["host"] = self._host
-        s["port"] = self._bound_port
+        s["port"] = self._http.bound_port
         s["models"] = sorted(self._models)
         s["ttft_ms"] = {c: w.summary()
                         for c, w in self._ttft_win.items()}
@@ -1063,52 +835,6 @@ class GatewayServer:
             "/-/gateway": ("GET", self._snapshot),
         }
 
-    async def _read_request(self, conn: _Conn) -> Optional[_Request]:
-        """The next request on the connection; None at a clean EOF.
-        Raises _BadRequest for what cannot be parsed or is too large."""
-        line = await conn.readline()
-        while line == b"":  # tolerate blank lines between requests
-            line = await conn.readline()
-        if line is None:
-            return None
-        parts = line.split()
-        if len(parts) != 3 or not parts[2].startswith(b"HTTP/1."):
-            raise _BadRequest(400, f"Invalid request line: {line[:100]!r}")
-        method, target, version = (p.decode("latin-1") for p in parts)
-        items: List[Tuple[str, str]] = []
-        while True:
-            h = await conn.readline()
-            if h is None:
-                raise _BadRequest(400, "incomplete request headers")
-            if h == b"":
-                break
-            if len(items) >= _MAX_HEADERS or b":" not in h:
-                raise _BadRequest(400, "Invalid request header")
-            k, v = h.split(b":", 1)
-            items.append((k.decode("latin-1").strip(),
-                          v.decode("latin-1").strip()))
-        headers = _Headers(items)
-        request = _Request(conn, method.upper(), target.split("?", 1)[0],
-                           version, headers, b"")
-        te = headers.get("Transfer-Encoding")
-        if te:
-            # a body is read by its Content-Length only
-            raise _BadRequest(501, f"Transfer-Encoding {te!r} is not "
-                                   f"supported")
-        try:
-            n = int(headers.get("Content-Length") or 0)
-        except ValueError:
-            raise _BadRequest(400, "Invalid Content-Length") from None
-        if n < 0:
-            raise _BadRequest(400, "Invalid Content-Length")
-        if n > CLIENT_MAX_SIZE:
-            # aiohttp's text; refused before the body is read
-            raise _BadRequest(
-                413, f"Maximum request body size {CLIENT_MAX_SIZE} "
-                     f"exceeded, actual body size {n}")
-        request.body = await conn.readexactly(n) if n else b""
-        return request
-
     async def _dispatch(self, request: _Request):
         route = self._routes().get(request.path)
         if route is None:
@@ -1118,104 +844,6 @@ class GatewayServer:
             return _text_response("405: Method Not Allowed", status=405,
                                   headers={"Allow": method})
         return await fn(request)
-
-    async def _on_conn(self, reader: asyncio.StreamReader,
-                       writer: asyncio.StreamWriter) -> None:
-        conn = _Conn(reader, writer)
-        self._conns.add(conn)
-        try:
-            while not self._shutdown.is_set():
-                try:
-                    request = await self._read_request(conn)
-                except _BadRequest as e:
-                    resp = _text_response(e.text, status=e.status, headers={
-                        "X-Request-Id": f"req-{uuid.uuid4().hex[:24]}"})
-                    await conn.write(resp.encode("HTTP/1.1", close=True))
-                    break
-                if request is None:
-                    break
-                keep = request.keep_alive
-                try:
-                    resp = await self._dispatch(request)
-                except _CLIENT_GONE:
-                    raise
-                except Exception:  # noqa: BLE001 — a handler's bug: 500
-                    _log.exception("gateway %s: %s %s failed",
-                                   self.gateway_id, request.method,
-                                   request.path)
-                    resp = _text_response(
-                        "500 Internal Server Error\n\nServer got itself "
-                        "in trouble", status=500)
-                    keep = False
-                finally:
-                    conn.clear_on_gone()
-                if resp is _CLOSED:
-                    break
-                if isinstance(resp, _StreamResponse):
-                    if not (resp.finished and keep):
-                        break
-                    continue
-                # every response carries X-Request-Id: the completion
-                # handlers' route-prefixed id, else a req- id
-                resp.headers.setdefault(
-                    "X-Request-Id",
-                    request.req_id or f"req-{uuid.uuid4().hex[:24]}")
-                await conn.write(resp.encode(
-                    request.version,
-                    close=not keep and request.version != "HTTP/1.0"))
-                if not keep:
-                    break
-        except _CLIENT_GONE:
-            pass
-        finally:
-            self._conns.discard(conn)
-            try:
-                writer.close()
-            except Exception:  # noqa: BLE001 — transport already gone
-                pass
-
-    def _serve_thread(self) -> None:
-        loop = asyncio.new_event_loop()
-        asyncio.set_event_loop(loop)
-        self._loop = loop
-
-        async def run():
-            port = self._port
-            server = None
-            for _attempt in range(20):  # skip ports already in use
-                try:
-                    server = await asyncio.start_server(
-                        self._on_conn, self._host, port)
-                    break
-                except OSError:
-                    if port == 0:  # an ephemeral bind cannot collide
-                        raise
-                    port += 1
-            if server is None:
-                raise RuntimeError("could not bind gateway port")
-            if port == 0:
-                port = server.sockets[0].getsockname()[1]
-            self._bound_port = port
-            self._ready.set()
-            self.publish_telemetry(force=True)
-            while not self._shutdown.is_set():
-                await asyncio.sleep(0.2)
-            server.close()
-            for conn in list(self._conns):
-                conn.abort()
-            tasks = [t for t in asyncio.all_tasks()
-                     if t is not asyncio.current_task()]
-            for t in tasks:
-                t.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-
-        try:
-            loop.run_until_complete(run())
-        except BaseException as e:  # noqa: BLE001 — ready() raises it
-            self._start_error = e
-            self._ready.set()
-        finally:
-            loop.close()
 
 
 __all__ = ["ByteCodec", "GatewayServer"]

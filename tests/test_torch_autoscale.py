@@ -2,7 +2,8 @@
 against the JAX package's, on the CPU: Llama tiny in fp32, KV blocks of 4
 tokens, every server at ``device="cpu"``.
 
-Twins of tests/test_autoscale.py: the sliding window, the hysteresis /
+Twins of tests/test_autoscale.py: the sliding window, a serve replica's
+trailing window in its `get_metrics()`, the hysteresis /
 cooldown / clamp gates, the no-flap property, the tiers' independent
 signals, the TierSpec bounds over any policy, scale-to-zero with the
 first arrival's wake, a burst's scale-up admitting at once, the
@@ -18,9 +19,8 @@ probe_signals` on the same router state (stub replicas answering the
 same free slots and speculation stats), and the timeline's autoscale
 markers.
 
-Not twinned: test_replica_recent_window_in_get_metrics waits for the
-port of serve/replica.py; test_all_surfaces_report_consistent_numbers'
-CLI and dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
+Not twinned: test_all_surfaces_report_consistent_numbers' CLI and
+dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
 """
 from __future__ import annotations
 
@@ -365,6 +365,26 @@ def test_autoscale_trace_events_match_jax():
 
 
 # ------------------------------------------------- the loop, real tiers
+
+
+def test_replica_recent_window_in_get_metrics():
+    """serve/replica.py reports trailing-window latency beside the
+    lifetime counters, from serve/autoscale.py's SlidingWindow."""
+    import cloudpickle
+
+    from ray_tpu_torch.serve.replica import ReplicaActor
+
+    rep = ReplicaActor("t#r#1", "dep", "app",
+                       cloudpickle.dumps(lambda x: x),
+                       cloudpickle.dumps(((), {})))
+    for i in range(5):
+        assert rep.handle_request({}, [i], {}) == i
+    m = rep.get_metrics()
+    assert m["num_requests"] == 5
+    rec = m["recent"]["latency_ms"]
+    assert rec["n"] == 5 and rec["p99"] >= rec["p50"] >= 0.0
+    assert isinstance(rep._recent_latency, SlidingWindow)
+
 
 def test_tier_spec_bounds_cap_any_policy(model):
     router, _, _ = _tiers(model, max_batch=1, queue_depth=1)

@@ -25,15 +25,20 @@ launch gate refuses a flash count off by one and any CE launch. The
 gateway phase's gates: `hold_gateway_text` refuses a stream one token
 short of generate(), `hold_reaped` a disconnect that leaves a slot
 active, `hold_by_code` a status code's total off by one against
-Prometheus. And the script's last sweep (`stop_descendants`), in a
-process of its own: a live child, a grandchild and a zombie child are
-all stopped and reaped."""
+Prometheus. The serve_deploy phase's gates: a replica's stream one token
+off generate() (`hold_stream`), a score in the GPU replica without its
+`ce_fwd` launch or one flash launch short (`hold_launches`), and an
+actor, a live process or the card's lease left after serve.shutdown()
+(`serve_left` / `hold_serve_gone`) each fail. And the script's last
+sweep (`stop_descendants`), in a process of its own: a live child, a
+grandchild and a zombie child are all stopped and reaped."""
 from __future__ import annotations
 
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -626,6 +631,61 @@ print(json.dumps({"stopped": stopped, "zombie": pid,
                   "left": [p for p, (ppid, _, _) in table.items()
                            if ppid == os.getpid()]}))
 """
+
+
+
+def test_serve_deploy_stream_gate_refuses_one_token_off():
+    want = list(range(100, 124))
+    chip_smoke.hold_stream("serve_deploy: handle stream 0", list(want), want)
+    for bad in (want[:-1], want[:5] + [want[5] + 1] + want[6:]):
+        with pytest.raises(AssertionError, match="differs from generate"):
+            chip_smoke.hold_stream("serve_deploy: handle stream 0", bad,
+                                   want)
+
+
+@pytest.mark.parametrize("fault", ["no_ce_fwd", "one_flash_short",
+                                   "a_backward_launch"])
+def test_serve_deploy_launch_gate_refuses_a_missing_launch(fault):
+    """The GPU replica's score: exactly 12 flash_fwd and 1 ce_fwd (one
+    gpt2_loss on GPT-2 small)."""
+    per = {**chip_smoke._NO_LAUNCHES, "flash_fwd": 12, "ce_fwd": 1}
+    chip_smoke.hold_launches("serve_deploy", dict(per), per, 1)
+    bad = dict(per)
+    if fault == "no_ce_fwd":
+        bad["ce_fwd"] = 0
+    elif fault == "one_flash_short":
+        bad["flash_fwd"] = 11
+    else:
+        bad["flash_bwd_dq"] = 1
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.hold_launches("serve_deploy", bad, per, 1)
+
+
+def test_serve_deploy_gone_gate_refuses_anything_left():
+    """After serve.shutdown(): an actor not DEAD, a live process of the
+    session or the lease not back fails; a zombie counts as gone."""
+    dead = [{"actor_id": "a" * 32, "state": "DEAD"}]
+    live = subprocess.Popen([sys.executable, "-c",
+                             "import time; time.sleep(60)"])
+    zombie = subprocess.Popen([sys.executable, "-c", "pass"])
+    try:
+        for _ in range(1000):  # the child exits unreaped: a zombie
+            if chip_smoke._proc_table().get(zombie.pid, (0, ""))[1] == "Z":
+                break
+            time.sleep(0.01)
+        clean = chip_smoke.serve_left(dead, [zombie.pid], 1.0)
+        chip_smoke.hold_serve_gone("serve_deploy", clean)
+        for left in (
+                chip_smoke.serve_left(dead + [{"actor_id": "b" * 32,
+                                               "state": "ALIVE"}], [], 1.0),
+                chip_smoke.serve_left(dead, [zombie.pid, live.pid], 1.0),
+                chip_smoke.serve_left(dead, [], 0.0)):
+            with pytest.raises(AssertionError, match="left after serve"):
+                chip_smoke.hold_serve_gone("serve_deploy", left)
+    finally:
+        live.kill()
+        live.wait()
+        zombie.wait()
 
 
 def test_sweep_stops_every_descendant():

@@ -125,8 +125,16 @@ equal to `generate()`; the replica's bf16 loss bit-equal to this
 driver's, its 12 `flash_fwd` and 1 `ce_fwd` launches counted in its
 process; the replicas' request counts; TTFT and batch-1 decode through
 the handle and the proxy against the engine in the replica; the
-replica's cold start split; nothing left after `serve.shutdown()`.
-Every phase prints one JSON line; a phase that fails ends the run with a
+replica's cold start split; the web dashboard's routes and the CLI's
+state views read beside the live replica (the summary counting the
+card, the replica's drill-down naming its pid and scoring call, the
+serve views equal to `serve.status()`, the metric families equal to
+the state API's), each route's median latency and each command's wall
+time; nothing left after `serve.shutdown()`, no application on
+/api/serve and nothing of the dashboard left after its stop. The
+runtime_surface phase reads the dashboard and the CLI too: its merged
+timeline holds the GPU actor's scoring task and span, /api/objects its
+worker's store. Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code and no result line. The line before last lists each
 kernel with its launches on its training path, its error against the
 plain version, its time, the plain version's and the library's time and
@@ -144,6 +152,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -6408,6 +6417,7 @@ def surface_body(rt, gpt2, stage: str) -> dict:
           f"driver's {float(loss_d)}")
     check(got["ref"] in got["refused"] and "no GPU lease" in got["refused"],
           f"runtime_surface: the client's CUDA get said {got['refused']!r}")
+    cli_dash = surface_cli_dashboard(rt, a.actor_id, calls, want, stage)
     return {
         "phase": "runtime_surface", "card": card_line(),
         "model": "gpt2-small", "dtype": "bfloat16", "tokens": [4, 512],
@@ -6423,7 +6433,59 @@ def surface_body(rt, gpt2, stage: str) -> dict:
         "client_call_ms_range": [min(got["ms"]), max(got["ms"])],
         "client_process_s": client_s, "client_loss_bit_equal": True,
         "client_cuda_get": "GpuLeaseRequiredError",
-        "predicted": SURFACE_PREDICTED}
+        "cli_dashboard": cli_dash, "predicted": SURFACE_PREDICTED}
+
+
+def surface_cli_dashboard(rt, actor_id: str, task: str, span: str,
+                          stage: str) -> dict:
+    """runtime_surface's CLI and dashboard leg, beside its GPU actor:
+    /api/timeline, /api/tasks, /api/objects and /api/logs (each GET
+    CLI_DASHBOARD_GETS times), `timeline --merged` and `memory`; the
+    merged timeline holds the actor's scoring task and its span, and
+    /api/objects (and `memory`) the actor's worker's store stats."""
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.dashboard_checks import dashboard_left
+    from ray_tpu_torch.dashboard import DashboardServer
+
+    t0 = time.perf_counter()
+    host, port = worker_mod.global_worker.conductor_address
+    addr = f"{host}:{port}"
+    srv = DashboardServer((host, port), port=0).start()
+    try:
+        route_ms, last = dashboard_gets(
+            srv.url, [(r, r) for r in SURFACE_DASHBOARD_ROUTES],
+            CLI_DASHBOARD_GETS)
+        for route, (status, ctype, _) in last.items():
+            check(status == 200 and ctype == "application/json",
+                  f"runtime_surface: {route} answered {status} {ctype}")
+        body = {r: json.loads(v[2]) for r, v in last.items()}
+        check(any(e.get("name") == task for e in body["/api/timeline"]),
+              f"runtime_surface: /api/timeline holds no {task}")
+        check(any(t["name"] == task and t["count"] >= 1
+                  for t in body["/api/tasks"]),
+              f"runtime_surface: /api/tasks holds no {task}")
+        hold_objects("runtime_surface", body["/api/objects"], actor_id)
+        merged = os.path.join(stage, "merged.json")
+        cli_ms, outs = {}, {}
+        for name, argv in (("timeline --merged",
+                            ["timeline", "--merged", merged,
+                             "--address", addr]),
+                           ("memory", ["memory", "--address", addr])):
+            outs[name], cli_ms[name] = cli_run(argv)
+        with open(merged) as f:
+            trace = json.load(f)
+        hold_merged_timeline("runtime_surface", trace, task, span)
+        hold_objects("runtime_surface: `memory`",
+                     json.loads(outs["memory"]), actor_id)
+    finally:
+        srv.stop()
+    left = dashboard_left(srv)
+    hold_dashboard_gone("runtime_surface", left)
+    return {"route_ms_median": route_ms,
+            "gets_per_route": CLI_DASHBOARD_GETS, "cli_ms": cli_ms,
+            "merged_events": len(trace), "log_lines": len(body["/api/logs"]),
+            "leg_s": time.perf_counter() - t0, "left_after_stop": left,
+            "card": card_line()}
 
 
 TELEMETRY_SEED = 99
@@ -7659,6 +7721,262 @@ def wait_serve_gone(rt, pids, bound_s: float) -> dict:
         time.sleep(0.1)
 
 
+# the CLI's state views and the web dashboard, read in serve_deploy
+# beside the GPU replica and in runtime_surface beside the GPU actor
+# (no cluster and no actor of their own)
+CLI_DASHBOARD_GETS = 5  # GETs of each route: its median latency
+CLI_DASHBOARD_ROUTES = ("/", "/api/summary", "/api/actors",
+                        "/api/actors/{replica}", "/api/serve",
+                        "/api/tasks", "/api/metrics", "/api/rpc")
+SURFACE_DASHBOARD_ROUTES = ("/api/timeline", "/api/tasks", "/api/objects",
+                            "/api/logs")
+# after serve.shutdown(): /api/serve shows no application within this
+CLI_DASHBOARD_EMPTY_S = 10.0
+# written before the legs first ran (PERF.md §6): medians in ms
+CLI_DASHBOARD_PREDICTED = {
+    "route_ms": {"/": [0.5, 5], "/api/summary": [1, 10],
+                 "/api/actors": [0.5, 5], "/api/actors/{replica}": [2, 30],
+                 "/api/serve": [0.5, 5], "/api/tasks": [1, 30],
+                 "/api/metrics": [2, 40], "/api/rpc": [0.5, 10]},
+    "cli_ms": {"status": [3, 50], "summary": [3, 50],
+               "list actors": [2, 30], "serve status": [5, 100],
+               "metrics": [3, 60], "timeline": [5, 100]},
+    "serve_empty_s": [0, 3],
+    "serve_deploy_leg_s": [1, 6], "runtime_surface_leg_s": [0.5, 4]}
+
+
+def cli_run(argv: list) -> tuple:
+    """`python -m ray_tpu_torch <argv>` in this process: (its standard
+    output, its wall ms)."""
+    from ray_tpu_torch.scripts import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    return out.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def dashboard_gets(url: str, routes, n: int) -> tuple:
+    """Each route GET `n` times: ({route: median ms}, {route: the last
+    (status, content type, body)})."""
+    from ray_tpu_torch._private.dashboard_checks import http_get
+
+    ms, last = {}, {}
+    for route, path in routes:
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            last[route] = http_get(url, path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[route] = statistics.median(times)
+    return ms, last
+
+
+def serve_view(status: dict) -> dict:
+    """The applications of a serve status (serve.status(), the CLI's
+    `serve status`, the dashboard's /api/serve): each app's status and
+    route, each deployment's status and replicas; not the metrics, which
+    move between reads."""
+    return {app: {"status": a.get("status"),
+                  "route_prefix": a.get("route_prefix"),
+                  "deployments": {d: {"status": dep.get("status"),
+                                      "replicas": dep.get("replicas")}
+                                  for d, dep in a.get("deployments",
+                                                      {}).items()}}
+            for app, a in (status.get("applications") or {}).items()}
+
+
+def hold_serve_view(what: str, dash: dict, api: dict, cli: dict,
+                    app: str, deployments: set) -> None:
+    """/api/serve's applications and statuses are serve.status()'s and
+    `serve status`'s, with `app` RUNNING over `deployments`."""
+    views = [serve_view(x) for x in (dash, api, cli)]
+    check(views[0] == views[1] == views[2],
+          f"{what}: /api/serve {views[0]}, serve.status() {views[1]}, "
+          f"`serve status` {views[2]}")
+    got = views[1].get(app, {})
+    check(got.get("status") == "RUNNING"
+          and set(got.get("deployments", {})) == deployments,
+          f"{what}: application {app} is {got}")
+
+
+def hold_actor_detail(what: str, detail: dict, actor_id: str, pid: int,
+                      window: tuple, task: str = ".handle_request") -> None:
+    """/api/actors/{id} names the actor, its worker's pid is the one the
+    actor reports, and its recent tasks hold the call made in `window`
+    (time.time() before and after it), by name suffix."""
+    worker = detail.get("worker") or {}
+    calls = [ev for ev in detail.get("recent_tasks") or []
+             if ev.get("name", "").endswith(task)
+             and window[0] <= ev.get("start", -1)
+             and ev.get("end", float("inf")) <= window[1]]
+    check((detail.get("actor") or {}).get("actor_id") == actor_id
+          and worker.get("pid") == pid and calls,
+          f"{what}: /api/actors/{actor_id}: actor "
+          f"{(detail.get('actor') or {}).get('actor_id')}, worker pid "
+          f"{worker.get('pid')} (the replica's {pid}), {len(calls)} calls "
+          f"in the window {window} of "
+          f"{[ev.get('name') for ev in detail.get('recent_tasks') or []]}")
+
+
+def metric_families(text: str) -> set:
+    """The metric family names of a Prometheus text (its TYPE lines)."""
+    return {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def hold_families(what: str, api: str, dash: str, cli: str) -> set:
+    got = [metric_families(t) for t in (api, dash, cli)]
+    check(got[0] and got[0] == got[1] == got[2],
+          f"{what}: metric families differ: state "
+          f"{sorted(got[0] ^ got[1])} (dashboard), "
+          f"{sorted(got[0] ^ got[2])} (CLI)")
+    return got[0]
+
+
+def hold_dashboard_gone(what: str, left: dict) -> None:
+    """A stopped dashboard left no thread, listening socket or conductor
+    client (dashboard_checks.dashboard_left)."""
+    check(left == {"threads": [], "listening": False, "client_open": False},
+          f"{what}: the dashboard left {left}")
+
+
+def hold_merged_timeline(what: str, trace: list, task: str,
+                         span: str) -> None:
+    """The merged timeline holds the actor's scoring task and its span."""
+    tasks = [e for e in trace if e.get("cat") == "task"
+             and e.get("name") == task]
+    spans = [e for e in trace if e.get("cat") == "span"
+             and e.get("name") == span]
+    check(tasks and spans, f"{what}: the merged timeline holds {len(tasks)} "
+          f"{task} tasks and {len(spans)} {span} spans")
+
+
+def hold_objects(what: str, objects: list, actor_id: str) -> None:
+    """/api/objects holds the GPU actor's worker's store stats."""
+    mine = [o for o in objects if o.get("actor_id") == actor_id]
+    check(len(mine) == 1 and "num_objects" in mine[0],
+          f"{what}: /api/objects holds {len(mine)} entries of actor "
+          f"{actor_id}: {[o.get('actor_id') for o in objects]}")
+
+
+def serve_deploy_cli_dashboard(rt, serve, srv, actor_id: str, pid: int,
+                               window: tuple, stage: str) -> dict:
+    """The dashboard's routes and the CLI's views against the live
+    application (see phase_serve_deploy): the gates before shutdown."""
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.dashboard_checks import http_get
+    from ray_tpu_torch.util import state
+
+    host, port = worker_mod.global_worker.conductor_address
+    addr = f"{host}:{port}"
+    routes = [(r, r.replace("{replica}", actor_id))
+              for r in CLI_DASHBOARD_ROUTES]
+    # the scoring call's task event reaches the conductor in a batch
+    deadline = time.monotonic() + 15.0
+    while True:
+        detail = json.loads(http_get(srv.url, f"/api/actors/{actor_id}")[2])
+        if any(ev.get("name", "").endswith(".handle_request")
+               and window[0] <= ev.get("start", -1)
+               for ev in detail.get("recent_tasks") or []) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    route_ms, last = dashboard_gets(srv.url, routes, CLI_DASHBOARD_GETS)
+    status, ctype, body = last["/"]
+    check(status == 200 and ctype == "text/html" and b"/api/summary" in body,
+          f"serve_deploy: / answered {status} {ctype}")
+    for route, (status, ctype, _) in last.items():
+        want = {"/": "text/html", "/api/metrics": "text/plain"}.get(
+            route, "application/json")
+        check(status == 200 and ctype == want,
+              f"serve_deploy: {route} answered {status} {ctype}")
+    summary = json.loads(last["/api/summary"][2])
+    check(summary["resources_total"].get("GPU") == 1.0,
+          f"serve_deploy: /api/summary counts "
+          f"{summary['resources_total']}")
+    actors = json.loads(last["/api/actors"][2])
+    check(any(a["actor_id"] == actor_id and a["state"] == "ALIVE"
+              for a in actors), f"serve_deploy: /api/actors lacks the "
+          f"replica {actor_id}")
+    hold_actor_detail("serve_deploy", json.loads(
+        last["/api/actors/{replica}"][2]), actor_id, pid, window)
+    cli_ms, outs = {}, {}
+    timeline_path = os.path.join(stage, "timeline.json")
+    for name, argv in (("status", ["status", "--address", addr]),
+                       ("summary", ["summary", "--address", addr]),
+                       ("list actors", ["list", "actors", "--address",
+                                        addr]),
+                       ("serve status", ["serve", "--address", addr,
+                                         "status"]),
+                       ("metrics", ["metrics", "--address", addr]),
+                       ("timeline", ["timeline", timeline_path,
+                                     "--address", addr])):
+        outs[name], cli_ms[name] = cli_run(argv)
+    check(json.loads(outs["status"])["resources_total"].get("GPU") == 1.0,
+          "serve_deploy: `status` does not count the card")
+    check(any(a["actor_id"] == actor_id
+              for a in json.loads(outs["list actors"])),
+          "serve_deploy: `list actors` lacks the replica")
+    check(any(name.endswith(".handle_request")
+              for name in json.loads(outs["summary"])),
+          "serve_deploy: `summary` holds no handle_request task")
+    with open(timeline_path) as f:
+        trace = json.load(f)
+    check(outs["timeline"].startswith(f"wrote {len(trace)} task events")
+          and any(e["name"].endswith(".handle_request") for e in trace),
+          f"serve_deploy: `timeline` wrote {outs['timeline']!r}")
+    # the serve views agree once the controller's KV mirror (every 2 s)
+    # has caught up with the live status
+    deadline = time.monotonic() + 10.0
+    while True:
+        api = serve.status()
+        dash = json.loads(http_get(srv.url, "/api/serve")[2])
+        if serve_view(dash) == serve_view(api) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    hold_serve_view("serve_deploy", dash, api,
+                    json.loads(outs["serve status"]), "llm",
+                    {"Model", "Ingress"})
+    # metric families: state, /api/metrics and `metrics` read in turn,
+    # again while a family is new between the reads or none was pushed
+    # yet (the replicas push every 2 s)
+    deadline = time.monotonic() + 10.0
+    while True:
+        texts = [state.prometheus_metrics(),
+                 http_get(srv.url, "/api/metrics")[2].decode(),
+                 cli_run(["metrics", "--address", addr])[0]]
+        fams = [metric_families(t) for t in texts]
+        if (fams[0] and fams[0] == fams[1] == fams[2]) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    families = hold_families("serve_deploy", *texts)
+    return {"route_ms_median": route_ms, "gets_per_route": CLI_DASHBOARD_GETS,
+            "cli_ms": cli_ms, "metric_families": len(families),
+            "timeline_events": len(trace), "actor_id": actor_id,
+            "card": card_line()}
+
+
+def wait_dashboard_serve_empty(srv, bound_s: float) -> float:
+    """Seconds until /api/serve shows no application (the controller
+    deletes its KV mirror at shutdown), or a failed gate at `bound_s`."""
+    from ray_tpu_torch._private.dashboard_checks import http_get
+
+    t0 = time.perf_counter()
+    while True:
+        apps = json.loads(http_get(srv.url, "/api/serve")[2]).get(
+            "applications")
+        if apps == {}:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < bound_s,
+              f"serve_deploy: /api/serve still shows {apps} "
+              f"{bound_s} s after serve.shutdown()")
+        time.sleep(0.1)
+
+
 def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
     """Serve deployments on the card: `serve.start()`, then one
     application: `Model`, one GPU replica (ray_actor_options num_gpus 1)
@@ -7673,7 +7991,18 @@ def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
     get_metrics() counting the requests sent. Timed, each path batch-1:
     TTFT and streamed decode rate through the handle and the proxy
     against the engine called in the replica; the replica's cold start
-    split. After serve.shutdown() no actor, process or lease is left."""
+    split. Beside the live application (no actor of its own): the web
+    dashboard's routes (/, the summary counting the card, the actors and
+    the replica's drill-down naming its pid and the scoring call, /api/
+    serve equal to serve.status() and `serve status`, tasks, metrics
+    with the state API's families, rpc), each GET 5 times, and the CLI's
+    status, summary, list actors, serve status, metrics and timeline,
+    run in this process. After serve.shutdown() no actor, process or
+    lease is left, /api/serve shows no application within 10 s, and the
+    stopped dashboard leaves no thread, socket or client."""
+    import shutil
+    import tempfile
+
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch._private import worker as worker_mod
@@ -7790,8 +8119,10 @@ def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
                   f"{out['content_type']}")
 
         # scoring in the replica on the kernels, against this driver's
+        score_window = [time.time()]
         loss_r, launches, plain = model_h.score.remote(
             tok_d, tgt_d).result(timeout_s=300.0)
+        score_window.append(time.time())
         sent["Model"] += 1
         hold_launches("serve_deploy: the GPU replica's score", launches,
                       {**_NO_LAUNCHES, "flash_fwd": cfg.num_layers,
@@ -7837,6 +8168,8 @@ def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
             check(len(reps) == 1, f"serve_deploy: {dep} has {len(reps)} "
                   f"replicas")
             m = rt.get(reps[0][1].get_metrics.remote(), timeout=60.0)
+            if dep == "Model":
+                model_actor_id = reps[0][1].actor_id
             counts[dep] = {"num_requests": m["num_requests"],
                            "num_errors": m["num_errors"],
                            "recent_latency_n": m["recent"]["latency_ms"]["n"]}
@@ -7845,18 +8178,40 @@ def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
                   f"{m['num_requests']} requests ({m['num_errors']} errors), "
                   f"{sent[dep]} were sent")
 
-        # shutdown: nothing of the application is left
-        pids = [w["pid"] for w in worker_mod.global_worker.conductor.call(
-            "list_workers", timeout=30.0)
-            if w["state"] == "ACTOR" and w["pid"]]
-        check(where["pid"] in pids,
-              f"serve_deploy: the replica's pid {where['pid']} is not "
-              f"among the actor workers {pids}")
-        t0 = time.perf_counter()
-        serve.shutdown()
-        left = wait_serve_gone(rt, pids, SERVE_DEPLOY_GONE_S)
-        gone_s = time.perf_counter() - t0
-        hold_serve_gone("serve_deploy", left)
+        # the CLI's state views and the web dashboard beside the replica,
+        # then through shutdown: nothing of the application is left
+        from ray_tpu_torch._private.dashboard_checks import dashboard_left
+        from ray_tpu_torch.dashboard import DashboardServer
+
+        t_leg = time.perf_counter()
+        srv = DashboardServer(worker_mod.global_worker.conductor_address,
+                              port=0).start()
+        stage = tempfile.mkdtemp(prefix="serve-deploy-")
+        try:
+            cli_dash = serve_deploy_cli_dashboard(
+                rt, serve, srv, model_actor_id, where["pid"],
+                tuple(score_window), stage)
+            cli_dash["before_shutdown_s"] = time.perf_counter() - t_leg
+            pids = [w["pid"] for w in
+                    worker_mod.global_worker.conductor.call(
+                        "list_workers", timeout=30.0)
+                    if w["state"] == "ACTOR" and w["pid"]]
+            check(where["pid"] in pids,
+                  f"serve_deploy: the replica's pid {where['pid']} is not "
+                  f"among the actor workers {pids}")
+            t0 = time.perf_counter()
+            serve.shutdown()
+            left = wait_serve_gone(rt, pids, SERVE_DEPLOY_GONE_S)
+            gone_s = time.perf_counter() - t0
+            hold_serve_gone("serve_deploy", left)
+            cli_dash["serve_empty_s"] = wait_dashboard_serve_empty(
+                srv, CLI_DASHBOARD_EMPTY_S)
+        finally:
+            srv.stop()
+            shutil.rmtree(stage, ignore_errors=True)
+        cli_dash["left_after_stop"] = dashboard_left(srv)
+        hold_dashboard_gone("serve_deploy", cli_dash["left_after_stop"])
+        cli_dash["predicted"] = CLI_DASHBOARD_PREDICTED
     finally:
         end_session(rt, info["session_dir"], "serve_deploy")
     emit({"phase": "serve_deploy", "card": card_line(),
@@ -7870,7 +8225,7 @@ def phase_serve_deploy(kernels, gpt2, generate_mod) -> None:
           "handle_over_engine_tokens_per_s": rate["handle"] / rate["engine"],
           "proxy_over_engine_tokens_per_s": rate["proxy"] / rate["engine"],
           "requests": counts, "shutdown_s": gone_s,
-          "left_after_shutdown": left,
+          "left_after_shutdown": left, "cli_dashboard": cli_dash,
           "phase_s": time.perf_counter() - t_phase,
           "predicted": SERVE_DEPLOY_PREDICTED})
 

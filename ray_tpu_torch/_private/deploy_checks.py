@@ -801,6 +801,32 @@ def yaml_cli_serve_deploy_and_status():
         _routed("/cli")
         assert _post_json("/cli", {"x": 2}) == (200, {"value": 4})
         assert "cliapp" in run("status")
+        # the address from RTT_ADDRESS, as the JAX twin's from its
+        # variable; `serve status` and the dashboard's /api/serve agree
+        from ray_tpu_torch._private.conductor import ENV_ADDRESS
+
+        from .cluster_checks import _wait_until
+        from .dashboard_checks import dashboard_json
+
+        prior = os.environ.get(ENV_ADDRESS)
+        os.environ[ENV_ADDRESS] = f"{host}:{port}"
+        try:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["serve", "status"])
+        finally:
+            if prior is None:
+                os.environ.pop(ENV_ADDRESS)
+            else:
+                os.environ[ENV_ADDRESS] = prior
+        apps = json.loads(out.getvalue())["applications"]
+        assert apps["cliapp"]["status"] == "RUNNING", apps
+
+        def mirrored():
+            dash = dashboard_json("/api/serve")["applications"]
+            return dash.get("cliapp", {}).get("status") == "RUNNING"
+
+        _wait_until(mirrored, 15.0, "/api/serve never showed cliapp")
         assert f"{_IMPORT}:app" in run("config")
         run("delete", "cliapp")
         assert "cliapp" not in serve.status()["applications"]

@@ -424,6 +424,14 @@ def weights_train_publish_serve_hotswap_e2e():
         assert state.weight_versions()["names"]["lm"]["latest"] == 2
         assert st["latest_version"] == 2
         assert st["staleness_versions"] == 0
+        # the CLI and the dashboard agree on the registry
+        from .dashboard_checks import cli_json, cli_text, dashboard_json
+
+        assert cli_json("weights", "list")["names"]["lm"]["latest"] == 2
+        assert json.loads(cli_text("weights", "inspect", "lm"))[
+            "version"] == 2
+        assert "lm: latest=v2 (2 kept)" in cli_text("weights", "list")
+        assert dashboard_json("/api/weights")["names"]["lm"]["latest"] == 2
         kinds = {e["tid"] for e in merged_timeline()
                  if e.get("cat") == "weights"}
         assert {"publish", "fetch", "swap"} <= kinds, kinds

@@ -7,9 +7,9 @@
 Each named check is a function of `runtime_checks.py`,
 `cluster_checks.py`, `fabric_checks.py`, `serve_checks.py`,
 `online_checks.py`, `mpmd_checks.py`, `surface_checks.py`,
-`telemetry_checks.py` or `deploy_checks.py` (modules of the package, so
-worker processes can import what a check pickles by reference).
-`run_checks` starts a fresh `python -m
+`telemetry_checks.py`, `deploy_checks.py` or `dashboard_checks.py`
+(modules of the package, so worker processes can import what a check
+pickles by reference). `run_checks` starts a fresh `python -m
 ray_tpu_torch._private.isolated` driver in a new session. For each check
 the driver starts a cluster with `init(**kwargs)` (None: the check
 starts and stops its own), runs the check, shuts the cluster down and
@@ -181,9 +181,10 @@ def _driver_main(payload_path: str) -> int:
         p = json.load(f)
     import ray_tpu_torch as rt
 
-    from . import (cluster_checks, deploy_checks, fabric_checks,
-                   mpmd_checks, online_checks, runtime_checks,
-                   serve_checks, surface_checks, telemetry_checks)
+    from . import (cluster_checks, dashboard_checks, deploy_checks,
+                   fabric_checks, mpmd_checks, online_checks,
+                   runtime_checks, serve_checks, surface_checks,
+                   telemetry_checks)
     from .config import config
 
     # sessions (a check's own too) live under the run's directory,
@@ -213,7 +214,8 @@ def _driver_main(payload_path: str) -> int:
                 or getattr(mpmd_checks, name, None) \
                 or getattr(surface_checks, name, None) \
                 or getattr(telemetry_checks, name, None) \
-                or getattr(deploy_checks, name)
+                or getattr(deploy_checks, name, None) \
+                or getattr(dashboard_checks, name)
             if init_kwargs is not None:
                 rt.init(**init_kwargs)
             value = fn()

@@ -492,6 +492,21 @@ def mpmd_all_surfaces_report_consistent_numbers():
         assert abs(prom_total(prom, "ray_tpu_pipeline_bubble_fraction",
                               pipeline="surfaces", stage=s)
                    - mine["last_bubble_fraction"]) <= 1e-6, s
+    # the CLI and the dashboard (JSON stage keys are strings)
+    from .dashboard_checks import cli_json, cli_text, dashboard_json
+
+    cli_rec = cli_json("pipeline")["pipelines"]["surfaces"]
+    for s, mine in local.items():
+        assert cli_rec["stats"][str(s)]["sent_bytes"] == mine["sent_bytes"]
+    assert cli_rec["totals"]["activation_bytes"] == sent
+    text = cli_text("pipeline", "--events", "5")
+    assert "surfaces" in text and "schedule=gpipe" in text, text
+    dash = dashboard_json("/api/pipeline")["pipelines"]["surfaces"]
+    for s, mine in local.items():
+        assert dash["stats"][str(s)]["recv_bytes"] == mine["recv_bytes"]
+    kinds = {e["kind"] for e in dashboard_json("/api/pipeline")["events"]
+             if e.get("pipeline") == "surfaces"}
+    assert {"open", "formed", "stage_report", "closed"} <= kinds, kinds
     return {"losses": out["losses"], "params": [pack(p) for p in params]}
 
 

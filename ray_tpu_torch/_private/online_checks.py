@@ -485,6 +485,16 @@ def online_distillation_e2e():
     assert prom_total(prom, "ray_tpu_weights_published_total",
                       name="e2e") >= published
     assert prom_total(prom, "ray_tpu_online_rollout_tokens_total") > 0
+    # the CLI and the dashboard: the same aggregate
+    from .dashboard_checks import cli_json, cli_text, dashboard_json
+
+    cli_payload = cli_json("online")
+    assert cli_payload["totals"] == api["totals"]
+    assert set(cli_payload["samplers"]) == set(api["samplers"])
+    text = cli_text("online", "--events", "5")
+    assert "totals:" in text and "max_staleness=" in text, text
+    dash = dashboard_json("/api/online")
+    assert dash["totals"] == api["totals"] and dash["events"]
     return {"losses": losses,
             "max_staleness": api["totals"]["max_staleness_versions"]}
 

@@ -457,6 +457,21 @@ def autoscale_all_surfaces_report_consistent_numbers():
     assert prom_total(prom, "ray_tpu_autoscale_replica_seconds_total",
                       tier="decode") > 0
     assert "# TYPE ray_tpu_autoscale_target_replicas gauge" in prom
+    # the CLI and the dashboard: the same aggregate
+    from .dashboard_checks import cli_json, cli_text, dashboard_json
+
+    cli_out = cli_json("autoscale")
+    assert cli_out["totals"] == totals
+    assert cli_out["autoscalers"][scaler.autoscaler_id]["scale_ups"] \
+        == local["scale_ups"]
+    assert f"  {scaler.autoscaler_id}: router=" in cli_text("autoscale")
+    dash = dashboard_json("/api/autoscale")
+    assert dash["totals"] == totals
+    by_kind: dict = {}
+    for ev in dash["events"]:
+        if ev.get("autoscaler") == scaler.autoscaler_id:
+            by_kind[ev["kind"]] = by_kind.get(ev["kind"], 0) + 1
+    assert by_kind == {"scale_up": 1, "drain": 1, "scale_down": 1}, by_kind
     return {"totals": totals}
 
 
@@ -544,6 +559,14 @@ def servefault_actor_decode_kill_mid_stream_heals_and_completes():
         kinds = [e["kind"] for e in
                  _conductor().call("get_servefault_events")]
         assert "replica_death" in kinds and "replace" in kinds, kinds
+        from .dashboard_checks import cli_json, dashboard_json
+
+        sf = state.servefault_status()
+        assert cli_json("servefault")["totals"] == sf["totals"]
+        dash = dashboard_json("/api/servefault")
+        assert dash["totals"] == sf["totals"]
+        assert {"failover", "replace"} <= {e.get("kind")
+                                           for e in dash["events"]}
         # Prometheus: the healer's replacement and the router's failover
         # (both in this driver)
         from .telemetry_checks import prom_total, prometheus_when
@@ -750,6 +773,27 @@ def port_disagg_one_set_of_numbers():
         >= local["kvp"]["tier2_hits"]
     assert prom_total(prom, "ray_tpu_kvplane_directory_total") \
         >= local["rkvp"]["directory_misses"]
+    # the CLI and the dashboard: the same aggregates
+    from .dashboard_checks import cli_json, cli_text, dashboard_json
+
+    assert cli_json("disagg")["totals"] == ds["totals"]
+    dash = dashboard_json("/api/disagg")
+    assert dash["totals"] == ds["totals"]
+    sent = [e for e in dash["events"] if e.get("kind") == "kv_publish"]
+    assert sum(e["bytes"] for e in sent) == local["pf"]["published_bytes"]
+    cli_k = cli_json("kvplane")
+    assert cli_k["totals"] == ks["totals"]
+    assert cli_k["directory"] == ks["directory"]
+    dash = dashboard_json("/api/kvplane")
+    assert dash["totals"] == ks["totals"]
+    assert dash["directory"] == ks["directory"]
+    assert {"spill", "tier2_hit"} <= {e.get("kind") for e in dash["events"]}
+    assert cli_json("servefault")["totals"] == ss["totals"]
+    dash = dashboard_json("/api/servefault")
+    assert dash["totals"] == ss["totals"]
+    assert "failover" in {e.get("kind") for e in dash["events"]}
+    for view in ("disagg", "kvplane", "servefault"):
+        assert cli_text(view).startswith("totals: "), view
     return {"transfers": transfers, "spills": local["kvp"]["spills"],
             "sheds": local["router"]["sheds_by_cause"]}
 

@@ -6,8 +6,8 @@ make each one a test case).
 
 The twins of the JAX package's cluster cases carry their names; each
 holds one workload's numbers equal across the object's own `stats()`,
-the state view, the Prometheus text and the merged timeline (the CLI and
-dashboard legs wait for those surfaces). The `port_*` ones check what
+the state view, the Prometheus text, the merged timeline, the CLI's
+`--json` view and the dashboard's route. The `port_*` ones check what
 the JAX tests leave to other layers: every family of the serving plane
 reaching `prometheus_metrics()`, and a decode ACTOR's counters and
 remote phase crossing its process. Every check uses Llama tiny in fp32
@@ -20,6 +20,7 @@ This module imports no torch at the top: the fork template must not.
 """
 from __future__ import annotations
 
+import json
 import re
 import time
 from typing import Any, Callable, Dict, List, Tuple
@@ -27,6 +28,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import ray_tpu_torch as rt
 
 from .cluster_checks import _conductor, _wait_until
+from .dashboard_checks import cli_json, cli_text, dashboard_json
 from .runtime_checks import _worker
 from .serve_checks import BS, _engine, tiny_llama
 
@@ -194,6 +196,15 @@ def kvcache_all_surfaces_report_consistent_numbers():
                and e.get("tid") == "prefix_hit"]
     assert len(markers) == hits
     assert all(m["ph"] == "i" and m["pid"] == "kvcache" for m in markers)
+    # the CLI and the dashboard: the same conductor snapshot
+    cli_out = cli_json("kvcache")
+    assert cli_out["totals"]["hits"] == local["hits"]
+    assert cli_out["totals"]["misses"] == local["misses"]
+    dash = dashboard_json("/api/kvcache")
+    assert dash["totals"]["hits"] == local["hits"]
+    assert dash["totals"]["reused_tokens"] == local["reused_tokens"]
+    assert len([e for e in dash["events"] if e.get("kind") == "prefix_hit"
+                and e.get("engine") == eng.engine_id]) == hits
     return {k: local[k] for k in ("lookups", "hits", "partial_hits",
                                   "misses")}
 
@@ -259,6 +270,15 @@ def speculate_all_surfaces_report_consistent_numbers():
     assert not any(e.get("cat") == "kvcache"
                    and str(e.get("tid", "")).startswith("spec_")
                    for e in trace)
+    # the CLI and the dashboard: the same conductor snapshot
+    assert cli_json("speculate")["totals"]["spec_proposed"] \
+        == local["spec_proposed"]
+    dash = dashboard_json("/api/speculation")
+    assert dash["totals"]["spec_accepted"] == local["spec_accepted"]
+    spec_events = [e for e in dash["events"]
+                   if e.get("engine") == eng.engine_id]
+    assert spec_events and sum(e["accepted"] for e in spec_events) \
+        == local["spec_accepted"]
     return {k: local[k] for k in ("spec_proposed", "spec_accepted")}
 
 
@@ -321,6 +341,11 @@ def lora_surfaces_one_set_of_numbers():
         assert len(lane) == len(events)
         assert any(e["tid"] == "page_in" for e in lane)
         assert any(e["tid"] == "evict" for e in lane)
+        # the CLI and the dashboard: the same aggregate
+        assert cli_json("lora")["totals"] == st["totals"]
+        dash = dashboard_json("/api/lora")
+        assert dash["totals"] == st["totals"]
+        assert any(e["kind"] == "page_in" for e in dash["events"])
     finally:
         eng.stop()
     return {k: ps[k] for k in ("acquires", "hits", "misses", "evictions")}
@@ -400,6 +425,17 @@ def requesttrace_all_surfaces_report_one_set_of_numbers():
     assert all(e["ph"] == "X" for e in req_spans + phase_spans)
     names = {e["name"] for e in phase_spans}
     assert "prefill" in names and "kv_transfer" in names
+    # the CLI and the dashboard: the same aggregate, the kept trace by id
+    assert cli_json("requests")["totals"] == totals
+    replay = cli_json("requests", "--trace", kept_id)
+    assert replay == json.loads(json.dumps(trc))
+    text = cli_text("requests", "--trace", kept_id)
+    assert text.startswith(f"{kept_id}: outcome=") and "prefill" in text
+    dash = dashboard_json("/api/requesttrace")
+    assert dash["totals"] == totals
+    assert [r["request_id"] for r in dash["slowest"]] \
+        == [r["request_id"] for r in st["slowest"]]
+    assert any(e.get("kind") == "trace" for e in dash["events"])
     return {"completed": totals["completed"], "kept": totals["kept"]}
 
 
@@ -610,6 +646,14 @@ def gateway_state_api_sees_gateway_telemetry():
         prom = prometheus_when(lambda t: by_code(t) == {"200": 1.0},
                                what="the gateway's request counter")
         assert "# TYPE ray_tpu_gateway_ttft_ms " in prom
+        # the CLI and the dashboard: the same aggregate
+        assert cli_json("gateway")["totals"] == totals
+        text = cli_text("gateway")
+        assert text.startswith("totals: gateways=1 accepted=1 completed=1")
+        assert f"{gw.gateway_id}: {host}:{port}" in text, text
+        dash = dashboard_json("/api/gateway")
+        assert dash["totals"] == totals
+        assert {"accept", "first_byte"} <= {e["kind"] for e in dash["events"]}
         return {"totals": {k: totals[k] for k in (
             "accepted", "completed", "by_code")}}
     finally:

@@ -11,9 +11,10 @@ recorder's training progress, the weight fabric's registry, the recovery
 subsystem, disaggregated serving, the global KV plane, serving fault
 tolerance, the serving autoscaler, the online learning loop, the MPMD
 pipelines, the paged KV cache, speculation, LoRA tenants, the request
-flight recorder and the HTTP gateway. The oracle's view waits with its
-subsystem (ROADMAP Queue 1); so do the CLI and dashboard surfaces of
-these views.
+flight recorder and the HTTP gateway. The CLI's views
+(scripts/cli.py, `--json`) print these dicts, and the dashboard
+(dashboard/) serves the same conductor calls. The oracle's view waits
+with its subsystem (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -19,8 +19,10 @@ probe_signals` on the same router state (stub replicas answering the
 same free slots and speculation stats), and the timeline's autoscale
 markers.
 
-Not twinned: test_all_surfaces_report_consistent_numbers' CLI and
-dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
+The CLI and dashboard legs of test_all_surfaces_report_consistent_
+numbers (`autoscale --json` and `/api/autoscale` equal to the state
+view, the event tail one scale_up, drain and scale_down) are in the
+same check.
 """
 from __future__ import annotations
 

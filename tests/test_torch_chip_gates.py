@@ -29,7 +29,15 @@ Prometheus. The serve_deploy phase's gates: a replica's stream one token
 off generate() (`hold_stream`), a score in the GPU replica without its
 `ce_fwd` launch or one flash launch short (`hold_launches`), and an
 actor, a live process or the card's lease left after serve.shutdown()
-(`serve_left` / `hold_serve_gone`) each fail. And the script's last
+(`serve_left` / `hold_serve_gone`) each fail. The CLI and dashboard
+legs' gates: /api/serve differing from serve.status() (`hold_serve_view`),
+the replica's drill-down naming another pid or missing the scoring call
+(`hold_actor_detail`), a merged timeline without the actor's scoring
+task or span (`hold_merged_timeline`), /api/objects without the actor's
+worker (`hold_objects`), a metric family missing from one surface
+(`hold_families`), and a dashboard thread, socket or client left after
+its stop (`dashboard_left` / `hold_dashboard_gone`) each fail. And the
+script's last
 sweep (`stop_descendants`), in a process of its own: a live child, a
 grandchild and a zombie child are all stopped and reaped."""
 from __future__ import annotations
@@ -686,6 +694,158 @@ def test_serve_deploy_gone_gate_refuses_anything_left():
         live.kill()
         live.wait()
         zombie.wait()
+
+
+def _serve_status(app_status="RUNNING", model_status="RUNNING",
+                  replicas=("Model#1",)):
+    """A serve status as serve.status() gives it (metrics move)."""
+    return {"proxy": {"ready": True}, "proxies": {"n": ["h", 1]},
+            "applications": {"llm": {
+                "route_prefix": "/serve", "ingress": "Ingress",
+                "status": app_status,
+                "deployments": {
+                    "Model": {"name": "Model", "status": model_status,
+                              "replicas": list(replicas),
+                              "metrics": {"inflight": 1}},
+                    "Ingress": {"name": "Ingress", "status": "RUNNING",
+                                "replicas": ["Ingress#1"],
+                                "metrics": {"inflight": 0}}}}}}
+
+
+@pytest.mark.parametrize("fault", ["app_deploying", "replica_other",
+                                   "no_application"])
+def test_cli_dashboard_serve_gate_refuses_a_differing_view(fault):
+    """/api/serve, serve.status() and `serve status` must show the same
+    applications, statuses and replicas (metrics may move), the app
+    RUNNING with Model and Ingress."""
+    api = _serve_status()
+    moved = _serve_status()
+    moved["applications"]["llm"]["deployments"]["Model"]["metrics"] = {
+        "inflight": 3}
+    chip_smoke.hold_serve_view("serve_deploy", moved, api, api, "llm",
+                               {"Model", "Ingress"})
+    dash = {"app_deploying": _serve_status(app_status="DEPLOYING"),
+            "replica_other": _serve_status(replicas=("Model#2",)),
+            "no_application": {"applications": {}, "proxies": {}}}[fault]
+    with pytest.raises(AssertionError, match="/api/serve"):
+        chip_smoke.hold_serve_view("serve_deploy", dash, api, api, "llm",
+                                   {"Model", "Ingress"})
+
+
+def _detail(pid=4242, start=100.5, end=101.0,
+            name="3c239493.handle_request"):
+    return {"actor": {"actor_id": "3c23" + "0" * 28},
+            "worker": {"pid": pid, "state": "ACTOR"},
+            "recent_tasks": [{"name": "3c239493.handle_request_streaming",
+                              "start": 90.0, "end": 95.0},
+                             {"name": name, "start": start, "end": end}],
+            "store": {"num_objects": 0}}
+
+
+@pytest.mark.parametrize("fault", ["another_pid", "call_outside_window",
+                                   "no_call"])
+def test_cli_dashboard_drilldown_gate_refuses_another_pid(fault):
+    """The replica's drill-down: its worker's pid is the replica's, and a
+    handle_request lies inside the scoring call's window."""
+    aid = "3c23" + "0" * 28
+    window = (100.0, 102.0)
+    chip_smoke.hold_actor_detail("serve_deploy", _detail(), aid, 4242,
+                                 window)
+    bad = {"another_pid": _detail(pid=4243),
+           "call_outside_window": _detail(start=99.0),
+           "no_call": _detail(name="3c239493.where_else")}[fault]
+    with pytest.raises(AssertionError, match="/api/actors/"):
+        chip_smoke.hold_actor_detail("serve_deploy", bad, aid, 4242,
+                                     window)
+
+
+@pytest.mark.parametrize("fault", ["no_task", "no_span", "task_renamed"])
+def test_cli_dashboard_timeline_gate_refuses_a_missing_task(fault):
+    """runtime_surface: the merged timeline must hold the actor's scoring
+    task and its span."""
+    task, span = "ab12cd34.score", "actor:SurfaceActor.score"
+    good = [{"cat": "task", "name": task, "ph": "X"},
+            {"cat": "span", "name": span, "ph": "X"},
+            {"cat": "span", "name": "surface-driver", "ph": "X"}]
+    chip_smoke.hold_merged_timeline("runtime_surface", good, task, span)
+    bad = {"no_task": good[1:],
+           "no_span": [good[0], good[2]],
+           "task_renamed": [{"cat": "task", "name": "ab12cd34.ready",
+                             "ph": "X"}] + good[1:]}[fault]
+    with pytest.raises(AssertionError, match="merged timeline"):
+        chip_smoke.hold_merged_timeline("runtime_surface", bad, task, span)
+
+
+def test_cli_dashboard_objects_gate_refuses_a_missing_worker():
+    objects = [{"worker_id": "w1", "actor_id": None, "num_objects": 2},
+               {"worker_id": "w2", "actor_id": "a" * 32, "num_objects": 0}]
+    chip_smoke.hold_objects("runtime_surface", objects, "a" * 32)
+    with pytest.raises(AssertionError, match="/api/objects"):
+        chip_smoke.hold_objects("runtime_surface", objects[:1], "a" * 32)
+
+
+def test_cli_dashboard_gone_gate_refuses_a_thread_left():
+    """A dashboard's thread, listening socket or open conductor client
+    left after the phase fails (`dashboard_left` over the live process);
+    a stopped one passes."""
+    import socket
+    import threading
+    import types
+
+    from ray_tpu_torch._private.dashboard_checks import dashboard_left
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    stopped = types.SimpleNamespace(
+        host="127.0.0.1", port=port,
+        data=types.SimpleNamespace(
+            conductor=types.SimpleNamespace(_closed=True)))
+    chip_smoke.hold_dashboard_gone("serve_deploy", dashboard_left(stopped))
+    release = threading.Event()
+    th = threading.Thread(target=release.wait, name="dashboard-query_0",
+                          daemon=True)
+    th.start()
+    try:
+        with pytest.raises(AssertionError, match="the dashboard left"):
+            chip_smoke.hold_dashboard_gone("serve_deploy",
+                                           dashboard_left(stopped))
+    finally:
+        release.set()
+        th.join()
+    listening = socket.socket()
+    listening.bind(("127.0.0.1", 0))
+    listening.listen()
+    try:
+        left = dashboard_left(types.SimpleNamespace(
+            host="127.0.0.1", port=listening.getsockname()[1],
+            data=stopped.data))
+        assert left["listening"] and not left["threads"]
+        with pytest.raises(AssertionError, match="the dashboard left"):
+            chip_smoke.hold_dashboard_gone("serve_deploy", left)
+    finally:
+        listening.close()
+    left = dashboard_left(types.SimpleNamespace(
+        host="127.0.0.1", port=port, data=types.SimpleNamespace(
+            conductor=types.SimpleNamespace(_closed=False))))
+    with pytest.raises(AssertionError, match="the dashboard left"):
+        chip_smoke.hold_dashboard_gone("serve_deploy", left)
+
+
+def test_cli_dashboard_families_gate_refuses_a_missing_family():
+    text = ("# HELP serve_requests_total requests handled\n"
+            "# TYPE serve_requests_total counter\n"
+            "serve_requests_total{WorkerId=\"ab\"} 3.0\n"
+            "# TYPE serve_replica_inflight gauge\n"
+            "serve_replica_inflight{WorkerId=\"ab\"} 0.0\n")
+    assert chip_smoke.hold_families("serve_deploy", text, text, text) == {
+        "serve_requests_total", "serve_replica_inflight"}
+    short = "\n".join(text.splitlines()[:3]) + "\n"
+    with pytest.raises(AssertionError, match="metric families differ"):
+        chip_smoke.hold_families("serve_deploy", text, short, text)
+    with pytest.raises(AssertionError, match="metric families differ"):
+        chip_smoke.hold_families("serve_deploy", "", "", "")
 
 
 def test_sweep_stops_every_descendant():

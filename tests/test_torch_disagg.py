@@ -18,10 +18,11 @@ numbers across the state views, the stats and the timeline.
 
 Not twinned: test_serve_router_sheds_with_max_queued_requests waits for
 the port of serve/ (deployments and their Router),
-test_load_harness_smoke_records_and_sheds for bench_serve.py, and
-test_all_surfaces_report_consistent_numbers' CLI and dashboard legs
-for those surfaces (ROADMAP Queue 1 items 7-8; its state-API, timeline
-and Prometheus legs are `port_disagg_one_set_of_numbers`).
+and test_load_harness_smoke_records_and_sheds for bench_serve.py.
+test_all_surfaces_report_consistent_numbers is
+`port_disagg_one_set_of_numbers`: its state-API, timeline and
+Prometheus legs, and its CLI and dashboard legs (`disagg`, `kvplane`
+and `servefault --json` and their routes equal to the state views).
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@ handlers, `summarize_run` and the step markers against JAX's on the
 same records, and the timer's batching.
 
 Not twinned: that test's spans and MFU legs (util/tracing.py and the
-CPU's unknown peak), and its CLI and dashboard legs (ROADMAP Queue 1
-items 7-8).
+CPU's unknown peak). Its CLI and dashboard legs
+(test_train_status_cli_and_dashboard_route) are a check run by
+tests/test_torch_dashboard.py.
 """
 from __future__ import annotations
 

@@ -18,10 +18,10 @@ byte accounting under one script. The speculation discount of the
 autoscaler's DisaggPolicy (serve/autoscale.py), each case on both
 packages' policies, their decisions compared.
 
-Not twinned: test_all_surfaces_report_consistent_numbers' CLI and
-dashboard legs wait for those surfaces (ROADMAP Queue 1 items 7-8; its
-state-API, timeline and Prometheus legs are serve_checks.port_disagg_
-one_set_of_numbers, run by tests/test_torch_disagg.py).
+test_all_surfaces_report_consistent_numbers is serve_checks.port_disagg_
+one_set_of_numbers, run by tests/test_torch_disagg.py: its state-API,
+timeline and Prometheus legs, and its CLI and dashboard legs
+(`kvplane --json` and `/api/kvplane`, totals and directory).
 """
 from __future__ import annotations
 

@@ -592,9 +592,9 @@ def test_fabric_source_and_tenant_trainer():
 
 
 # ------------------------------------------- the surfaces, in a cluster
-# tests/test_lora.py test_lora_surfaces_one_set_of_numbers's state, Prometheus and timeline legs: a check of
-# `_private/telemetry_checks.py` in a driver process of its own (its CLI
-# and dashboard legs wait for those surfaces, ROADMAP Queue 1 items 7-8).
+# tests/test_lora.py test_lora_surfaces_one_set_of_numbers's state, Prometheus,
+# timeline, CLI and dashboard legs: a check of `_private/telemetry_checks.py`
+# in a driver process of its own.
 
 SURFACE_CHECKS = {"lora_surfaces_one_set_of_numbers": {
     "num_cpus": 4, "_system_config": {"log_to_driver": 0}}}

@@ -20,9 +20,11 @@ params and stepped with `optax.adamw(1e-3)`, at fp32 tolerance (rtol
 tests/test_torch_train.py's Adam rule. A channel carries a bf16 and an
 fp32 tree bit for bit.
 
+The CLI and dashboard legs (`pipeline --json`, `pipeline --events`,
+`/api/pipeline`) are in `mpmd_all_surfaces_report_consistent_numbers`.
+
 Not twinned: test_builtin_pipeline_layouts_report_bubble
-(analysis/layouts.py, ROADMAP Queue 1 item 7) and the CLI / dashboard
-legs (items 7-8).
+(analysis/layouts.py, ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

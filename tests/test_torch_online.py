@@ -30,8 +30,9 @@ aggregates for one report sequence, and the online lane's markers.
 Tolerances are tests/test_ops.py's fp32 ones (atol 2e-5, rtol 2e-4) and
 tests/test_torch_train.py's 1e-6 for the optimizer.
 
-Not twinned: test_online_distillation_e2e's CLI and dashboard legs wait
-for those surfaces (ROADMAP Queue 1 items 7-8).
+test_online_distillation_e2e's CLI and dashboard legs (`online
+--json` and `/api/online` equal to the state view, `online --events`
+rendering) are in its check.
 """
 from __future__ import annotations
 

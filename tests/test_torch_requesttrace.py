@@ -29,8 +29,9 @@ errors and streams, the stream's ``sse_flush`` phase, and a preempted
 stream's replay under one id (its interactive request sent once the batch
 stream's first SSE frame has been read, not after a sleep).
 
-Not twinned: the CLI and dashboard legs of
-test_all_surfaces_report_one_set_of_numbers (ROADMAP Queue 1 items 7-8).
+The CLI and dashboard legs of test_all_surfaces_report_one_set_of_
+numbers (`requests --json`, `requests --trace ID` and
+`/api/requesttrace`) are in its check.
 """
 from __future__ import annotations
 

@@ -25,9 +25,12 @@ through its factory while the stream completes (`serve_checks.
 servefault_actor_decode_kill_mid_stream_heals_and_completes`, its
 streams held against the JAX engine).
 
+The CLI and dashboard legs of test_all_surfaces_report_one_set_of_
+numbers (`servefault --json` and `/api/servefault` equal to the state
+view, the tail holding failover and replace) are in that actor check.
+
 Not twinned: test_generic_replica_drain_rejects_with_cause waits for
-serve/replica.py; test_all_surfaces_report_one_set_of_numbers' CLI and
-dashboard legs for those surfaces (ROADMAP Queue 1 items 7-8).
+serve/replica.py.
 """
 from __future__ import annotations
 

@@ -470,9 +470,9 @@ def test_cancel_under_speculation_frees_the_slot(model):
 
 
 # ------------------------------------------- the surfaces, in a cluster
-# tests/test_speculate.py test_all_surfaces_report_consistent_numbers's state, Prometheus and timeline legs: a check of
-# `_private/telemetry_checks.py` in a driver process of its own (its CLI
-# and dashboard legs wait for those surfaces, ROADMAP Queue 1 items 7-8).
+# tests/test_speculate.py test_all_surfaces_report_consistent_numbers's state,
+# Prometheus, timeline, CLI and dashboard legs: a check of
+# `_private/telemetry_checks.py` in a driver process of its own.
 
 SURFACE_CHECKS = {"speculate_all_surfaces_report_consistent_numbers": {
     "num_cpus": 4, "_system_config": {"log_to_driver": 0}}}
